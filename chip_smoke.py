@@ -10,13 +10,17 @@ which ends the run with a non-zero exit code when it fails:
    ``yolo_deepsort_tpu_torch/build/``).
 2. kernels vs plain, at the serving path's shapes, each held to its plain
    PyTorch version on the same inputs with the tolerance stated below:
-     letterbox  (8, 1080, 1920, 3) uint8 -> (8, 416, 416, 3) bf16
-     crops      8 frames x 40 boxes, window (320, 192) -> (8, 40, 128, 64, 3)
-     tracker    a seeded 10-frame scene, S=8 streams, T=128, D=40, F=512
-                (plain version on CPU copies; discrete state exactly equal)
+     letterbox     (8, 1080, 1920, 3) uint8 -> (8, 416, 416, 3) bf16
+     crops         8 frames x 40 boxes, window (320, 192) -> (8, 40, 128, 64, 3)
+     tracker       a seeded 10-frame scene, S=8 streams, T=128, D=40, F=512
+                   (plain version on CPU copies; discrete state exactly equal)
+     jv_cascade    S=8 seeded cascades, R=128 rows, C=64 columns (NC=192):
+     jv_two_stage  exact ties, INFTY gates, inactive rows, levels 0-5, a
+                   stream with no active row (plain on CPU copies; every
+                   assignment exactly equal)
    The kernel times are CUDA-event means of repeated launches on the same
-   inputs (the tracker: the kernel alone, with its whole wrapper step by
-   host clock beside it).
+   inputs (the tracker and the JV solvers: the kernel alone, with the whole
+   wrapper beside it).
 3. small path: ``BucketedScannedStep`` on the card against the same step on
    the CPU, where every wrapper runs its plain version (yolov3-tiny at 64,
    2 streams of 64x128, 3 chunks of K=2; ``check_small_path``).
@@ -28,15 +32,29 @@ which ends the run with a non-zero exit code when it fails:
    rows, one wait per chunk for the stats readback and no other
    synchronizing CUDA call (sync debug mode "error"), and that each
    kernel's launch counter moved during the counted run.
+5. public JV ops (``run_jv_ops``): ``solve_cascade_assignment_fused`` and
+   ``solve_masked_assignment_fused`` on the card over 8 streams of
+   tracker-sized problems, equal to the same ops on the CPU.
+6. facades (``run_facades``): the ``Darknet`` facade loads a yolov3-416
+   ``.weights`` file written from the seeded weights; ``VideoTracker``
+   (bf16, one 1080p stream, threshold calibrated to ~32 detections) runs
+   ``track_frame`` over 12 static frames -- confirmed rows from frame
+   n_init on, kernels K1 and K5 once per frame, K3 never, one readback per
+   call and no other synchronizing call -- then one ``track_frames`` chunk
+   of K=4 (K1, K2, K3); ``DeepSort.update`` on the card over a seeded
+   12-frame 1080p scene of ~32 textured walking objects with dropouts
+   gives exactly the rows of ``DeepSort(device="cpu")``.
 
-Prints frames/s and per-stage times, a JSON line of per-kernel results, the
-card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.
+Each of paths 4-6 is run with the launch counters set to 0 just before it
+and read just after. Prints frames/s and per-stage times, the facades' ms
+per call, a JSON line of per-kernel results, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and the main path's setup, then prints where its time
-goes instead (``profile_main_path``), with no result line.
+builds the kernels and the main path's and the facades' setups, then
+prints where their time goes instead (``profile_main_path``,
+``profile_facades``), with no result line.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +75,8 @@ BOX_PRIOR_ASPECT = 0.41
 
 STREAMS, FRAME_H, FRAME_W, K_FRAMES, CHUNKS = 8, 1080, 1920, 4, 6
 TARGET_DETS = 32
+JV_SHAPE = (8, 128, 64)  # streams, rows (max_tracks), columns (max_dets)
+FACADE_FRAMES = 12
 
 # tolerances of the kernel-vs-plain phase
 TOL_LETTERBOX = 2.0 ** -8  # one bf16 ulp of a value in [0.5, 1): rounding
@@ -486,6 +507,325 @@ def run_main_path(dev):
     return launches
 
 
+def jv_problem(rng, s, r, c):
+    """A seeded batch of two-stage JV problems (torch CPU tensors): costs
+    on a coarse grid (exact ties), INFTY gates, inactive rows and columns,
+    cascade levels 0-5, per-stream stage-A thresholds, stream 0 with no
+    active stage-A row."""
+    import torch
+
+    cost_a = rng.integers(0, 12, (s, r, c)).astype(np.float32) / 40
+    cost_a[rng.uniform(size=(s, r, c)) < 0.3] = 1e5
+    levels = rng.integers(0, 6, (s, r)).astype(np.int32)
+    rows_a = rng.uniform(size=(s, r)) < 0.6
+    rows_a[0] = False
+    cols = rng.uniform(size=(s, c)) < 0.85
+    cost_b = rng.integers(0, 30, (s, r, c)).astype(np.float32) / 30
+    cost_b[rng.uniform(size=(s, r, c)) < 0.2] = 1e5
+    rows_b = (rng.uniform(size=(s, r)) < 0.4) | (
+        rows_a & (rng.uniform(size=(s, r)) < 0.5))
+    maxd_a = (rng.integers(3, 9, s) / 40).astype(np.float32)
+    return [torch.from_numpy(v) for v in (cost_a, levels, rows_a, cols,
+                                          maxd_a, cost_b, rows_b)]
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() (CPU work, or CUDA work it syncs)."""
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _synced(fn):
+    import torch
+
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def check_jv_cascade(rng, dev):
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+
+    prob = jv_problem(rng, *JV_SHAPE)[:5]
+    on_dev = [v.to(dev) for v in prob]
+    got = AK.cascade_cuda(*on_dev).cpu()
+    want = AK.solve_cascade_assignment_fused(*prob)
+    if not torch.equal(got, want) or int((want >= 0).sum()) == 0:
+        raise AssertionError("jv_cascade: kernel assignments differ from "
+                             "the plain solver (or nothing matched)")
+    bufs = AK.prep(*on_dev)
+    kernel_ms = cuda_ms(lambda: AK.cascade_kernel(*bufs), 50)
+    wrapper_ms = _host_ms(_synced(lambda: AK.cascade_cuda(*on_dev)), 10)
+    plain_ms = _host_ms(lambda: AK.solve_cascade_assignment_fused(*prob), 5)
+    return 0.0, kernel_ms, plain_ms, (
+        f" (CPU), {int((want >= 0).sum())} matches; whole wrapper "
+        f"{wrapper_ms:.4f} ms (host clock)")
+
+
+def check_jv_two_stage(rng, dev):
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+
+    prob = jv_problem(rng, *JV_SHAPE)
+    args = prob + [0.7]
+    on_dev = [v.to(dev) for v in prob] + [0.7]
+    got = AK.two_stage_cuda(*on_dev)
+    want = AK.solve_two_stage_assignment_fused(*args)
+    for stage, g, w in zip("AB", got, want):
+        if not torch.equal(g.cpu(), w) or int((w >= 0).sum()) == 0:
+            raise AssertionError(f"jv_two_stage: stage {stage} assignments "
+                                 "differ from the plain solver (or nothing "
+                                 "matched)")
+    bufs = AK.two_stage_prep(*on_dev)
+    c = JV_SHAPE[2]
+    kernel_ms = cuda_ms(lambda: AK.two_stage_kernel(*bufs, c), 50)
+    wrapper_ms = _host_ms(_synced(lambda: AK.two_stage_cuda(*on_dev)), 10)
+    plain_ms = _host_ms(lambda: AK.solve_two_stage_assignment_fused(*args),
+                        5)
+    return 0.0, kernel_ms, plain_ms, (
+        f" (CPU), {int((want[0] >= 0).sum())} + {int((want[1] >= 0).sum())}"
+        f" matches; whole wrapper {wrapper_ms:.4f} ms (host clock)")
+
+
+def run_jv_ops(dev):
+    """The public JV ops on the card over 8 streams of tracker-sized
+    problems, against the same ops on the CPU. Returns K4's launches."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+
+    cost, levels, rows, cols, maxd, cost_b, rows_b = jv_problem(
+        np.random.default_rng(7), *JV_SHAPE)
+    AK.cascade_launches = 0
+    got = [AK.solve_cascade_assignment_fused(
+        *(v.to(dev) for v in (cost, levels, rows, cols, maxd))),
+        AK.solve_masked_assignment_fused(
+            *(v.to(dev) for v in (cost_b, rows_b, cols)), 0.7)]
+    launches = AK.cascade_launches
+    want = [AK.solve_cascade_assignment_fused(cost, levels, rows, cols, maxd),
+            AK.solve_masked_assignment_fused(cost_b, rows_b, cols, 0.7)]
+    for name, g, w in zip(("cascade", "masked"), got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"public JV op {name}: card and CPU differ")
+    if launches != 2:
+        raise AssertionError(f"public JV ops: {launches} K4 launches, not 2")
+    print(f"public JV ops (S={JV_SHAPE[0]}, R={JV_SHAPE[1]}, C="
+          f"{JV_SHAPE[2]}): cascade and masked solves on the card equal the "
+          f"CPU ({int((want[0] >= 0).sum())} and {int((want[1] >= 0).sum())}"
+          f" matches); K4 launches {launches}", flush=True)
+    return launches
+
+
+def _walking_scene(rng, n_obj, n_frames, h, w):
+    """Textured objects walking on a jittered grid, one per cell (no two
+    boxes overlap), each missing from ~15% of frames (occlusions): (frames
+    (N, H, W, 3) uint8, per-frame (n, 4) cx, cy, w, h boxes)."""
+    rows, cols = 4, (n_obj + 3) // 4
+    cell_h, cell_w = h // rows, w // cols
+    # sizes and drift keep every box inside its cell and the frame
+    sizes = np.stack([rng.uniform(40, 0.6 * cell_w, n_obj),
+                      rng.uniform(100, 0.6 * cell_h, n_obj)], 1).astype(int)
+    centre = np.stack([(np.arange(n_obj) % cols + 0.5) * cell_w,
+                       (np.arange(n_obj) // cols + 0.5) * cell_h], 1)
+    centre += rng.uniform(-8, 8, centre.shape)
+    vel = rng.uniform(-3, 3, (n_obj, 2))
+    textures = [rng.integers(0, 256, (bh, bw, 3), np.uint8)
+                for bw, bh in sizes]
+    frames = np.full((n_frames, h, w, 3), 30, np.uint8)
+    boxes = []
+    for t in range(n_frames):
+        seen = rng.uniform(size=n_obj) > 0.15
+        rows_t = []
+        for i in np.flatnonzero(seen):
+            cx, cy = centre[i] + vel[i] * t
+            bw, bh = sizes[i]
+            x1, y1 = int(cx - bw / 2), int(cy - bh / 2)
+            frames[t, y1:y1 + bh, x1:x1 + bw] = textures[i]
+            rows_t.append((cx, cy, bw, bh))
+        boxes.append(np.array(rows_t, np.float32))
+    return frames, boxes
+
+
+def facade_setup(dev, tmp_dir):
+    """The ``Darknet`` facade (yolov3-416) loaded from a ``.weights`` file
+    of the seeded weights, a 1080p frame, and a bf16 ``VideoTracker`` whose
+    threshold lets ~TARGET_DETS candidates through, warmed up and reset."""
+    import torch
+
+    from specs.weights_np import random_darknet_weights
+    from yolo_deepsort_tpu_torch import api
+    from yolo_deepsort_tpu_torch.ops import letterbox_kernel
+    from yolo_deepsort_tpu_torch.weights import (
+        load_darknet_weights,
+        save_darknet_weights,
+    )
+
+    model = api.Darknet("yolov3", img_size=416, device=dev)
+    blob = random_darknet_weights(model.plan.defs(), seed=0,
+                                  well_conditioned=True)
+    header, raw = load_darknet_weights(blob, model.plan.defs())
+    raw = plant_box_prior(raw, model.plan, (FRAME_H, FRAME_W))
+    path = f"{tmp_dir}/yolov3-416.weights"
+    save_darknet_weights(path, header, raw, model.plan.defs())
+    model.load_darknet_weights(path)
+
+    frame = np.random.default_rng(3).integers(
+        0, 256, (FRAME_H, FRAME_W, 3), np.uint8)
+    with torch.no_grad():
+        x = letterbox_kernel.letterbox_batch_fused(
+            torch.from_numpy(frame[None]).to(dev), 416, torch.bfloat16)
+        obj = model.module_for(torch.bfloat16)(x)[0, :, 4]
+    thr = float(torch.sort(obj, descending=True).values[TARGET_DETS - 1])
+    vt = api.VideoTracker(model, tracked_classes=None, conf_thres=thr,
+                          half=True)
+    vt.track_frame(frame)  # warm-up: library handles, the bf16 model copy
+    vt.reset()
+    return frame, thr, vt
+
+
+def run_facades(dev, tmp_dir):
+    """The public facades on the card at full width (``run_facades`` in
+    the module docstring). Returns K5's launches."""
+    import torch
+
+    from yolo_deepsort_tpu_torch import api
+    from yolo_deepsort_tpu_torch.ops import (
+        assignment_kernel,
+        crops_kernel,
+        letterbox_kernel,
+    )
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
+
+    frame, thr, vt = facade_setup(dev, tmp_dir)
+    n_init = vt.trk_cfg.n_init
+    counters = (letterbox_kernel, crops_kernel, tracker_kernel)
+    for k in counters:
+        k.launches = 0
+    assignment_kernel.two_stage_launches = 0
+    readbacks, ms, rows = vt.host_readbacks, [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(FACADE_FRAMES):
+            t0 = time.perf_counter()
+            rows.append(vt.track_frame(frame))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per_frame = {"letterbox": letterbox_kernel.launches,
+                 "crops": crops_kernel.launches,
+                 "tracker": tracker_kernel.launches,
+                 "jv_two_stage": assignment_kernel.two_stage_launches}
+    readbacks = vt.host_readbacks - readbacks
+    counts = [len(r) for r in rows]
+    if (any(counts[:n_init - 1]) or not all(counts[n_init - 1:])
+            or readbacks != FACADE_FRAMES):
+        raise AssertionError(f"track_frame: rows per frame {counts}, "
+                             f"{readbacks} readbacks in {FACADE_FRAMES} calls")
+    want = {"letterbox": FACADE_FRAMES, "crops": 0, "tracker": 0,
+            "jv_two_stage": FACADE_FRAMES}
+    if per_frame != want:
+        raise AssertionError(f"track_frame launches {per_frame}, expected "
+                             f"{want}")
+    track_frame_ms = float(np.median(ms[1:]))
+
+    for k in counters:
+        k.launches = 0
+    chunk = vt.track_frames(np.stack([frame] * 4))
+    chunked = {k.__name__.rsplit(".", 1)[1]: k.launches for k in counters}
+    if min(chunked.values()) == 0 or not all(len(r) for r in chunk):
+        raise AssertionError(f"track_frames: launches {chunked}, rows per "
+                             f"frame {[len(r) for r in chunk]}")
+
+    # DeepSort: the card against the CPU on one seeded scene
+    frames, boxes = _walking_scene(np.random.default_rng(5), TARGET_DETS,
+                                   FACADE_FRAMES, FRAME_H, FRAME_W)
+    conf = [np.full(len(b), 0.9, np.float32) for b in boxes]
+    api.DeepSort(device=dev).update(boxes[0], conf[0], frames[0])  # warm-up
+    card, cpu = api.DeepSort(device=dev), api.DeepSort(device="cpu")
+    assignment_kernel.two_stage_launches = 0
+    card_ms, emitted = [], 0
+    for t in range(FACADE_FRAMES):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            got = card.update(boxes[t], conf[t], frames[t])
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want_rows = cpu.update(boxes[t], conf[t], frames[t])
+        if not np.array_equal(got, want_rows):
+            raise AssertionError(f"DeepSort frame {t}: card rows differ "
+                                 f"from the CPU's:\n{got}\n{want_rows}")
+        emitted += len(got)
+    update_launches = assignment_kernel.two_stage_launches
+    if (emitted == 0 or card.host_readbacks != FACADE_FRAMES
+            or update_launches != FACADE_FRAMES):
+        raise AssertionError(f"DeepSort: {emitted} rows, "
+                             f"{card.host_readbacks} readbacks, "
+                             f"{update_launches} K5 launches")
+    update_ms = float(np.median(card_ms[1:]))
+    print(f"facades (yolov3-416 bf16 from a .weights file, 1 x {FRAME_H}p, "
+          f"threshold {thr:.4f}): track_frame x{FACADE_FRAMES} rows per frame "
+          f"{counts}, launches {per_frame}, 1 readback per call and no other "
+          f"sync, median {track_frame_ms:.4f} ms per call; track_frames K=4 "
+          f"launches {chunked}, rows {[len(r) for r in chunk]}; "
+          f"DeepSort.update x{FACADE_FRAMES} ({sum(len(b) for b in boxes)} "
+          f"boxes, f32 ReID) card rows == CPU rows ({emitted} rows), "
+          f"{update_launches} K5 launches, median {update_ms:.4f} ms per "
+          f"call", flush=True)
+    return per_frame["jv_two_stage"] + update_launches
+
+
+def _timed(fn, repeats: int):
+    """(last result, median host ms) of fn() between two synchronizes."""
+    import torch
+
+    out, ms = None, []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(ms))
+
+
+def _device_profile(run, units: int, unit: str, unprofiled_ms: float):
+    """``torch.profiler`` over run(), which does ``units`` units of work:
+    prints the device time per unit, the device ops per unit, the idle share
+    against ``unprofiled_ms`` per unit, and the top 15 device ops."""
+    import torch
+
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    per_kernel = {}  # name -> [launches, device us] over the run
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = per_kernel.setdefault(e.name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us()
+    dev_ms = sum(us for _, us in per_kernel.values()) / 1e3 / units
+    print(f"profile: device time per {unit} {dev_ms:.4f} ms over "
+          f"{sum(n for n, _ in per_kernel.values()) // units} device ops; "
+          f"unprofiled {unit} {unprofiled_ms:.4f} ms; idle share "
+          f"{1 - dev_ms / unprofiled_ms:.4f}", flush=True)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (n, us) in top:
+        print(f"profile:   {us / 1e3 / units:9.4f} ms/{unit} "
+              f"{n // units:6d} per {unit}  {name[:100]}")
+
+
 def profile_main_path(dev, repeats: int = 5):
     """``--profile``: where the main path's time goes. Prints, on the setup
     of ``run_main_path``: the pipelined chunk with the event readback
@@ -529,14 +869,7 @@ def profile_main_path(dev, repeats: int = 5):
           f"copy readback {ab[False]}", flush=True)
 
     def timed(fn):
-        out, ms = None, []
-        for _ in range(repeats):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return out, float(np.median(ms))
+        return _timed(fn, repeats)
 
     handle, detect_ms = timed(lambda: step.detect(frames))
     _, track_ms = timed(lambda: step.track(states, handle))
@@ -569,27 +902,86 @@ def profile_main_path(dev, repeats: int = 5):
           f"ReID embed ({crops.shape[0] * crops.shape[1]} crops) "
           f"{reid_ms:.4f}, one tracker step {trk_ms:.4f} ms", flush=True)
 
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    def advance():
+        nonlocal states
         states, _ = pipelined(step, states, frames, 4)
-        torch.cuda.synchronize()
 
-    per_kernel = {}  # name -> [launches, device us] over the 4 chunks
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            acc = per_kernel.setdefault(e.name, [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.time_range.elapsed_us()
-    dev_ms = sum(us for _, us in per_kernel.values()) / 1e3 / 4
-    unprofiled = float(np.median(ab[True]))
-    print(f"profile: device time per chunk {dev_ms:.4f} ms over "
-          f"{sum(n for n, _ in per_kernel.values()) // 4} device ops; "
-          f"unprofiled chunk {unprofiled:.4f} ms; idle share "
-          f"{1 - dev_ms / unprofiled:.4f}", flush=True)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
-    for name, (n, us) in top:
-        print(f"profile:   {us / 1e3 / 4:9.4f} ms/chunk {n // 4:6d} per "
-              f"chunk  {name[:100]}")
+    _device_profile(advance, 4, "chunk", float(np.median(ab[True])))
+
+
+def profile_facades(dev, tmp_dir, repeats: int = 5):
+    """``--profile``: where a facade call's time goes, on the setup of
+    ``run_facades``: ``VideoTracker.track_frame`` whole and each part alone
+    by host clock around a synchronize (medians of ``repeats``), then the
+    device time per call from ``torch.profiler`` over 4 calls, its top ops
+    and idle share; the same for ``DeepSort.update`` on the smoke scene."""
+    import torch
+
+    from yolo_deepsort_tpu_torch import api
+    from yolo_deepsort_tpu_torch.ops import boxes as B
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.ops.nms import batched_nms
+    from yolo_deepsort_tpu_torch.parallel.streams import _frame_boxes
+    from yolo_deepsort_tpu_torch.tracking.tracker import tracker_step
+
+    frame, _, vt = facade_setup(dev, tmp_dir)
+    for _ in range(4):  # confirmed tracks, galleries filling
+        vt.track_frame(frame)
+    _, call_ms = _timed(lambda: vt.track_frame(frame), repeats)
+    det, trk, dtype = vt.det_cfg, vt.trk_cfg, vt.compute_dtype
+    hw = (FRAME_H, FRAME_W)
+    with torch.no_grad():
+        up, up_ms = _timed(lambda: torch.from_numpy(frame[None]).pin_memory()
+                           .to(dev, non_blocking=True), repeats)
+        x, lb_ms = _timed(lambda: letterbox_batch_fused(
+            up, det.img_size, dtype), repeats)
+        dec, bb_ms = _timed(lambda: vt.model.module_for(dtype)(x), repeats)
+        (b7, mask), nms_ms = _timed(lambda: batched_nms(
+            dec, det.conf_thres, det.nms_thres, det.max_boxes,
+            trk.max_dets), repeats)
+        xyxy, tlwh = _frame_boxes(b7, det.img_size, *hw)
+        crops, crops_ms = _timed(lambda: crop_and_normalize(
+            up[0], xyxy[0], compute_dtype=dtype), repeats)
+        feats, reid_ms = _timed(lambda: vt.reid(crops), repeats)
+        _, trk_ms = _timed(lambda: tracker_step(
+            trk, vt.state, tlwh, b7[..., 5], feats[None], mask, hw), repeats)
+    print(f"profile: track_frame {call_ms:.4f} ms per call; alone: upload "
+          f"{up_ms:.4f}, letterbox {lb_ms:.4f}, backbone + decode "
+          f"{bb_ms:.4f}, NMS {nms_ms:.4f}, dense crops {crops_ms:.4f}, ReID "
+          f"embed ({crops.shape[0]} crops) {reid_ms:.4f}, tracker step with "
+          f"K5 {trk_ms:.4f} ms", flush=True)
+    _device_profile(lambda: [vt.track_frame(frame) for _ in range(4)], 4,
+                    "track_frame", call_ms)
+
+    frames, boxes = _walking_scene(np.random.default_rng(5), TARGET_DETS,
+                                   FACADE_FRAMES, FRAME_H, FRAME_W)
+    ds = api.DeepSort(device=dev)
+    for t in range(4):
+        ds.update(boxes[t], np.full(len(boxes[t]), 0.9), frames[t])
+    conf = np.full(len(boxes[4]), 0.9)
+    _, upd_ms = _timed(lambda: ds.update(boxes[4], conf, frames[4]), repeats)
+    n, d = len(boxes[4]), ds.cfg.max_dets
+    tl = np.zeros((1, d, 4), np.float32)
+    tl[0, :n, :2] = boxes[4][:, :2] - boxes[4][:, 2:] / 2
+    tl[0, :n, 2:] = boxes[4][:, 2:]
+    tl = torch.from_numpy(tl).to(dev)
+    cf = torch.from_numpy(np.where(np.arange(d) < n, 0.9, 0.0)[None].astype(
+        np.float32)).to(dev)
+    img = torch.from_numpy(frames[4]).to(dev)
+    with torch.no_grad():
+        crops, crops_ms = _timed(lambda: crop_and_normalize(
+            img, B.tlwh_to_xyxy(tl[0])), repeats)
+        feats, reid_ms = _timed(lambda: ds.reid(crops), repeats)
+        _, trk_ms = _timed(lambda: tracker_step(
+            ds.cfg, ds.state, tl, cf, feats[None], cf > 0, hw), repeats)
+    print(f"profile: DeepSort.update {upd_ms:.4f} ms per call; alone: dense "
+          f"crops {crops_ms:.4f}, ReID embed ({d} crops, f32) {reid_ms:.4f}, "
+          f"tracker step with K5 {trk_ms:.4f} ms", flush=True)
+    _device_profile(lambda: [ds.update(boxes[4], conf, frames[4])
+                             for _ in range(4)], 4, "update", upd_ms)
 
 
 def main() -> int:
@@ -614,13 +1006,17 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(dev)
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            profile_facades(dev, tmp_dir)
         return 0
 
     rng = np.random.default_rng(1)
     results = {}
     for name, check in (("letterbox", check_letterbox),
                         ("crops", check_crops),
-                        ("tracker", check_tracker)):
+                        ("tracker", check_tracker),
+                        ("jv_cascade", check_jv_cascade),
+                        ("jv_two_stage", check_jv_two_stage)):
         err, ms, plain_ms, note = check(rng, dev)
         results[name] = (err, ms, plain_ms)
         print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms, "
@@ -633,18 +1029,23 @@ def main() -> int:
           f"{bucket}, window {window}", flush=True)
 
     launches = run_main_path(dev)
+    launches["jv_cascade"] = run_jv_ops(dev)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        launches["jv_two_stage"] = run_facades(dev, tmp_dir)
     src = "yolo_deepsort_tpu_torch/csrc/"
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
         "crops": ("crops.cu", "yolo_deepsort_tpu/ops/pallas_crops.py:150"),
         "tracker": ("tracker.cu", "yolo_deepsort_tpu/tracking/tracker_pallas.py:127"),
+        "jv_cascade": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:158"),
+        "jv_two_stage": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:174"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src + meta[name][0],
         "replaces": meta[name][1], "launches": launches[name],
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2],
-    } for name in ("letterbox", "crops", "tracker")]
+    } for name in meta]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,16 @@ import pytest
 import torch
 
 from yolo_deepsort_tpu_torch.config import TrackerConfig
-from yolo_deepsort_tpu_torch.ops import crops_kernel, letterbox_kernel
+from yolo_deepsort_tpu_torch.ops import (
+    assignment_kernel,
+    crops_kernel,
+    letterbox_kernel,
+)
 from yolo_deepsort_tpu_torch.tracking import tracker_kernel
-from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
+from yolo_deepsort_tpu_torch.tracking.tracker import (
+    init_tracker_state,
+    tracker_step,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -121,3 +128,77 @@ def test_tracker_kernel_vs_plain(cuda_device, case):
                               atol=2e-3), f
         assert torch.allclose(p_state.gallery, k_state.gallery.cpu(),
                               rtol=1e-5, atol=1e-6), f
+
+
+def jv_problem(rng, s, r, c):
+    """A seeded batch of two-stage problems: costs on a coarse grid (exact
+    ties), INFTY gates, inactive rows and columns, cascade levels 0-5,
+    per-stream stage-A thresholds, and (with S > 1) stream 0 with no active
+    stage-A row."""
+    cost_a = rng.integers(0, 12, (s, r, c)).astype(np.float32) / 40
+    cost_a[rng.uniform(size=(s, r, c)) < 0.3] = 1e5
+    levels = rng.integers(0, 6, (s, r)).astype(np.int32)
+    rows_a = rng.uniform(size=(s, r)) < 0.6
+    if s > 1:
+        rows_a[0] = False
+    cols = rng.uniform(size=(s, c)) < 0.85
+    cost_b = rng.integers(0, 30, (s, r, c)).astype(np.float32) / 30
+    cost_b[rng.uniform(size=(s, r, c)) < 0.2] = 1e5
+    rows_b = (rng.uniform(size=(s, r)) < 0.4) | (
+        rows_a & (rng.uniform(size=(s, r)) < 0.5))
+    maxd_a = (rng.integers(3, 9, s) / 40).astype(np.float32)
+    return [torch.from_numpy(v) for v in (cost_a, levels, rows_a, cols,
+                                          maxd_a, cost_b, rows_b)]
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 64), (3, 72, 48), (1, 128, 64)])
+def test_jv_kernels_vs_plain(cuda_device, shape):
+    cost_a, levels, rows_a, cols, maxd_a, cost_b, rows_b = jv_problem(
+        np.random.default_rng(sum(shape)), *shape)
+    dev = [v.to(cuda_device) for v in (cost_a, levels, rows_a, cols, maxd_a)]
+    before = assignment_kernel.cascade_launches
+    got = assignment_kernel.solve_cascade_assignment_fused(*dev)
+    assert assignment_kernel.cascade_launches == before + 1
+    want = assignment_kernel.solve_cascade_assignment_fused(
+        cost_a, levels, rows_a, cols, maxd_a)
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any()
+
+    before = assignment_kernel.two_stage_launches
+    got = assignment_kernel.solve_two_stage_assignment_fused(
+        *dev, cost_b.to(cuda_device), rows_b.to(cuda_device), 0.7)
+    assert assignment_kernel.two_stage_launches == before + 1
+    want = assignment_kernel.solve_two_stage_assignment_fused(
+        cost_a, levels, rows_a, cols, maxd_a, cost_b, rows_b, 0.7)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # stage A leaves stage B free columns in stream 0 (no stage-A rows)
+    assert (want[1] >= 0).any() or shape[0] == 1
+
+
+def test_tracker_step_on_cuda_tensors(cuda_device):
+    """The facades' unfused step runs on the card through kernel K5 and
+    equals the same step on the CPU: discrete state and emitted rows
+    exactly, Kalman means within the tolerance the tracker kernel is held
+    to (the two devices round the filter's arithmetic apart by ulps)."""
+    cfg = TrackerConfig(max_dets=16, feat_dim=64, max_tracks=24, nn_budget=5,
+                        max_age=4)
+    s = 3
+    k_state = init_tracker_state(cfg, s, cuda_device)
+    p_state = init_tracker_state(cfg, s)
+    rng = np.random.default_rng(12)
+    before = assignment_kernel.two_stage_launches
+    frames = list(_scene(rng, s, 12, 14, 16, 64, 0.25))
+    for f, args in enumerate(frames):
+        p_state, p_out, p_emit = tracker_step(cfg, p_state, *args, (240, 320))
+        k_state, k_out, k_emit = tracker_step(
+            cfg, k_state, *(a.to(cuda_device) for a in args), (240, 320))
+        for name in DISCRETE:
+            assert torch.equal(getattr(p_state, name),
+                               getattr(k_state, name).cpu()), (f, name)
+        assert torch.equal(p_emit, k_emit.cpu()), f
+        assert torch.equal(p_out, k_out.cpu()), f
+        assert torch.allclose(p_state.mean, k_state.mean.cpu(), rtol=2e-4,
+                              atol=2e-3), f
+    assert assignment_kernel.two_stage_launches == before + len(frames)
+    assert int(p_emit.sum()) > 0

@@ -1,7 +1,8 @@
-"""Guards of the PyTorch port: it never imports jax or the JAX package,
-chip_smoke.py refuses to run without a CUDA device, and a kernel wrapper
-handed a non-CPU tensor launches its kernel or raises -- it never takes the
-plain version."""
+"""Guards of the PyTorch port: it never imports jax or the JAX package (nor
+cv2, which the machine with the card lacks), chip_smoke.py refuses to run
+without a CUDA device, a kernel wrapper handed a non-CPU tensor launches its
+kernel or raises -- it never takes the plain version -- and a facade asked
+for a CUDA device that does not exist raises."""
 
 import os
 import subprocess
@@ -24,7 +25,8 @@ for name in names:
 import chip_smoke  # and what the smoke run imports inside its phases
 importlib.import_module("specs.weights_np")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "yolo_deepsort_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "yolo_deepsort_tpu",
+                                    "cv2", "PIL"))
 print(len(names), "modules;", "jax or JAX-package modules:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -56,7 +58,11 @@ def test_chip_smoke_fails_without_cuda():
 
 def _calls():
     from yolo_deepsort_tpu_torch.config import TrackerConfig
-    from yolo_deepsort_tpu_torch.ops import crops_kernel, letterbox_kernel
+    from yolo_deepsort_tpu_torch.ops import (
+        assignment_kernel,
+        crops_kernel,
+        letterbox_kernel,
+    )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
     from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
 
@@ -71,34 +77,53 @@ def _calls():
             torch.zeros((1, 4, 8), device=meta),
             torch.zeros((1, 4), dtype=torch.bool, device=meta), (32, 32))
 
+    def jv(*stage_b):
+        def call():
+            r, c = 6, 4
+            args = (torch.zeros((2, r, c), device=meta),
+                    torch.zeros((2, r), dtype=torch.int32, device=meta),
+                    torch.ones((2, r), dtype=torch.bool, device=meta),
+                    torch.ones((2, c), dtype=torch.bool, device=meta), 0.2)
+            if not stage_b:
+                return assignment_kernel.solve_cascade_assignment_fused(*args)
+            return assignment_kernel.solve_two_stage_assignment_fused(
+                *args, args[0], args[2], 0.7)
+        return call
+
+    # (module, plain function, launch counter, call)
     return {
-        "letterbox": (letterbox_kernel, "letterbox_batch",
+        "letterbox": (letterbox_kernel, "letterbox_batch", "launches",
                       lambda: letterbox_kernel.letterbox_batch_fused(
                           torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
                                       device=meta), 16)),
-        "crops": (crops_kernel, "crops_plain",
+        "crops": (crops_kernel, "crops_plain", "launches",
                   lambda: crops_kernel.crop_and_normalize_fused(
                       torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
                                   device=meta),
                       torch.zeros((1, 2, 4), device=meta), 4, 4)),
-        "tracker": (tracker_kernel, "tracker_step", tracker),
+        "tracker": (tracker_kernel, "tracker_step", "launches", tracker),
+        "jv_cascade": (assignment_kernel, "solve_cascade_assignment",
+                       "cascade_launches", jv()),
+        "jv_two_stage": (assignment_kernel, "solve_two_stage_assignment",
+                         "two_stage_launches", jv(True)),
     }
 
 
-@pytest.mark.parametrize("kernel", ["letterbox", "crops", "tracker"])
+@pytest.mark.parametrize("kernel", ["letterbox", "crops", "tracker",
+                                    "jv_cascade", "jv_two_stage"])
 def test_non_cpu_tensor_never_takes_the_plain_version(kernel, monkeypatch,
                                                       tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the kernel would launch")
     from yolo_deepsort_tpu_torch.kernels import build
 
-    module, plain_name, call = _calls()[kernel]
+    module, plain_name, counter, call = _calls()[kernel]
 
     def plain_called(*a, **k):
         raise AssertionError("the plain version ran for a non-CPU tensor")
 
     monkeypatch.setattr(module, plain_name, plain_called)
-    before = module.launches
+    before = getattr(module, counter)
     # a non-CPU, non-CUDA tensor is refused by the device check
     with pytest.raises(ValueError, match="CUDA"):
         call()
@@ -114,4 +139,17 @@ def test_non_cpu_tensor_never_takes_the_plain_version(kernel, monkeypatch,
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call()
-    assert module.launches == before
+    assert getattr(module, counter) == before
+
+
+@pytest.mark.parametrize("facade", ["DeepSort", "Extractor", "Darknet"])
+def test_facade_on_a_missing_cuda_device_raises(facade):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from yolo_deepsort_tpu_torch import api
+
+    kwargs = {"DeepSort": dict(use_cuda=True), "Extractor": dict(),
+              "Darknet": dict(source="yolov3-tiny", device="cuda")}[facade]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(api, facade)(**kwargs)
+    assert api.DeepSort(use_cuda=True, device="cpu").device.type == "cpu"

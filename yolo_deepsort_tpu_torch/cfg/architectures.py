@@ -1,11 +1,12 @@
-"""Builders of the stock darknet topologies the port serves (copy of the
-yolov3 and yolov3-tiny builders of yolo_deepsort_tpu/cfg/architectures.py).
+"""Builders of the stock darknet topologies (copy of
+yolo_deepsort_tpu/cfg/architectures.py).
 
 They emit module_defs lists with the layer order, channel counts, routes
 and shortcuts of the upstream yolov3.cfg (75 conv, 23 shortcut, 4 route,
-2 upsample, 3 yolo) and yolov3-tiny.cfg (13 conv, 6 maxpool, 2 yolo). The
-darknet ``.weights`` stream is consumed in this order.
-``tests/test_torch_port_config.py`` holds them equal to the JAX package's.
+2 upsample, 3 yolo), yolov3-tiny.cfg (13 conv, 6 maxpool, 2 yolo) and
+yolov4.cfg (110 conv, CSP backbone + SPP + PAN). The darknet ``.weights``
+stream is consumed in this order. ``tests/test_torch_port_config.py``
+holds them equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, List
 
 YOLOV3_ANCHORS = "10,13, 16,30, 33,23, 30,61, 62,45, 59,119, 116,90, 156,198, 373,326"
 YOLOV3_TINY_ANCHORS = "10,14, 23,27, 37,58, 81,82, 135,169, 344,319"
+YOLOV4_ANCHORS = "12,16, 19,36, 40,28, 36,75, 76,55, 72,146, 142,110, 192,243, 459,401"
 
 
 def _net(width: int, height: int) -> Dict:
@@ -40,7 +42,7 @@ def _net(width: int, height: int) -> Dict:
 
 
 def _conv(filters, size, stride=1, activation="leaky", bn=1) -> Dict:
-    return {
+    d = {
         "type": "convolutional",
         "batch_normalize": str(bn),
         "filters": str(filters),
@@ -49,6 +51,10 @@ def _conv(filters, size, stride=1, activation="leaky", bn=1) -> Dict:
         "pad": "1",
         "activation": activation,
     }
+    if not bn:
+        del d["batch_normalize"]
+        d["batch_normalize"] = "0"
+    return d
 
 
 def _head_conv(filters) -> Dict:
@@ -63,26 +69,33 @@ def _upsample() -> Dict:
     return {"type": "upsample", "stride": "2"}
 
 
-def _route(layers) -> Dict:
-    return {"type": "route", "layers": layers}
+def _route(layers, groups=None, group_id=None) -> Dict:
+    d = {"type": "route", "layers": layers}
+    if groups is not None:
+        d["groups"] = str(groups)
+        d["group_id"] = str(group_id)
+    return d
 
 
 def _shortcut(frm) -> Dict:
     return {"type": "shortcut", "from": str(frm), "activation": "linear"}
 
 
-def _yolo(mask, anchors, classes=80) -> Dict:
-    return {
+def _yolo(mask, anchors, classes=80, scale_x_y=None, ignore_thresh=".5") -> Dict:
+    d = {
         "type": "yolo",
         "mask": mask,
         "anchors": anchors,
         "classes": str(classes),
         "num": str(len(anchors.split(",")) // 2),
         "jitter": ".3",
-        "ignore_thresh": ".5",
+        "ignore_thresh": ignore_thresh,
         "truth_thresh": "1",
         "random": "1",
     }
+    if scale_x_y is not None:
+        d["scale_x_y"] = str(scale_x_y)
+    return d
 
 
 def yolov3_tiny(num_classes: int = 80, img_size: int = 416) -> List[Dict]:
@@ -159,7 +172,129 @@ def yolov3(num_classes: int = 80, img_size: int = 416) -> List[Dict]:
     return m
 
 
+def yolov4(num_classes: int = 80, img_size: int = 608) -> List[Dict]:
+    """CSPDarknet-53 (mish) + SPP + PAN head (leaky), 110 conv layers,
+    scale_x_y per head -- the stock yolov4.cfg topology."""
+    out_filters = 3 * (5 + num_classes)
+    m = [_net(img_size, img_size)]
+
+    def cm(f, s, stride=1):
+        m.append(_conv(f, s, stride=stride, activation="mish"))
+
+    def cl(f, s, stride=1):
+        m.append(_conv(f, s, stride=stride, activation="leaky"))
+
+    cm(32, 3)  # 0
+    # --- CSP stage 1: 64, one block at full width (inner 32->64)
+    cm(64, 3, 2)      # 1
+    cm(64, 1)         # 2  (split branch kept for the tail concat)
+    m.append(_route("-2"))  # 3 -> 1
+    cm(64, 1)         # 4
+    cm(32, 1)         # 5
+    cm(64, 3)         # 6
+    m.append(_shortcut(-3))  # 7
+    cm(64, 1)         # 8
+    m.append(_route("-1,-7"))  # 9: 8 + 2
+    cm(64, 1)         # 10
+
+    def csp_stage(out_ch, half_ch, blocks, tail_route_offset):
+        cm(out_ch, 3, 2)
+        cm(half_ch, 1)
+        m.append(_route("-2"))
+        cm(half_ch, 1)
+        for _ in range(blocks):
+            cm(half_ch, 1)
+            cm(half_ch, 3)
+            m.append(_shortcut(-3))
+        cm(half_ch, 1)
+        m.append(_route(f"-1,{tail_route_offset}"))
+        cm(out_ch, 1)
+
+    csp_stage(128, 64, 2, -10)    # 11..23
+    csp_stage(256, 128, 8, -28)   # 24..54  (stage output at 54)
+    csp_stage(512, 256, 8, -28)   # 55..85  (stage output at 85)
+    csp_stage(1024, 512, 4, -16)  # 86..104
+
+    # --- SPP
+    cl(512, 1)   # 105
+    cl(1024, 3)  # 106
+    cl(512, 1)   # 107
+    m.append(_maxpool(5, 1))      # 108
+    m.append(_route("-2"))        # 109 -> 107
+    m.append(_maxpool(9, 1))      # 110
+    m.append(_route("-4"))        # 111 -> 107
+    m.append(_maxpool(13, 1))     # 112
+    m.append(_route("-1,-3,-5,-6"))  # 113: 112,110,108,107
+    cl(512, 1)   # 114
+    cl(1024, 3)  # 115
+    cl(512, 1)   # 116
+
+    # --- PAN up path
+    cl(256, 1)   # 117
+    m.append(_upsample())         # 118
+    m.append(_route("85"))        # 119
+    cl(256, 1)   # 120
+    m.append(_route("-1, -3"))    # 121: 120 + 118
+    cl(256, 1)   # 122
+    cl(512, 3)   # 123
+    cl(256, 1)   # 124
+    cl(512, 3)   # 125
+    cl(256, 1)   # 126
+    cl(128, 1)   # 127
+    m.append(_upsample())         # 128
+    m.append(_route("54"))        # 129
+    cl(128, 1)   # 130
+    m.append(_route("-1, -3"))    # 131: 130 + 128
+    cl(128, 1)   # 132
+    cl(256, 3)   # 133
+    cl(128, 1)   # 134
+    cl(256, 3)   # 135
+    cl(128, 1)   # 136
+
+    # --- head stride 8
+    cl(256, 3)   # 137
+    m.append(_head_conv(out_filters))  # 138
+    m.append(
+        _yolo("0,1,2", YOLOV4_ANCHORS, num_classes, scale_x_y=1.2,
+              ignore_thresh=".7")
+    )  # 139
+
+    # --- PAN down path, head stride 16
+    m.append(_route("-4"))        # 140 -> 136
+    cl(256, 3, 2)  # 141
+    m.append(_route("-1, -16"))   # 142: 141 + 126
+    cl(256, 1)   # 143
+    cl(512, 3)   # 144
+    cl(256, 1)   # 145
+    cl(512, 3)   # 146
+    cl(256, 1)   # 147
+    cl(512, 3)   # 148
+    m.append(_head_conv(out_filters))  # 149
+    m.append(
+        _yolo("3,4,5", YOLOV4_ANCHORS, num_classes, scale_x_y=1.1,
+              ignore_thresh=".7")
+    )  # 150
+
+    # --- head stride 32
+    m.append(_route("-4"))        # 151 -> 147
+    cl(512, 3, 2)  # 152
+    m.append(_route("-1, -37"))   # 153: 152 + 116
+    cl(512, 1)   # 154
+    cl(1024, 3)  # 155
+    cl(512, 1)   # 156
+    cl(1024, 3)  # 157
+    cl(512, 1)   # 158
+    cl(1024, 3)  # 159
+    m.append(_head_conv(out_filters))  # 160
+    m.append(
+        _yolo("6,7,8", YOLOV4_ANCHORS, num_classes, scale_x_y=1.05,
+              ignore_thresh=".7")
+    )  # 161
+    return m
+
+
 ARCHITECTURES = {
     "yolov3": yolov3,
     "yolov3-tiny": yolov3_tiny,
+    "yolov4": yolov4,
 }

@@ -100,7 +100,9 @@ __device__ __forceinline__ float jv_cost(const float* aug, int nc, int i,
 //                columns taken by stage A)
 //   skip_assign  optional [r]: rows whose skip_assign lies in [0, c_real)
 //                stay unmatched (stage B: rows that took a real column in A)
-__device__ void jv_run_stage(const float* aug, int r, int nc,
+// Inline: several translation units include this header (tracker.cu,
+// assignment.cu) and are linked into one library.
+__device__ inline void jv_run_stage(const float* aug, int r, int nc,
                              const int* order, const int* levels,
                              int n_active, const int* col_veto,
                              const int* skip_assign, int c_real,

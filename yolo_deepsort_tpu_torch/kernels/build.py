@@ -4,7 +4,7 @@ The sources in ``csrc/`` are compiled at first use, for ``sm_90a`` (Hopper),
 into ONE shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         -Xcompiler -fPIC --fmad=false -c <file>.cu      (per file)
+         -Xcompiler -fPIC --fmad=false -c <file>.cu      (per file, all at once)
     nvcc -shared -o libydt_kernels_<hash>.so *.o
 
 The library lands in ``yolo_deepsort_tpu_torch/build/`` (git-ignored) under
@@ -50,6 +50,11 @@ SIGNATURES = {
     # mean_out, cov_out, ints_out, aug, s, t, d, nc, max_dist,
     # max_iou_distance, max_age, n_init, stream
     "ydt_tracker_step": [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
+    # aug, order, levels, n_active, out, s, r, nc, stream
+    "ydt_jv_cascade": [_P] * 5 + [_I, _I, _I, _P],
+    # aug_a, order_a, levels_a, aug_b, order_b, n2, out_a, out_b, s, r, nc,
+    # c_real, stream
+    "ydt_jv_two_stage": [_P] * 8 + [_I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -91,12 +96,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libydt_kernels_{source_hash()}.so"
 
 
-def _run(cmd):
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+def _run_all(cmds):
+    """Run the commands at once; raise with every failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
@@ -107,16 +119,14 @@ def build() -> Path:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = []
-        for src in sources():
-            if src.suffix != ".cu":
-                continue
-            obj = Path(tmp) / (src.stem + ".o")
-            _run([nvcc] + ARCH_FLAGS + BASE_FLAGS
-                 + ["-I", str(CSRC), "-c", str(src), "-o", str(obj)])
-            objs.append(str(obj))
+        units = [src for src in sources() if src.suffix == ".cu"]
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in units]
+        _run_all([[nvcc] + ARCH_FLAGS + BASE_FLAGS
+                  + ["-I", str(CSRC), "-c", str(src), "-o", obj]
+                  for src, obj in zip(units, objs)])
         tmp_so = Path(tmp) / out.name
-        _run([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp_so)] + objs)
+        _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp_so)]
+                  + objs])
         os.replace(tmp_so, out)  # atomic: a concurrent loader sees all or none
     return out
 

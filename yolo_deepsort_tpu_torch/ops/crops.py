@@ -54,9 +54,17 @@ def crop_window_bounds(boxes_xyxy, frame_h: int, frame_w: int):
     return x1, y1, x2, y2
 
 
+def device_constant(values, device) -> torch.Tensor:
+    """A small float32 vector on ``device``, made by fills: a tensor built
+    from host data would be a host-to-device copy, which synchronizes the
+    stream."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                   device=device) for v in values])
+
+
 def _normalize(crops):
-    mean = torch.as_tensor(REID_MEAN, device=crops.device)
-    std = torch.as_tensor(REID_STD, device=crops.device)
+    mean = device_constant(REID_MEAN, crops.device)
+    std = device_constant(REID_STD, crops.device)
     return (crops / 255.0 - mean) / std
 
 

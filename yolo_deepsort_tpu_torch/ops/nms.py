@@ -12,6 +12,8 @@ yolo_deepsort_tpu/ops/nms.py).
 
 Valid rows form a contiguous score-descending prefix (row i is written on
 step i); the bucketed serving step relies on that.
+
+``roi_nms_mask`` is the DeepSort-side Malisiewicz NMS of the facades.
 """
 
 from __future__ import annotations
@@ -86,3 +88,46 @@ def batched_nms_with_stats(
     leftover = alive.sum(-1, dtype=torch.int32)
     sat = torch.stack([dropped_topk, leftover], -1).to(torch.int32)
     return out, out_mask, sat
+
+
+def batched_nms(pred: torch.Tensor, conf_thres=0.5, nms_thres: float = 0.4,
+                max_boxes: int = 512, max_dets: int = 64
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``batched_nms_with_stats`` without the saturation counters:
+    (dets (N, max_dets, 7), mask (N, max_dets))."""
+    dets, mask, _ = batched_nms_with_stats(pred, conf_thres, nms_thres,
+                                           max_boxes, max_dets)
+    return dets, mask
+
+
+def roi_nms_mask(boxes_tlwh: torch.Tensor, scores: torch.Tensor,
+                 mask: torch.Tensor, max_overlap: float) -> torch.Tensor:
+    """Malisiewicz ROI NMS keep-mask over (D,) boxes (deep_sort's
+    preprocessing.non_max_suppression): boxes in stable descending-score
+    order, overlap = intersection / the candidate's area with +1 extents; a
+    kept box removes the later boxes it overlaps by more than
+    ``max_overlap``. A fixed D-step loop of tensor ops, no host sync."""
+    boxes_tlwh = boxes_tlwh.float()
+    scores = scores.float()
+    mask = mask.bool()
+    x1, y1 = boxes_tlwh[:, 0], boxes_tlwh[:, 1]
+    x2 = boxes_tlwh[:, 2] + boxes_tlwh[:, 0]
+    y2 = boxes_tlwh[:, 3] + boxes_tlwh[:, 1]
+    area = (x2 - x1 + 1) * (y2 - y1 + 1)
+    d = boxes_tlwh.shape[0]
+    order = torch.argsort(torch.where(mask, -scores,
+                                      torch.full_like(scores, float("inf"))),
+                          stable=True)
+    w = (torch.minimum(x2[:, None], x2[None, :])
+         - torch.maximum(x1[:, None], x1[None, :]) + 1).clamp(min=0.0)
+    h = (torch.minimum(y2[:, None], y2[None, :])
+         - torch.maximum(y1[:, None], y1[None, :]) + 1).clamp(min=0.0)
+    overlap = (w * h) / area[None, :]  # [i, j]: against candidate j's area
+    pos = torch.argsort(order, stable=True)  # each box's place in the order
+    keep = mask
+    for k in range(d):
+        i = order[k:k + 1]  # a device index: no read back
+        kept = keep.gather(0, i) & mask.gather(0, i)
+        kill = (overlap.index_select(0, i)[0] > max_overlap) & mask & (pos > k)
+        keep = torch.where(kept, keep & ~kill, keep)
+    return keep

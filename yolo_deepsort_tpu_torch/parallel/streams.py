@@ -5,7 +5,9 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 
 * Detect stage (``make_scanned_detect_stage``): fused letterbox (kernel 1)
   -> Darknet forward + YOLO decode -> weighted-merge NMS over all K*S frames
-  at full detection capacity, plus a 5-int stats vector.
+  at full detection capacity, plus a 5-int stats vector. With
+  ``tracked_class_ids`` only detections of those classes are tracked: the
+  crop-extent stats cover those rows only, the count covers all.
 * One host readback of the stats picks the capacity bucket and the ReID
   crop window (``BucketedScannedStep.track``).
 * Track stage (``make_scanned_track_stage``): rescale -> windowed crops
@@ -47,6 +49,21 @@ def init_stream_states(trk_cfg: TrackerConfig, n_streams: int,
     return init_tracker_state(trk_cfg, n_streams, device)
 
 
+def class_filter(class_ids, device):
+    """``tracked_class_ids`` -> fn(boxes7 (..., 7)) -> (...) bool, True for
+    rows whose class is tracked (None: every row). The ids are copied to
+    the device once, here, not per call."""
+    if class_ids is None:
+        return None
+    ids = torch.as_tensor(np.asarray(class_ids, np.int32), device=device)
+
+    def tracked(boxes7):
+        cls = boxes7[..., 6].to(torch.int32)
+        return (cls[..., None] == ids).any(-1)
+
+    return tracked
+
+
 def _frame_boxes(boxes7, size: int, h: int, w: int):
     """Letterboxed xyxy -> clipped frame xyxy (..., 4) and tlwh (..., 4)."""
     xyxy = rescale_boxes(boxes7[..., :4], size, h, w)
@@ -64,13 +81,14 @@ def make_scanned_detect_stage(
     trk_cfg: TrackerConfig,
     frame_hw: Tuple[int, int],
     conf_thres_per_stream: Optional[Sequence[float]] = None,
+    tracked_class_ids=None,
 ):
     """Returns detect(frames (K, S, H, W, 3) uint8) -> (boxes7 (K*S, D, 7),
     mask (K*S, D), stats (5,) int32). stats = [max per-frame count
     (survivors the max_dets output dropped included), max crop height,
-    max crop width over valid rows, NMS top-k drops, NMS max_dets
-    drops]. Valid rows are a contiguous score-descending prefix, so any
-    capacity >= the count keeps every detection."""
+    max crop width over valid rows of tracked classes, NMS top-k drops,
+    NMS max_dets drops]. Valid rows are a contiguous score-descending
+    prefix, so any capacity >= the count keeps every detection."""
     h, w = frame_hw
     size = det_cfg.img_size
     param = next(detector.parameters())
@@ -78,6 +96,7 @@ def make_scanned_detect_stage(
     # copied to the device once: a copy per call would synchronize the stream
     thr = (None if conf_thres_per_stream is None else torch.as_tensor(
         np.asarray(conf_thres_per_stream, np.float32), device=param.device))
+    tracked = class_filter(tracked_class_ids, param.device)
 
     @torch.no_grad()
     def detect(frames: torch.Tensor):
@@ -90,11 +109,13 @@ def make_scanned_detect_stage(
             decoded, conf, det_cfg.nms_thres, det_cfg.max_boxes,
             trk_cfg.max_dets)
         max_count = (mask.sum(-1, dtype=torch.int32) + sat[:, 1]).max()
+        # only tracked rows' crops are ever embedded
+        consumed = mask if tracked is None else mask & tracked(boxes7)
         xyxy = rescale_boxes(boxes7[..., :4], size, h, w)
         x1, y1, x2, y2 = crop_window_bounds(xyxy, h, w)
         zero = torch.zeros_like(y1)
-        ch = torch.where(mask, y2 - y1, zero)
-        cw = torch.where(mask, x2 - x1, zero)
+        ch = torch.where(consumed, y2 - y1, zero)
+        cw = torch.where(consumed, x2 - x1, zero)
         stats = torch.stack([max_count, ch.max(), cw.max(), sat[:, 0].sum(),
                              sat[:, 1].sum()]).to(torch.int32)
         return boxes7, mask, stats
@@ -109,6 +130,7 @@ def make_scanned_track_stage(
     frame_hw: Tuple[int, int],
     cap: int,
     crop_window: Optional[Tuple[int, int]] = None,
+    tracked_class_ids=None,
 ):
     """Returns track(states, frames (K, S, H, W, 3), boxes7, mask) ->
     (states, (outputs (K, S, T, 5), emit (K, S, T))) at detection capacity
@@ -122,6 +144,7 @@ def make_scanned_track_stage(
     if crop_window is not None and crop_window[0] >= h and crop_window[1] >= w:
         crop_window = None  # a full-frame window is the dense path
     dtype = reid.stem.weight.dtype
+    tracked = class_filter(tracked_class_ids, reid.stem.weight.device)
 
     @torch.no_grad()
     def track(states: TrackerState, frames, boxes7, mask):
@@ -129,6 +152,8 @@ def make_scanned_track_stage(
         flat = frames.reshape(k * s, h, w, 3)
         b7 = boxes7[:, :cap]
         m = mask[:, :cap]
+        if tracked is not None:
+            m = m & tracked(b7)
         boxes_xyxy, tlwh = _frame_boxes(b7, size, h, w)
         if crop_window is not None and dtype == torch.bfloat16:
             crops = crop_and_normalize_fused(flat, boxes_xyxy.contiguous(),
@@ -177,14 +202,17 @@ class BucketedScannedStep:
         windows: Optional[Tuple[Tuple[int, int], ...]] = (
             (160, 96), (240, 128), (320, 192), (640, 384),
         ),
+        tracked_class_ids=None,
     ):
         h, w = frame_hw
         self._reid = reid
         self._det_cfg, self._trk_cfg = det_cfg, trk_cfg
         self._frame_hw = frame_hw
+        self._class_ids = tracked_class_ids
         self._detect = make_scanned_detect_stage(
             detector, det_cfg, trk_cfg, frame_hw,
-            conf_thres_per_stream=conf_thres_per_stream)
+            conf_thres_per_stream=conf_thres_per_stream,
+            tracked_class_ids=tracked_class_ids)
         self._buckets = tuple(sorted(
             {b for b in buckets if b < trk_cfg.max_dets} | {trk_cfg.max_dets}))
         ladder = [(min(wh, h), min(ww, w)) for wh, ww in (windows or ())]
@@ -258,8 +286,26 @@ class BucketedScannedStep:
         if fn is None:
             fn = self._track[(cap, win)] = make_scanned_track_stage(
                 self._reid, self._det_cfg, self._trk_cfg, self._frame_hw,
-                cap, crop_window=win)
+                cap, crop_window=win, tracked_class_ids=self._class_ids)
         return fn(states, frames, boxes7, mask)
 
     def __call__(self, states: TrackerState, frames: torch.Tensor):
         return self.track(states, self.detect(frames))
+
+
+def make_scanned_step_bucketed(detector: Darknet, reid: ReIDNet,
+                               det_cfg: DetectorConfig,
+                               trk_cfg: TrackerConfig,
+                               frame_hw: Tuple[int, int],
+                               buckets: Tuple[int, ...] = (8, 16, 32),
+                               tracked_class_ids=None,
+                               conf_thres_per_stream=None,
+                               windows: Optional[Tuple[Tuple[int, int], ...]] = (
+                                   (160, 96), (240, 128), (320, 192),
+                                   (640, 384)),
+                               ) -> BucketedScannedStep:
+    """The bucketed serving step (the reference's constructor function)."""
+    return BucketedScannedStep(
+        detector, reid, det_cfg, trk_cfg, frame_hw, buckets=buckets,
+        conf_thres_per_stream=conf_thres_per_stream, windows=windows,
+        tracked_class_ids=tracked_class_ids)

@@ -1,11 +1,19 @@
 """The DeepSORT tracker as fixed-shape state, batched over streams (port of
 yolo_deepsort_tpu/tracking/tracker.py).
 
-``tracker_step`` is the plain PyTorch version of the fused tracker kernel
-(``tracker_kernel.py``): KF predict, gated-cosine matching cascade, IoU
-matching of tentative and just-missed tracks (one two-stage JV solve per
-stream), KF update, ring-buffer gallery, lifecycle and id allocation. Its JV
-solve runs on the host (``ops/assignment.py``), so it takes CPU tensors.
+``tracker_step`` is one frame of DeepSORT for every stream: KF predict,
+gated-cosine matching cascade, IoU matching of tentative and just-missed
+tracks, KF update, ring-buffer gallery, lifecycle and id allocation. It
+runs on the tensors' device and reads nothing back to the host. It plays
+two parts, as ``tracking/tracker.py`` does in the reference:
+
+* the plain version of the fused tracker kernel (K3,
+  ``tracker_kernel.py``), against which that kernel is held;
+* the unfused step of the facades (``api.py`` ``DeepSort`` and
+  ``VideoTracker.track_frame``): framework ops around ONE two-stage JV
+  solve for all streams (``ops/assignment_kernel.py``), which launches
+  kernel K5 for CUDA tensors and runs the plain solver stream by stream for
+  CPU tensors.
 
 ``TrackerState`` holds every field with a leading stream axis S. The
 gallery (S, T, nn_budget, feat_dim) -- 26 MB per stream at the defaults --
@@ -23,7 +31,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..ops import boxes as B
-from ..ops.assignment import solve_two_stage_assignment
+from ..ops.assignment_kernel import solve_two_stage_assignment_fused
 from . import kalman as K
 
 INFTY_COST = 1e5
@@ -175,12 +183,9 @@ def tracker_step(
                            torch.full_like(iou_cost, INFTY_COST), iou_cost)
     rows_b_super = tentative | (confirmed & (tsu == 1))
 
-    match_a = torch.full((s, t), -1, dtype=torch.int32)
-    match_b = torch.full((s, t), -1, dtype=torch.int32)
-    for si in range(s):
-        match_a[si], match_b[si] = solve_two_stage_assignment(
-            gated[si], tsu[si] - 1, confirmed[si], det_mask[si], cfg.max_dist,
-            iou_cost[si], rows_b_super[si], cfg.max_iou_distance)
+    match_a, match_b = solve_two_stage_assignment_fused(
+        gated, tsu - 1, confirmed, det_mask, cfg.max_dist, iou_cost,
+        rows_b_super, cfg.max_iou_distance)
     match = torch.where(match_a >= 0, match_a, match_b)
     matched = match >= 0
 

@@ -1,37 +1,51 @@
-"""Darknet ``.weights`` parsing, BN folding, and parameters into modules.
+"""Darknet ``.weights`` IO, BN folding, and parameters into modules.
 
-* ``load_darknet_weights`` / ``fold_inference_params`` are copies of the
-  JAX package's (yolo_deepsort_tpu/models/weights.py): the byte stream is a
+* ``load_darknet_weights`` / ``save_darknet_weights`` /
+  ``fold_inference_params`` / ``random_raw_params`` are copies of the JAX
+  package's (yolo_deepsort_tpu/models/weights.py): the byte stream is a
   5 x int32 header, then float32 params for every [convolutional] layer in
   cfg order (bn_bias, bn_weight, bn_mean, bn_var, conv OIHW -- or
   conv_bias, conv OIHW without BN). Folding BN (eps 1e-5) into the conv
   gives the HWIO {"w", "b"} tree both packages compute from.
 * Darknet: that folded tree -> OIHW tensors for ``Darknet.load_params``.
-* ReID: the folded HWIO tree of ``random_reid_params`` (or the JAX
-  package's ``params_from_state_dict``) -> ``ReIDNet.load_params``.
+* ReID: a folded HWIO tree (``models/reid.py`` random params or loaders)
+  -> ``ReIDNet`` or, for the 128-d layout, ``OriginalReIDNet``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .models.darknet import Darknet, NetworkPlan, conv_layer_shapes
-from .models.reid import ReIDNet
+from .models.reid import OriginalReIDNet, ReIDNet
 
 BN_EPS = 1e-5
 
 
-def load_darknet_weights(data: bytes, module_defs: Sequence[dict],
-                         in_channels: int = 3) -> Tuple[np.ndarray, Dict]:
-    """Parse ``.weights`` bytes into (header, raw params with OIHW convs)."""
+def load_darknet_weights(source, module_defs: Sequence[dict],
+                         in_channels: int = 3, cutoff: int | None = None
+                         ) -> Tuple[np.ndarray, Dict]:
+    """Parse a ``.weights`` file or its bytes into (header, raw params with
+    OIHW convs). ``cutoff`` stops at that module index (backbone-only
+    files; darknet53.conv.74 is cut at 75 by default)."""
+    if isinstance(source, bytes):
+        data = source
+    else:
+        if str(source).endswith("darknet53.conv.74") and cutoff is None:
+            cutoff = 75
+        with open(source, "rb") as f:
+            data = f.read()
     header = np.frombuffer(data[:20], dtype=np.int32).copy()
     weights = np.frombuffer(data[20:], dtype=np.float32)
     params = {}
     ptr = 0
     for idx, oc, ic, k, has_bn in conv_layer_shapes(module_defs, in_channels):
+        if cutoff is not None and idx >= cutoff:
+            break
         layer = {}
         names = (("bn_bias", "bn_weight", "bn_mean", "bn_var") if has_bn
                  else ("conv_bias",))
@@ -42,17 +56,61 @@ def load_darknet_weights(data: bytes, module_defs: Sequence[dict],
         layer["conv_weight"] = weights[ptr:ptr + nw].reshape(oc, ic, k, k).copy()
         ptr += nw
         params[idx] = layer
-    if ptr != len(weights):
+    if cutoff is None and ptr != len(weights):
         raise ValueError(f"weight file mismatch: consumed {ptr} of "
                          f"{len(weights)} floats -- cfg and weights disagree")
     return header, params
 
 
+def save_darknet_weights(path: str | os.PathLike, header: np.ndarray,
+                         params: Dict, module_defs: Sequence[dict],
+                         in_channels: int = 3,
+                         cutoff: int | None = None) -> None:
+    """Serialize raw params back to the ``.weights`` byte format."""
+    with open(path, "wb") as f:
+        f.write(np.asarray(header, dtype=np.int32).tobytes())
+        for idx, oc, ic, k, has_bn in conv_layer_shapes(module_defs,
+                                                        in_channels):
+            if cutoff is not None and idx >= cutoff:
+                break
+            layer = params[idx]
+            names = (("bn_bias", "bn_weight", "bn_mean", "bn_var") if has_bn
+                     else ("conv_bias",))
+            for name in names:
+                f.write(np.asarray(layer[name], dtype=np.float32).tobytes())
+            f.write(np.asarray(layer["conv_weight"], dtype=np.float32)
+                    .reshape(oc, ic, k, k).tobytes())
+
+
+def random_raw_params(module_defs: Sequence[dict], in_channels: int = 3,
+                      seed: int = 0) -> Dict:
+    """Random raw params (He-ish scaling, identity BN): the reference
+    package's, same generator and draw order."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for idx, oc, ic, k, has_bn in conv_layer_shapes(module_defs, in_channels):
+        std = float(np.sqrt(2.0 / (ic * k * k)))
+        layer = {"conv_weight": rng.normal(0, std, (oc, ic, k, k)).astype(
+            np.float32)}
+        if has_bn:
+            layer["bn_weight"] = np.ones(oc, np.float32)
+            layer["bn_bias"] = np.zeros(oc, np.float32)
+            layer["bn_mean"] = np.zeros(oc, np.float32)
+            layer["bn_var"] = np.ones(oc, np.float32)
+        else:
+            layer["conv_bias"] = np.zeros(oc, np.float32)
+        params[idx] = layer
+    return params
+
+
 def fold_inference_params(raw: Dict, module_defs: Sequence[dict],
                           in_channels: int = 3) -> Dict:
-    """Fold BN into each conv and transpose OIHW -> HWIO."""
+    """Fold BN into each conv and transpose OIHW -> HWIO; layers missing
+    from ``raw`` (cutoff loads) are skipped."""
     out = {}
     for idx, oc, ic, k, has_bn in conv_layer_shapes(module_defs, in_channels):
+        if idx not in raw:
+            continue
         layer = raw[idx]
         w = np.asarray(layer["conv_weight"], np.float32)  # OIHW
         if has_bn:
@@ -89,8 +147,9 @@ def darknet_from_raw(plan: NetworkPlan, raw: Dict) -> Darknet:
     return model.eval()
 
 
-def reid_from_params(params: Dict) -> ReIDNet:
-    """A float32 CPU ReIDNet from the reference's folded HWIO param tree."""
-    model = ReIDNet()
+def reid_from_params(params: Dict) -> torch.nn.Module:
+    """A float32 CPU ReID net from a folded HWIO param tree: the 128-d
+    ``OriginalReIDNet`` when it carries the dense head, else ``ReIDNet``."""
+    model = OriginalReIDNet() if "dense" in params else ReIDNet()
     model.load_params(params)
     return model.eval()
