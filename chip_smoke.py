@@ -18,12 +18,22 @@ which ends the run with a non-zero exit code when it fails:
      jv_two_stage  exact ties, INFTY gates, inactive rows, levels 0-5, a
                    stream with no active row (plain on CPU copies; every
                    assignment exactly equal)
+     conv          every distinct eligible conv shape of yolov3-416 at batch
+                   8 (15 classes: 3x3 and 1x1, stride 1 and 2, 52/26/13 maps,
+                   Ci 128-1024 incl. 384 and 768, Co 128-1024 and 255) plus
+                   one mish shape, in bf16 mode (within 2 bf16 ulps) and in
+                   int8 mode (exactly equal); ``check_conv``
    The kernel times are CUDA-event means of repeated launches on the same
    inputs (the tracker and the JV solvers: the kernel alone, with the whole
-   wrapper beside it).
-3. small path: ``BucketedScannedStep`` on the card against the same step on
+   wrapper beside it). Each kernel's line also gives its roofline bound
+   (``roofline``: bytes in and out over 3.35 TB/s, or operations over the
+   card's peak for their type) and, for the conv, the time of the library
+   call that computes the same function (``F.conv2d`` + activation), a
+   yardstick the port never calls.
+3. small paths: ``BucketedScannedStep`` on the card against the same step on
    the CPU, where every wrapper runs its plain version (yolov3-tiny at 64,
-   2 streams of 64x128, 3 chunks of K=2; ``check_small_path``).
+   2 streams of 64x128, 3 chunks of K=2; ``check_small_path``), and the K=1
+   step ``make_batched_step`` likewise (``check_small_k1``).
 4. main path: yolov3-416 at full width in bf16 with seeded well-conditioned
    random weights (head biases aimed at person-sized boxes, per-stream
    thresholds calibrated to ~32 detections per frame), 8 temporally static
@@ -32,6 +42,15 @@ which ends the run with a non-zero exit code when it fails:
    rows, one wait per chunk for the stats readback and no other
    synchronizing CUDA call (sync debug mode "error"), and that each
    kernel's launch counter moved during the counted run.
+4b. K=1 path (``run_k1_path``): the same model, weights and frames through
+   the single-frame step ``make_batched_step`` with cap 40 and crop window
+   (320, 192), the backbone convs of a FIXED layer set (``CONV_ROUTE``: 9
+   layers through the bf16 conv kernel, 10 through the int8 one, package
+   calibrated from two of the frames) routed through kernel 7. Checks per
+   step: K1, K2, K3 launch once and K7 19 times, one readback and no other
+   synchronizing call; prints p50/p99 ms per step with the route and
+   without it, whether both emit the same rows, and what the window guard's
+   dense crops cost alone.
 5. public JV ops (``run_jv_ops``): ``solve_cascade_assignment_fused`` and
    ``solve_masked_assignment_fused`` on the card over 8 streams of
    tracker-sized problems, equal to the same ops on the CPU.
@@ -44,17 +63,22 @@ which ends the run with a non-zero exit code when it fails:
    of K=4 (K1, K2, K3); ``DeepSort.update`` on the card over a seeded
    12-frame 1080p scene of ~32 textured walking objects with dropouts
    gives exactly the rows of ``DeepSort(device="cpu")``.
+7. multi-stream runtime (``run_multistream``): ``MultiStreamTracker``'s loop
+   over 8 x 1080p with producer threads pushing seeded frames into the
+   native frame pool (g++ at first use) in place of video decoders; one
+   stream ends early, and the ``with_validity`` step must leave its state
+   untouched and emit nothing for it.
 
-Each of paths 4-6 is run with the launch counters set to 0 just before it
+Each of paths 4-7 is run with the launch counters set to 0 just before it
 and read just after. Prints frames/s and per-stage times, the facades' ms
 per call, a JSON line of per-kernel results, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and the main path's and the facades' setups, then
-prints where their time goes instead (``profile_main_path``,
-``profile_facades``), with no result line.
+builds the kernels and the main path's, the K=1 path's and the facades'
+setups, then prints where their time goes instead (``profile_main_path``,
+``profile_k1``, ``profile_facades``), with no result line.
 """
 
 from __future__ import annotations
@@ -78,6 +102,22 @@ TARGET_DETS = 32
 JV_SHAPE = (8, 128, 64)  # streams, rows (max_tracks), columns (max_dets)
 FACADE_FRAMES = 12
 
+# the K=1 low-latency step (the reference bench's K=1 settings)
+K1_CAP, K1_WINDOW, K1_STEPS = 40, (320, 192), 30
+# Conv routing of the K=1 path: a FIXED layer set for bring-up, not a tuned
+# one. These are the module indices the reference routes for yolov3-416 at
+# batch 8 (bf16 kernel / int8 kernel); no timing on this card chose them.
+CONV_ROUTE = {
+    "bf16": frozenset({37, 64, 67, 70, 73, 76, 78, 80, 99}),
+    "int8": frozenset({63, 66, 69, 72, 75, 77, 79, 84, 93, 96}),
+}
+N_ROUTED = len(CONV_ROUTE["bf16"]) + len(CONV_ROUTE["int8"])
+MST_FRAMES, MST_SHORT = 6, 3  # frames per stream; the last stream's
+
+# the card's published peaks (H100 SXM, dense): the roofline bounds below
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
 # tolerances of the kernel-vs-plain phase
 TOL_LETTERBOX = 2.0 ** -8  # one bf16 ulp of a value in [0.5, 1): rounding
 #                            flips where the f32 sums differ in the last bit
@@ -87,6 +127,29 @@ TOL_TRACKER_MEAN = 2e-3  # KF means, absolute px: unrolled Cholesky vs LAPACK
 # small-path detect boxes, absolute px: f32 convs (TF32 off) summed in
 # another order on the card than on the CPU
 TOL_SMALL_BOXES = 1e-3
+# conv kernel, bf16 mode: bf16 products are exact in f32 and only the order
+# of the f32 sums differs from the plain version (the tensor cores do not
+# accumulate in IEEE round-to-nearest), which can move the final bf16
+# rounding: 2 bf16 ulps of max(|want|, 2^-6), compared in f32 (inputs
+# ~N(0, 1); below 2^-6 the sums' own rounding outweighs the value's ulp).
+# int8 mode: int32 sums are exact, the f32 epilogue is the plain version's op
+# for op (--fmad=false): exactly equal. mish goes through two math
+# libraries: int8 mode within 1 bf16 ulp there.
+TOL_CONV_ULPS = 2.0
+CONV_ULP_FLOOR = 2.0 ** -6
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
+    """(bound ms, "bytes" | "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its peak for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def plant_box_prior(raw, plan, frame_hw, heights=BOX_PRIOR_HEIGHTS,
@@ -152,7 +215,7 @@ def check_letterbox(rng, dev):
                              f"max |err| {err} > {TOL_LETTERBOX}")
     ms = cuda_ms(lambda: LK.letterbox_cuda(frames, 416, torch.bfloat16), 50)
     plain_ms = cuda_ms(lambda: letterbox_batch(frames, 416, torch.bfloat16), 10)
-    return err, ms, plain_ms, ""
+    return err, ms, plain_ms, "", nbytes(frames, got)
 
 
 def check_crops(rng, dev):
@@ -178,7 +241,7 @@ def check_crops(rng, dev):
                              f"{err} > {TOL_CROPS}")
     ms = cuda_ms(lambda: CK.crops_cuda(frames, boxes, 320, 192), 50)
     plain_ms = cuda_ms(lambda: CK.crops_plain(frames, boxes, 320, 192), 5)
-    return err, ms, plain_ms, ""
+    return err, ms, plain_ms, "", nbytes(frames, boxes, got)
 
 
 def _tracker_scene(rng, s, d, n_frames, feat_dim):
@@ -228,7 +291,7 @@ def check_tracker(rng, dev):
     s, d = STREAMS, 40
     scene = _tracker_scene(rng, s, d, 10, cfg.feat_dim)
     st_k = init_tracker_state(cfg, s, dev)
-    st_p = init_tracker_state(cfg, s)
+    st_p = init_tracker_state(cfg, s, "cpu")
     err, k_ms, p_ms, confirmed, packed = 0.0, [], [], 0, None
     for f, args in enumerate(scene):
         t0 = time.perf_counter()
@@ -267,67 +330,86 @@ def check_tracker(rng, dev):
     # frames only (the first call also builds the gallery)
     kernel_ms = cuda_ms(lambda: TK.kernel_batched(cfg, *packed), 50)
     note = f", wrapper step {float(np.median(k_ms[2:])):.4f} ms (host clock)"
-    return err, kernel_ms, float(np.median(p_ms[2:])), note
+    # in: the packed buffers; out: mean, cov and the int fields again
+    io_bytes = nbytes(*packed) + nbytes(*packed[7:10])
+    return err, kernel_ms, float(np.median(p_ms[2:])), note, io_bytes
 
 
-def check_small_path(dev):
-    """The serving step on the card against the same step on the CPU, where
-    every kernel wrapper runs its plain version, on a small input: yolov3-tiny
-    at 64 over 2 streams of 64x128 frames, 3 chunks of K=2, an f32 detector
-    and a bf16 ReID net (so all three kernels run on the card). Detect stage:
-    mask and stats equal, boxes within TOL_SMALL_BOXES; track stage, both
-    sides fed the card's detect outputs: emit and track ids equal, boxes
-    within 1 px, and the same bucket and crop window."""
+def _small_setup():
+    """The small input of the card-vs-CPU checks: yolov3-tiny at 64 with
+    seeded weights aimed at ~12 px boxes, 2 streams of 64x128 frames, the
+    f32 detector on the CPU with its objectness on those frames, and makers
+    of fresh f32 detectors and bf16 ReID nets."""
     import torch
 
     from specs.weights_np import random_darknet_weights
     from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
-    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
     from yolo_deepsort_tpu_torch.models.darknet import build_network
     from yolo_deepsort_tpu_torch.models.reid import random_reid_params
     from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch
-    from yolo_deepsort_tpu_torch.parallel.streams import (
-        BucketedScannedStep,
-        init_stream_states,
-    )
     from yolo_deepsort_tpu_torch.weights import (
         darknet_from_raw,
         load_darknet_weights,
         reid_from_params,
     )
 
-    h, w, s, k, size = 64, 128, 2, 2, 64
+    h, w, s, size = 64, 128, 2, 64
     plan = build_network(ARCHITECTURES["yolov3-tiny"](img_size=size))
     blob = random_darknet_weights(plan.defs(), seed=0, well_conditioned=True)
     _, raw = load_darknet_weights(blob, plan.defs())
     # ~12 px letterboxed boxes (the prior's heights are 1080p frame pixels),
     # so the crops fit a window of the ladder and the windowed route runs
     raw = plant_box_prior(raw, plan, (h, w), heights=(405.0,), aspect=0.5)
-    cl = torch.channels_last
     base = np.random.default_rng(0).integers(0, 256, (s, h, w, 3), np.uint8)
-    frames = torch.from_numpy(np.broadcast_to(base[None], (k, s, h, w, 3))
-                              .copy())
     cpu_det = darknet_from_raw(plan, raw)
-    # per-stream thresholds halfway between the 6th and 7th objectness, so
-    # the two devices' last-bit differences cannot flip a candidate
     with torch.no_grad():
         obj = cpu_det(letterbox_batch(torch.from_numpy(base), size))[..., 4]
-    top = torch.sort(obj, -1, descending=True).values
+    return dict(
+        h=h, w=w, s=s, size=size, base=base, cpu_det=cpu_det, obj=obj,
+        det=lambda: darknet_from_raw(plan, raw),
+        reid=lambda: reid_from_params(random_reid_params(0)).to(
+            torch.bfloat16, memory_format=torch.channels_last))
+
+
+def check_small_path(dev):
+    """The serving step on the card against the same step on the CPU, where
+    every kernel wrapper runs its plain version, on a small input
+    (``_small_setup``; 3 chunks of K=2, an f32 detector and a bf16 ReID net,
+    so all three kernels run on the card). Detect stage:
+    mask and stats equal, boxes within TOL_SMALL_BOXES; track stage, both
+    sides fed the card's detect outputs: emit and track ids equal, boxes
+    within 1 px, and the same bucket and crop window."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        BucketedScannedStep,
+        init_stream_states,
+    )
+
+    su = _small_setup()
+    h, w, s, size, base = (su[n] for n in ("h", "w", "s", "size", "base"))
+    k = 2
+    cl = torch.channels_last
+    frames = torch.from_numpy(np.broadcast_to(base[None], (k, s, h, w, 3))
+                              .copy())
+    cpu_det = su["cpu_det"]
+    # per-stream thresholds halfway between the 6th and 7th objectness, so
+    # the two devices' last-bit differences cannot flip a candidate
+    top = torch.sort(su["obj"], -1, descending=True).values
     thr = ((top[:, 5] + top[:, 6]) / 2).numpy()
 
     det_cfg = DetectorConfig(img_size=size, conf_thres=0.5, max_dets=8)
     trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
     kw = dict(buckets=(4, 8), conf_thres_per_stream=thr,
               windows=((16, 16), (32, 40), (48, 64)))
-    reid = reid_from_params(random_reid_params(0)).to(torch.bfloat16,
-                                                      memory_format=cl)
-    ref = BucketedScannedStep(cpu_det, reid, det_cfg, trk_cfg, (h, w), **kw)
+    ref = BucketedScannedStep(cpu_det, su["reid"](), det_cfg, trk_cfg,
+                              (h, w), **kw)
     card = BucketedScannedStep(
-        darknet_from_raw(plan, raw).to(dev, memory_format=cl),
-        reid_from_params(random_reid_params(0)).to(dev, torch.bfloat16,
-                                                   memory_format=cl),
-        det_cfg, trk_cfg, (h, w), **kw)
-    st_ref = init_stream_states(trk_cfg, s)
+        su["det"]().to(dev, memory_format=cl),
+        su["reid"]().to(dev, memory_format=cl), det_cfg, trk_cfg, (h, w),
+        **kw)
+    st_ref = init_stream_states(trk_cfg, s, "cpu")
     st_card = init_stream_states(trk_cfg, s, dev)
     frames_dev = frames.to(dev)
     box_err, emitted = 0.0, 0
@@ -362,6 +444,255 @@ def check_small_path(dev):
         raise AssertionError("small path: no emitted tracks, or the crops "
                              "took the dense route")
     return box_err, emitted, card.last_bucket, card.last_window
+
+
+def check_small_k1(dev):
+    """The K=1 step on the card against the same step on the CPU on a small
+    input (``_small_setup``: yolov3-tiny at 64, 2 streams of 64x128, an f32
+    detector and a bf16 ReID net; cap 6, window (48, 64), conv route off),
+    4 static frames: emit and track ids exactly equal, boxes within 1 px (a
+    Kalman mean an ulp apart truncates to either side)."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_stream_states,
+        make_batched_step,
+    )
+
+    su = _small_setup()
+    cl = torch.channels_last
+    # one threshold for both streams, in the widest gap of the objectness
+    # ranks 8..20, so the devices' last-bit differences flip no candidate
+    obj = torch.sort(su["obj"].flatten(), descending=True).values[8:21]
+    gap = int(torch.argmax(obj[:-1] - obj[1:]))
+    det_cfg = DetectorConfig(img_size=su["size"], max_dets=8,
+                             conf_thres=float((obj[gap] + obj[gap + 1]) / 2))
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    hw = (su["h"], su["w"])
+    kw = dict(cap=6, crop_window=(48, 64))
+    ref = make_batched_step(su["cpu_det"], su["reid"](), det_cfg, trk_cfg, hw,
+                            **kw)
+    card = make_batched_step(su["det"]().to(dev, memory_format=cl),
+                             su["reid"]().to(dev, memory_format=cl),
+                             det_cfg, trk_cfg, hw, **kw)
+    st_ref = init_stream_states(trk_cfg, su["s"], "cpu")
+    st_card = init_stream_states(trk_cfg, su["s"], dev)
+    frames = torch.from_numpy(su["base"])
+    frames_dev = frames.to(dev)
+    emitted = 0
+    for f in range(4):
+        st_ref, (out_r, emit_r) = ref(st_ref, frames)
+        st_card, (out_c, emit_c) = card(st_card, frames_dev)
+        out_c, emit_c = out_c.cpu(), emit_c.cpu()
+        if not (torch.equal(emit_r, emit_c)
+                and torch.equal(out_r[..., 4], out_c[..., 4])):
+            raise AssertionError(f"small K=1 frame {f}: emitted tracks "
+                                 "differ between the card and the CPU")
+        if (out_r[..., :4] - out_c[..., :4]).abs().max().item() > 1:
+            raise AssertionError(f"small K=1 frame {f}: boxes differ by more "
+                                 "than 1 px")
+        for name in ("state", "hits", "age", "time_since_update", "track_id",
+                     "gallery_head", "gallery_count", "next_id"):
+            if not torch.equal(getattr(st_ref, name),
+                               getattr(st_card, name).cpu()):
+                raise AssertionError(f"small K=1 frame {f}: {name} differs")
+        emitted += int(emit_c.sum())
+    if emitted == 0:
+        raise AssertionError("small K=1: no emitted tracks")
+    return emitted
+
+
+def conv_shape_classes(dev):
+    """The distinct eligible conv shapes of yolov3-416 at batch STREAMS, as
+    the model's own forward presents them to the conv hook: {(hi, ci, co, k,
+    stride, act): [module indices]} (15 classes over 65 layers)."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import Darknet, build_network
+    from yolo_deepsort_tpu_torch.ops.conv_kernel import backbone_conv_eligible
+
+    plan = build_network(ARCHITECTURES["yolov3"](img_size=416))
+    model = Darknet(plan).to(dev, torch.bfloat16,
+                             memory_format=torch.channels_last).eval()
+    classes = {}
+
+    def record(x, w, b, stride, pad, act, idx):
+        hi, wi, ci = (int(v) for v in x.shape[1:])
+        k, co = int(w.shape[0]), int(w.shape[3])
+        if pad == (k - 1) // 2 and backbone_conv_eligible(hi, wi, ci, co, k,
+                                                          stride, act):
+            classes.setdefault((hi, ci, co, k, stride, act), []).append(idx)
+        return None
+
+    with torch.no_grad():
+        model(torch.zeros((STREAMS, 416, 416, 3), dtype=torch.bfloat16,
+                          device=dev), conv_impl=record)
+    return classes
+
+
+def _bf16_ulps(got, want):
+    import torch
+
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp(min=CONV_ULP_FLOOR))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def _conv_case(rng, dev, n, hi, ci, co, k):
+    """Seeded operands of one conv shape on the card: x ~ N(0, 1) as bf16
+    and as the f32 it was rounded from, w ~ N(0, 1/K) as bf16 HWIO and as an
+    int8 package with its scales."""
+    import torch
+
+    x = torch.from_numpy(rng.standard_normal((n, hi, hi, ci), np.float32))
+    w = (rng.standard_normal((k, k, ci, co), np.float32)
+         / np.sqrt(k * k * ci)).astype(np.float32)
+    b = torch.from_numpy(rng.standard_normal((co,), np.float32)).to(dev)
+    wscale = (np.abs(w).reshape(-1, co).max(0) / 127.0).astype(np.float32)
+    wq = np.clip(np.rint(w / wscale), -127, 127).astype(np.int8)
+    xscale = np.float32(float(x.abs().max()) / 127.0)
+    return dict(
+        x=x.to(dev, torch.bfloat16), x32=x.to(dev), b=b,
+        w=torch.from_numpy(w).to(dev, torch.bfloat16),
+        wq=torch.from_numpy(wq).to(dev),
+        scale=torch.from_numpy(xscale * wscale).to(dev),
+        xinv=np.float32(1.0 / xscale))
+
+
+def check_conv(rng, dev):
+    """Kernel 7 against its plain versions at every distinct eligible conv
+    shape of yolov3-416 at batch 8 (15 classes) plus one mish shape: bf16
+    mode within TOL_CONV_ULPS bf16 ulps, int8 mode exactly equal: with bf16
+    activations at every class, and with f32 activations (the kernel's third
+    instantiation, which quantizes f32 in the tile load) at the Co=255
+    heads, the stride-2 classes, the 3x3 classes at 26x26 and the mish
+    shape. Times per class: the kernel in both modes (CUDA events, mean of
+    50), the plain versions, and as a yardstick one library call --
+    ``F.conv2d`` with bias on the same channels_last bf16 tensors, then the
+    activation -- which the port's route never calls. Returns {class: {...}} with each class's
+    layers, times, bounds and errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_deepsort_tpu_torch.ops import conv_kernel as CV
+
+    classes = conv_shape_classes(dev)
+    if len(classes) != 15 or sum(len(v) for v in classes.values()) != 65:
+        raise AssertionError(f"expected 15 eligible conv shape classes over "
+                             f"65 layers, found {len(classes)}")
+    cases = [(key, layers) for key, layers in classes.items()]
+    cases.append(((26, 256, 512, 3, 1, "mish"), []))
+    out = {}
+    for (hi, ci, co, k, stride, act), layers in cases:
+        c = _conv_case(rng, dev, STREAMS, hi, ci, co, k)
+        kw = dict(stride=stride, pad=(k - 1) // 2, act=act)
+        got = CV.conv_bf16(c["x"], c["w"], c["b"], **kw)
+        want = CV.conv_plain_bf16(c["x"], c["w"], c["b"], **kw)
+        torch.cuda.synchronize()
+        ulps = _bf16_ulps(got.float(), want.float())
+        err = float((got.float() - want.float()).abs().max())
+        if got.shape != want.shape or not ulps <= TOL_CONV_ULPS:
+            raise AssertionError(f"conv bf16 {hi, ci, co, k, stride, act}: "
+                                 f"{ulps} bf16 ulps > {TOL_CONV_ULPS} (max "
+                                 f"|err| {err})")
+        q_args = (c["x"], c["wq"], c["b"], c["scale"], c["xinv"])
+        got8 = CV.conv_int8(*q_args, **kw)
+        want8 = CV.conv_plain_int8(*q_args, **kw)
+        torch.cuda.synchronize()
+        err8 = float((got8.float() - want8.float()).abs().max())
+        same = (torch.equal(got8, want8) if act != "mish" else
+                _bf16_ulps(got8.float(), want8.float()) <= 1)
+        if not same or not bool(want8.float().abs().max() > 0):
+            raise AssertionError(f"conv int8 {hi, ci, co, k, stride, act}: "
+                                 f"differs from its plain version (max |err| "
+                                 f"{err8})")
+        err32 = ms32 = None
+        if co == 255 or stride == 2 or (k == 3 and hi == 26):
+            f_args = (c["x32"],) + q_args[1:]
+            got32 = CV.conv_int8(*f_args, **kw)
+            want32 = CV.conv_plain_int8(*f_args, **kw)
+            torch.cuda.synchronize()
+            err32 = float((got32.float() - want32.float()).abs().max())
+            same = (torch.equal(got32, want32) if act != "mish" else
+                    _bf16_ulps(got32.float(), want32.float()) <= 1)
+            if not same or torch.equal(got32, got8):
+                raise AssertionError(
+                    f"conv int8 with f32 activations "
+                    f"{hi, ci, co, k, stride, act}: differs from its plain "
+                    f"version (max |err| {err32}), "
+                    "or took the bf16 activations")
+            ms32 = cuda_ms(lambda: CV.conv_int8(*f_args, **kw), 50)
+        # the library yardstick, on the layouts a channels_last model holds
+        x_cl = c["x"].permute(0, 3, 1, 2)
+        w_cl = c["w"].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b16 = c["b"].to(torch.bfloat16)
+
+        def library():
+            y = F.conv2d(x_cl, w_cl, b16, stride=stride, padding=kw["pad"])
+            return F.leaky_relu_(y, 0.1) if act == "leaky" else (
+                F.mish(y) if act == "mish" else y)
+
+        ho = hi // stride
+        ops = 2.0 * STREAMS * ho * ho * k * k * ci * co
+        io = nbytes(c["x"], c["b"], got)
+        out[(hi, ci, co, k, stride, act)] = dict(
+            layers=layers, ulps=ulps, err_bf16=err, err_int8=err8,
+            err_int8_f32=err32, ms_int8_f32=ms32,
+            ms_bf16=cuda_ms(lambda: CV.conv_bf16(
+                c["x"], c["w"], c["b"], **kw), 50),
+            ms_int8=cuda_ms(lambda: CV.conv_int8(*q_args, **kw), 50),
+            plain_bf16=cuda_ms(lambda: CV.conv_plain_bf16(
+                c["x"], c["w"], c["b"], **kw), 5),
+            plain_int8=cuda_ms(lambda: CV.conv_plain_int8(*q_args, **kw), 2),
+            library=cuda_ms(library, 50),
+            bound_bf16=roofline(io + nbytes(c["w"]), ops, "bf16"),
+            bound_int8=roofline(io + nbytes(c["wq"], c["scale"]), ops,
+                                "int8"))
+    return out
+
+
+def conv_kernel_entry(per_class, launches):
+    """K7's entry of the ``kernels`` line. Its times are those of one K=1
+    step's routed layers (CONV_ROUTE): each routed layer's class time in the
+    mode it is routed in, summed, and the plain, bound and library times of
+    the same layers likewise; ``per_shape`` lists every class in both
+    modes."""
+    by_layer = {idx: (key, r) for key, r in per_class.items()
+                for idx in r["layers"]}
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    by = {"operations": 0.0, "bytes": 0.0}  # bound ms by what bounds a layer
+    for mode in ("bf16", "int8"):
+        for idx in CONV_ROUTE[mode]:
+            r = by_layer[idx][1]
+            tot["ms"] += r[f"ms_{mode}"]
+            tot["plain_ms"] += r[f"plain_{mode}"]
+            tot["bound_ms"] += r[f"bound_{mode}"][0]
+            tot["library_ms"] += r["library"]
+            by[r[f"bound_{mode}"][1]] += r[f"bound_{mode}"][0]
+    shapes = [{
+        "shape": list(key), "layers": r["layers"], "ms_bf16": r["ms_bf16"],
+        "ms_int8": r["ms_int8"], "plain_ms_bf16": r["plain_bf16"],
+        "plain_ms_int8": r["plain_int8"], "library_ms": r["library"],
+        "bound_ms_bf16": r["bound_bf16"][0], "bound_ms_int8":
+        r["bound_int8"][0], "bound_by": r["bound_bf16"][1],
+        "bf16_ulps": r["ulps"], "max_abs_err_bf16": r["err_bf16"],
+        "max_abs_err_int8": r["err_int8"],
+        "max_abs_err_int8_f32_input": r["err_int8_f32"],
+        "ms_int8_f32_input": r["ms_int8_f32"]}
+        for key, r in per_class.items()]
+    return {
+        "name": "conv", "route": "cuda",
+        "source": "yolo_deepsort_tpu_torch/csrc/conv.cu",
+        "replaces": "yolo_deepsort_tpu/ops/pallas_conv.py:74",
+        "launches": launches,
+        "max_abs_err": max(r["err_bf16"] for r in per_class.values()),
+        **tot,
+        "bound_by": max(by, key=by.get),
+        "per_shape": shapes,
+    }
 
 
 def main_path_setup(dev):
@@ -417,7 +748,7 @@ def main_path_setup(dev):
     states = init_stream_states(trk_cfg, STREAMS, dev)
     return step, states, frames, dict(
         detector=detector, reid=reid, det_cfg=det_cfg, trk_cfg=trk_cfg,
-        conf_vec=conf_vec)
+        conf_vec=conf_vec, plan=plan, raw=raw)
 
 
 def pipelined(step, states, frames, chunks, event_readback=True):
@@ -435,14 +766,14 @@ def pipelined(step, states, frames, chunks, event_readback=True):
     return states, (outputs, emit)
 
 
-def run_main_path(dev):
+def run_main_path(dev, setup=None):
     """yolov3-416 bf16, 8 x 1080p, K=4 through BucketedScannedStep."""
     import torch
 
     from yolo_deepsort_tpu_torch.ops import crops_kernel, letterbox_kernel
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
-    step, states, frames, parts = main_path_setup(dev)
+    step, states, frames, parts = setup or main_path_setup(dev)
     trk_cfg = parts["trk_cfg"]
     for _ in range(2):  # warm-up: tracks confirm after n_init frames
         states, (outputs, emit) = step(states, frames)
@@ -507,6 +838,209 @@ def run_main_path(dev):
     return launches
 
 
+def k1_setup(dev, setup=None):
+    """The K=1 low-latency step of the main path's model: yolov3-416 bf16,
+    8 x 1080p, cap K1_CAP, crop window K1_WINDOW, with the conv route
+    CONV_ROUTE (int8 package calibrated from two of the frames by the f32
+    detector on the card) and without it. ``make_batched_step`` takes one
+    threshold for all streams, in the reference as here (per-stream
+    thresholds belong to the chunked detect stage): it runs at the mean of
+    the main path's per-stream ones, as the reference's K=1 bench does."""
+    from yolo_deepsort_tpu_torch.models.quantize_darknet import (
+        quantize_darknet_from_frames,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import make_batched_step
+    from yolo_deepsort_tpu_torch.weights import darknet_from_raw
+
+    _, _, frames, parts = setup or main_path_setup(dev)
+    base = frames[0]
+    pkg = quantize_darknet_from_frames(
+        darknet_from_raw(parts["plan"], parts["raw"]).to(dev), base,
+        parts["det_cfg"].img_size, max_frames=2, layers=CONV_ROUTE["int8"])
+    if set(pkg) != set(CONV_ROUTE["int8"]):
+        raise AssertionError(f"int8 package holds layers {sorted(pkg)}")
+    hw = (FRAME_H, FRAME_W)
+    args = (parts["detector"], parts["reid"], parts["det_cfg"],
+            parts["trk_cfg"], hw)
+    kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
+    routed = make_batched_step(*args, use_pallas_conv=CONV_ROUTE,
+                               backbone_int8_pkg=pkg, **kw)
+    unrouted = make_batched_step(*args, **kw)
+    return routed, unrouted, base, dict(parts, int8_pkg=pkg)
+
+
+def _k1_latency(step, states, base, steps):
+    """``steps`` K=1 steps, each ending in its one readback: ms per step by
+    host clock, the last rows and the states."""
+    from yolo_deepsort_tpu_torch.api import _emitted_rows
+
+    ms, rows = [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        states, (outputs, emit) = step(states, base)
+        rows = _emitted_rows(outputs, emit)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, rows, states
+
+
+def run_k1_path(dev, setup=None):
+    """The K=1 path at full width. Checks: per step K1, K2 and K3 launch
+    once and K7 once per routed layer; a step with its readback makes no
+    other synchronizing call (2 steps in sync debug mode "error"); tracks
+    confirm on the static scene and rows are emitted. Prints p50/p99 ms per
+    step with the conv route and without it (alternated blocks on fresh
+    states), whether both emit the same rows, and the cost of the window
+    guard's dense crops alone. Returns the launches of the counted run."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import (
+        conv_kernel,
+        crops_kernel,
+        letterbox_kernel,
+    )
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
+    from yolo_deepsort_tpu_torch.parallel.streams import init_stream_states
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
+
+    routed, unrouted, base, parts = k1_setup(dev, setup)
+    trk_cfg = parts["trk_cfg"]
+    states = init_stream_states(trk_cfg, STREAMS)  # the card by default
+    if states.mean.device.type != "cuda":
+        raise AssertionError("init_stream_states did not take the card")
+    _, _, states = _k1_latency(routed, states, base, 5)  # tracks confirm
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, states = _k1_latency(routed, states, base, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    counters = {"letterbox": letterbox_kernel, "crops": crops_kernel,
+                "tracker": tracker_kernel, "conv": conv_kernel}
+    for m in counters.values():
+        m.launches = 0
+    on_ms, on_rows, states = _k1_latency(routed, states, base, K1_STEPS)
+    launches = {name: m.launches for name, m in counters.items()}
+    want = {"letterbox": K1_STEPS, "crops": K1_STEPS, "tracker": K1_STEPS,
+            "conv": N_ROUTED * K1_STEPS}
+    if launches != want:
+        raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
+                             f"{launches}, expected {want}")
+    n_conf = int((states.state == 2).sum())
+    if n_conf == 0 or sum(len(r) for r in on_rows) == 0:
+        raise AssertionError("no confirmed / emitted tracks on the K=1 path")
+    if not bool(torch.isfinite(states.mean).all()):
+        raise AssertionError("non-finite tracker state on the K=1 path")
+
+    # the same step with the conv route off, on fresh states and the same
+    # frames, then the routed step again from fresh states: off, on
+    off_states = init_stream_states(trk_cfg, STREAMS)
+    _, _, off_states = _k1_latency(unrouted, off_states, base, 7)
+    off_ms, off_rows, _ = _k1_latency(unrouted, off_states, base, K1_STEPS)
+    same = all(np.array_equal(a, b) for a, b in zip(on_rows, off_rows))
+
+    # the window guard computes the dense crops every step: their cost alone
+    rng = np.random.default_rng(2)
+    x1 = rng.uniform(0, FRAME_W - 200, (STREAMS, K1_CAP))
+    y1 = rng.uniform(0, FRAME_H - 320, (STREAMS, K1_CAP))
+    boxes = torch.from_numpy(np.stack(
+        [x1, y1, x1 + rng.uniform(20, 190, x1.shape),
+         y1 + rng.uniform(40, 318, y1.shape)], -1).astype(np.float32)).to(dev)
+    _, dense_ms = _timed(lambda: torch.stack([
+        crop_and_normalize(base[i], boxes[i], compute_dtype=torch.bfloat16)
+        for i in range(STREAMS)]), 5)
+    _, win_ms = _timed(lambda: crops_kernel.crop_and_normalize_fused(
+        base, boxes, *K1_WINDOW), 5)
+
+    def pct(ms, q):
+        return float(np.percentile(ms, q))
+
+    print(f"K=1 path: yolov3-416 bf16, {STREAMS} x {FRAME_H}p, cap {K1_CAP}, "
+          f"window {K1_WINDOW}, fixed conv route ({len(CONV_ROUTE['bf16'])} "
+          f"bf16 + {len(CONV_ROUTE['int8'])} int8 layers), {K1_STEPS} steps: "
+          f"launches per step K1 1, K2 1, K3 1, K7 {N_ROUTED}; 1 readback "
+          f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
+          f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
+          f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; both "
+          f"emit the same rows: {same} ({sum(len(r) for r in on_rows)} vs "
+          f"{sum(len(r) for r in off_rows)} rows); confirmed tracks "
+          f"{n_conf}; window guard: dense crops alone {dense_ms:.4f} ms, "
+          f"windowed crops (K2) alone {win_ms:.4f} ms per step", flush=True)
+    return launches
+
+
+def run_multistream(dev, tmp_dir):
+    """``MultiStreamTracker``'s loop at full width without cv2: producer
+    threads push seeded 1080p frames into the port's ``FramePool`` (built
+    with g++ at first use), the last stream ends early, and the
+    ``with_validity`` step must leave an invalid stream's state untouched
+    and emit nothing for it. One readback per step."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.runtime.multistream import MultiStreamTracker
+
+    model, frame, thr = facade_model(dev, tmp_dir)
+    frame_bgr = np.ascontiguousarray(frame[:, :, ::-1])
+
+    class SeededStreams(MultiStreamTracker):
+        def _decoder(self, stream, path):  # a producer without a video file
+            try:
+                for _ in range(int(path)):
+                    while not self.pool.push(stream, frame_bgr):
+                        if self._stop.is_set():
+                            return
+            finally:
+                self.pool.mark_finished(stream)
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
+
+    counts = [MST_FRAMES] * (STREAMS - 1) + [MST_SHORT]
+    mst = SeededStreams(model, [str(n) for n in counts],
+                        random_reid_params(0), (FRAME_H, FRAME_W),
+                        det_config=DetectorConfig(img_size=416,
+                                                  conf_thres=thr))
+    fields = ("mean", "cov", "track_id", "state", "hits", "age",
+              "time_since_update", "gallery", "gallery_head",
+              "gallery_count", "next_id")
+    last = STREAMS - 1
+    seen = np.zeros(STREAMS, int)
+    steps = frozen = rows = 0
+    before = {f: getattr(mst.states, f)[last].clone() for f in fields}
+    t0 = time.perf_counter()
+    for outputs, emit, valid in mst.run(max_steps=None):
+        steps += 1
+        seen += valid
+        rows += int(emit.sum())
+        if outputs.shape != (STREAMS, mst.trk_cfg.max_tracks, 5):
+            raise AssertionError(f"outputs shape {outputs.shape}")
+        if emit[~valid].any():
+            raise AssertionError("an invalid stream emitted rows")
+        now = {f: getattr(mst.states, f)[last].clone() for f in fields}
+        if not valid[last]:
+            frozen += 1
+            for f in fields:
+                if not torch.equal(now[f], before[f]):
+                    raise AssertionError(f"invalid stream's {f} changed")
+        before = now
+    dt = time.perf_counter() - t0
+    mst.close()
+    if (seen.tolist() != counts or frozen == 0 or rows == 0
+            or mst.host_readbacks != steps):
+        raise AssertionError(f"multistream: frames per stream "
+                             f"{seen.tolist()} (pushed {counts}), {frozen} "
+                             f"steps with the short stream invalid, {rows} "
+                             f"rows, {mst.host_readbacks} readbacks in "
+                             f"{steps} steps")
+    print(f"multistream (yolov3-416 bf16, {STREAMS} x {FRAME_H}p through the "
+          f"native frame pool, stream {last} ends after {MST_SHORT} of "
+          f"{MST_FRAMES} frames): {steps} steps, frames per stream "
+          f"{seen.tolist()}, {frozen} steps left the ended stream's state "
+          f"untouched and emitted nothing for it, {rows} rows emitted, 1 "
+          f"readback per step, {dt / steps * 1e3:.2f} ms per step "
+          f"(host clock, decode threads included)", flush=True)
+
+
 def jv_problem(rng, s, r, c):
     """A seeded batch of two-stage JV problems (torch CPU tensors): costs
     on a coarse grid (exact ties), INFTY gates, inactive rows and columns,
@@ -567,7 +1101,7 @@ def check_jv_cascade(rng, dev):
     plain_ms = _host_ms(lambda: AK.solve_cascade_assignment_fused(*prob), 5)
     return 0.0, kernel_ms, plain_ms, (
         f" (CPU), {int((want >= 0).sum())} matches; whole wrapper "
-        f"{wrapper_ms:.4f} ms (host clock)")
+        f"{wrapper_ms:.4f} ms (host clock)"), nbytes(*bufs, got)
 
 
 def check_jv_two_stage(rng, dev):
@@ -593,7 +1127,8 @@ def check_jv_two_stage(rng, dev):
                         5)
     return 0.0, kernel_ms, plain_ms, (
         f" (CPU), {int((want[0] >= 0).sum())} + {int((want[1] >= 0).sum())}"
-        f" matches; whole wrapper {wrapper_ms:.4f} ms (host clock)")
+        f" matches; whole wrapper {wrapper_ms:.4f} ms (host clock)"
+    ), nbytes(*bufs, *got)
 
 
 def run_jv_ops(dev):
@@ -655,10 +1190,10 @@ def _walking_scene(rng, n_obj, n_frames, h, w):
     return frames, boxes
 
 
-def facade_setup(dev, tmp_dir):
+def facade_model(dev, tmp_dir):
     """The ``Darknet`` facade (yolov3-416) loaded from a ``.weights`` file
-    of the seeded weights, a 1080p frame, and a bf16 ``VideoTracker`` whose
-    threshold lets ~TARGET_DETS candidates through, warmed up and reset."""
+    of the seeded weights, a 1080p frame, and the objectness threshold that
+    lets ~TARGET_DETS of its candidates through."""
     import torch
 
     from specs.weights_np import random_darknet_weights
@@ -685,6 +1220,15 @@ def facade_setup(dev, tmp_dir):
             torch.from_numpy(frame[None]).to(dev), 416, torch.bfloat16)
         obj = model.module_for(torch.bfloat16)(x)[0, :, 4]
     thr = float(torch.sort(obj, descending=True).values[TARGET_DETS - 1])
+    return model, frame, thr
+
+
+def facade_setup(dev, tmp_dir):
+    """``facade_model`` and a bf16 ``VideoTracker`` at its threshold, warmed
+    up and reset."""
+    from yolo_deepsort_tpu_torch import api
+
+    model, frame, thr = facade_model(dev, tmp_dir)
     vt = api.VideoTracker(model, tracked_classes=None, conf_thres=thr,
                           half=True)
     vt.track_frame(frame)  # warm-up: library handles, the bf16 model copy
@@ -824,6 +1368,7 @@ def _device_profile(run, units: int, unit: str, unprofiled_ms: float):
     for name, (n, us) in top:
         print(f"profile:   {us / 1e3 / units:9.4f} ms/{unit} "
               f"{n // units:6d} per {unit}  {name[:100]}")
+    return per_kernel
 
 
 def profile_main_path(dev, repeats: int = 5):
@@ -907,6 +1452,88 @@ def profile_main_path(dev, repeats: int = 5):
         states, _ = pipelined(step, states, frames, 4)
 
     _device_profile(advance, 4, "chunk", float(np.median(ab[True])))
+
+
+def profile_k1(dev, repeats: int = 5):
+    """``--profile``: where a K=1 step's time goes, on the setup of
+    ``run_k1_path``: the whole step (with its readback) with the conv route
+    and without it, each part alone by host clock around a synchronize
+    (medians of ``repeats``), then the device time per step from
+    ``torch.profiler`` over 4 routed steps, the idle share, and the conv
+    kernel's share of the device time."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
+    from yolo_deepsort_tpu_torch.ops.crops_kernel import (
+        crop_and_normalize_fused,
+    )
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.ops.nms import batched_nms
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        _frame_boxes,
+        _make_conv_impl,
+        init_stream_states,
+    )
+    from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
+        tracker_step_fused_batched,
+    )
+
+    routed, unrouted, base, parts = k1_setup(dev)
+    det_cfg, trk_cfg = parts["det_cfg"], parts["trk_cfg"]
+    states = init_stream_states(trk_cfg, STREAMS)
+    _, _, states = _k1_latency(routed, states, base, 6)
+    on_ms, _, states = _k1_latency(routed, states, base, 10)
+    off_ms, _, states = _k1_latency(unrouted, states, base, 10)
+    step_ms = float(np.median(on_ms))
+
+    def timed(fn):
+        return _timed(fn, repeats)
+
+    # the routed step's conv hook, rebuilt from the same package
+    impl = _make_conv_impl(CONV_ROUTE, parts["int8_pkg"])
+    cfg_c = dataclasses.replace(trk_cfg, max_dets=K1_CAP)
+    with torch.no_grad():
+        xs, lb_ms = timed(lambda: letterbox_batch_fused(base, 416,
+                                                        torch.bfloat16))
+        parts["detector"](xs, conv_impl=impl)  # upload the package once
+        dec, bb_on = timed(lambda: parts["detector"](xs, conv_impl=impl))
+        _, bb_off = timed(lambda: parts["detector"](xs))
+        (b7, mask), nms_ms = timed(lambda: batched_nms(
+            dec, det_cfg.conf_thres, det_cfg.nms_thres, det_cfg.max_boxes,
+            K1_CAP))
+        xyxy, tlwh = _frame_boxes(b7, 416, FRAME_H, FRAME_W)
+        crops, win_ms = timed(lambda: crop_and_normalize_fused(
+            base, xyxy.contiguous(), *K1_WINDOW))
+        _, dense_ms = timed(lambda: torch.stack([
+            crop_and_normalize(base[i], xyxy[i], compute_dtype=torch.bfloat16)
+            for i in range(STREAMS)]))
+        feats, reid_ms = timed(lambda: parts["reid"](
+            crops.reshape(-1, *crops.shape[2:])))
+        feats = feats.reshape(STREAMS, K1_CAP, -1)
+        _, trk_ms = timed(lambda: tracker_step_fused_batched(
+            cfg_c, states, tlwh, b7[..., 5], feats, mask,
+            (FRAME_H, FRAME_W)))
+    print(f"profile: K=1 step {step_ms:.4f} ms with the conv route, "
+          f"{float(np.median(off_ms)):.4f} ms without; alone: letterbox "
+          f"{lb_ms:.4f}, backbone + decode {bb_on:.4f} routed / {bb_off:.4f} "
+          f"library convs, NMS (cap {K1_CAP}) {nms_ms:.4f}, windowed crops "
+          f"{win_ms:.4f}, dense crops (the guard's other branch) "
+          f"{dense_ms:.4f}, ReID embed ({STREAMS * K1_CAP} crops) "
+          f"{reid_ms:.4f}, tracker step {trk_ms:.4f} ms", flush=True)
+
+    def advance():
+        nonlocal states
+        _, _, states = _k1_latency(routed, states, base, 4)
+
+    per_kernel = _device_profile(advance, 4, "K=1 step", step_ms)
+    conv_us = sum(us for name, (_, us) in per_kernel.items()
+                  if "conv_kernel" in name)
+    total_us = sum(us for _, us in per_kernel.values())
+    print(f"profile: conv kernel (K7) {conv_us / 4e3:.4f} ms per K=1 step "
+          f"over {N_ROUTED} launches, share of device time "
+          f"{conv_us / total_us:.4f}", flush=True)
 
 
 def profile_facades(dev, tmp_dir, repeats: int = 5):
@@ -1006,6 +1633,7 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(dev)
+        profile_k1(dev)
         with tempfile.TemporaryDirectory() as tmp_dir:
             profile_facades(dev, tmp_dir)
         return 0
@@ -1017,21 +1645,50 @@ def main() -> int:
                         ("tracker", check_tracker),
                         ("jv_cascade", check_jv_cascade),
                         ("jv_two_stage", check_jv_two_stage)):
-        err, ms, plain_ms, note = check(rng, dev)
-        results[name] = (err, ms, plain_ms)
+        err, ms, plain_ms, note, io_bytes = check(rng, dev)
+        # K1 and K2 move bytes; K3-K5 are latency chains of block-wide
+        # reductions, far above their byte bound, which is what is stated
+        bound_ms, bound_by = roofline(io_bytes)
+        results[name] = (err, ms, plain_ms, bound_ms, bound_by)
         print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms{note}", flush=True)
+              f"plain {plain_ms:.4f} ms{note}; bound {bound_ms:.6f} ms "
+              f"({bound_by}: {io_bytes} in and out), library call: none",
+              flush=True)
+    conv = check_conv(rng, dev)
+    for (hi, ci, co, k, stride, act), r in conv.items():
+        f32_in = ("" if r["ms_int8_f32"] is None else
+                  f"; int8 with f32 activations max |err| "
+                  f"{r['err_int8_f32']:.3g}, kernel {r['ms_int8_f32']:.4f} ms")
+        print(f"kernel conv {k}x{k} s{stride} {hi}x{hi} {ci}->{co} {act} "
+              f"(layers {r['layers']}): bf16 {r['ulps']:.3g} bf16 ulps (max "
+              f"|err| {r['err_bf16']:.3g}), kernel {r['ms_bf16']:.4f} ms, "
+              f"plain {r['plain_bf16']:.4f} ms, bound "
+              f"{r['bound_bf16'][0]:.4f} ms ({r['bound_bf16'][1]}); int8 "
+              f"max |err| {r['err_int8']:.3g}, kernel {r['ms_int8']:.4f} ms, "
+              f"plain {r['plain_int8']:.4f} ms, bound "
+              f"{r['bound_int8'][0]:.4f} ms ({r['bound_int8'][1]}){f32_in}; "
+              f"library conv2d+act {r['library']:.4f} ms", flush=True)
 
     box_err, emitted, bucket, window = check_small_path(dev)
     print(f"small path (yolov3-tiny-64, 2 x 64x128, 3 chunks of K=2) card "
           f"vs CPU: detect mask and stats equal, boxes max |err| "
           f"{box_err:.3g} px; emitted tracks equal ({emitted} rows); bucket "
           f"{bucket}, window {window}", flush=True)
+    emitted = check_small_k1(dev)
+    print(f"small K=1 step (yolov3-tiny-64, 2 x 64x128, cap 6, window "
+          f"(48, 64), 4 frames) card vs CPU: emit, ids and discrete state "
+          f"equal, boxes within 1 px ({emitted} rows)", flush=True)
 
-    launches = run_main_path(dev)
+    setup = main_path_setup(dev)
+    launches = run_main_path(dev, setup)
+    # the K=1 path's counts; the chunked path's counts of K1-K3 stay in
+    # ``launches`` (both paths launched every kernel they list)
+    k1_launches = run_k1_path(dev, setup)
+    del setup
     launches["jv_cascade"] = run_jv_ops(dev)
     with tempfile.TemporaryDirectory() as tmp_dir:
         launches["jv_two_stage"] = run_facades(dev, tmp_dir)
+        run_multistream(dev, tmp_dir)
     src = "yolo_deepsort_tpu_torch/csrc/"
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
@@ -1044,8 +1701,11 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src + meta[name][0],
         "replaces": meta[name][1], "launches": launches[name],
         "max_abs_err": results[name][0], "ms": results[name][1],
-        "plain_ms": results[name][2],
+        "plain_ms": results[name][2], "bound_ms": results[name][3],
+        "bound_by": results[name][4], "library_ms": None,
+        "launches_k1_path": k1_launches.get(name, 0),
     } for name in meta]
+    kernels.append(conv_kernel_entry(conv, k1_launches["conv"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

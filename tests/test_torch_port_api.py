@@ -41,7 +41,7 @@ H, W = 144, 192
 
 @pytest.fixture(scope="module")
 def models():
-    return PA.Darknet("yolov3-tiny", img_size=96), JA.Darknet(
+    return PA.Darknet("yolov3-tiny", img_size=96, device="cpu"), JA.Darknet(
         "yolov3-tiny", img_size=96)
 
 
@@ -283,7 +283,7 @@ def test_roi_nms_mask_matches_jax():
 
 
 def test_darknet_weights_round_trip(models, tmp_path):
-    port = PA.Darknet("yolov3-tiny", img_size=96)
+    port = PA.Darknet("yolov3-tiny", img_size=96, device="cpu")
     blob = random_darknet_weights(port.plan.defs(), seed=4,
                                   well_conditioned=True)
     (tmp_path / "in.weights").write_bytes(blob)

@@ -13,6 +13,7 @@ import torch
 from yolo_deepsort_tpu_torch.config import TrackerConfig
 from yolo_deepsort_tpu_torch.ops import (
     assignment_kernel,
+    conv_kernel,
     crops_kernel,
     letterbox_kernel,
 )
@@ -111,7 +112,7 @@ def test_tracker_kernel_vs_plain(cuda_device, case):
     }[case]
     cfg = TrackerConfig(max_dets=d, feat_dim=64, **kw)
     k_state = init_tracker_state(cfg, s, cuda_device)
-    p_state = init_tracker_state(cfg, s)
+    p_state = init_tracker_state(cfg, s, "cpu")
     rng = np.random.default_rng(11)
     for f, args in enumerate(_scene(rng, s, n_obj, 16, d, 64, dropout)):
         p_state, p_out, p_emit = tracker_kernel.tracker_step_fused_batched(
@@ -185,7 +186,7 @@ def test_tracker_step_on_cuda_tensors(cuda_device):
                         max_age=4)
     s = 3
     k_state = init_tracker_state(cfg, s, cuda_device)
-    p_state = init_tracker_state(cfg, s)
+    p_state = init_tracker_state(cfg, s, "cpu")
     rng = np.random.default_rng(12)
     before = assignment_kernel.two_stage_launches
     frames = list(_scene(rng, s, 12, 14, 16, 64, 0.25))
@@ -202,3 +203,139 @@ def test_tracker_step_on_cuda_tensors(cuda_device):
                               atol=2e-3), f
     assert assignment_kernel.two_stage_launches == before + len(frames)
     assert int(p_emit.sum()) > 0
+
+
+def bf16_ulps(got, want, floor=2.0 ** -6):
+    """max |got - want| in bf16 ulps of max(|want|, floor), in f32."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=floor))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("shape", [
+    # n, hi, ci, co, k, stride, act
+    (8, 26, 256, 512, 3, 1, "leaky"),
+    (8, 52, 256, 512, 3, 2, "leaky"),    # stride 2 read by index
+    (8, 13, 1024, 255, 1, 1, "linear"),  # yolo head: ragged column tile
+    (3, 13, 384, 136, 1, 1, "mish"),     # ragged rows, Ci and Co off the tile
+])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_f32_input"])
+def test_conv_kernel_vs_plain(cuda_device, shape, mode):
+    """Kernel 7 against its plain versions: bf16 mode within 2 bf16 ulps
+    (same exact products, another order of f32 sums); int8 mode exactly
+    equal (exact int32 sums, same f32 epilogue; mish goes through two math
+    libraries and is held to 1 bf16 ulp)."""
+    n, hi, ci, co, k, stride, act = shape
+    rng = np.random.default_rng(hi + ci + co)
+    x = torch.from_numpy(rng.standard_normal((n, hi, hi, ci), np.float32))
+    w = rng.standard_normal((k, k, ci, co), np.float32) / np.sqrt(k * k * ci)
+    b = torch.from_numpy(rng.standard_normal((co,), np.float32)).to(
+        cuda_device)
+    pad = (k - 1) // 2
+    kw = dict(stride=stride, pad=pad, act=act)
+    before = conv_kernel.launches
+    if mode == "bf16":
+        xd = x.to(cuda_device, torch.bfloat16)
+        wd = torch.from_numpy(w.astype(np.float32)).to(cuda_device,
+                                                       torch.bfloat16)
+        got = conv_kernel.conv_bf16(xd, wd, b, **kw)
+        want = conv_kernel.conv_plain_bf16(xd, wd, b, **kw)
+        assert bf16_ulps(got.float(), want.float()) <= 2
+    else:
+        xd = x.to(cuda_device, torch.bfloat16 if mode == "int8"
+                  else torch.float32)
+        ws = (np.abs(w).reshape(-1, co).max(0) / 127).astype(np.float32)
+        wq = torch.from_numpy(np.clip(np.rint(w / ws), -127, 127).astype(
+            np.int8)).to(cuda_device)
+        xs = np.float32(np.abs(x.numpy()).max() / 127)
+        scale = torch.from_numpy(xs * ws).to(cuda_device)
+        xinv = np.float32(1.0 / xs)
+        got = conv_kernel.conv_int8(xd, wq, b, scale, xinv, **kw)
+        want = conv_kernel.conv_plain_int8(xd, wq, b, scale, xinv, **kw)
+        if act == "mish":
+            assert bf16_ulps(got.float(), want.float()) <= 1
+        else:
+            assert torch.equal(got, want)
+    assert conv_kernel.launches == before + 1
+    assert got.shape == (n, hi // stride, hi // stride, co)
+    assert got.dtype == torch.bfloat16
+
+
+def test_conv_kernel_refuses_non_contiguous_input(cuda_device):
+    x = torch.zeros((2, 128, 8, 8), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros((1, 1, 128, 128), dtype=torch.bfloat16,
+                    device=cuda_device)
+    b = torch.zeros((128,), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        # an NCHW-contiguous tensor seen as NHWC: not channels_last memory
+        conv_kernel.conv_bf16(x.permute(0, 2, 3, 1), w, b, pad=0)
+
+
+def test_k1_step_launch_counts(cuda_device):
+    """A small ``make_batched_step`` on the card (yolov3-tiny at 64, bf16,
+    cap and crop window, every eligible conv routed, some through the int8
+    package): per step K1 1, K2 1, K3 1 and K7 once per routed layer."""
+    from specs.weights_np import random_darknet_weights
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.models.quantize_darknet import (
+        quantize_darknet_from_frames,
+    )
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_stream_states,
+        make_batched_step,
+    )
+    from yolo_deepsort_tpu_torch.weights import (
+        darknet_from_raw,
+        load_darknet_weights,
+        reid_from_params,
+    )
+
+    h, w, s, size = 64, 128, 2, 64
+    plan = build_network(ARCHITECTURES["yolov3-tiny"](img_size=size))
+    blob = random_darknet_weights(plan.defs(), seed=0, well_conditioned=True)
+    _, raw = load_darknet_weights(blob, plan.defs())
+    frames = np.random.default_rng(0).integers(0, 256, (s, h, w, 3), np.uint8)
+    on_card = torch.from_numpy(frames).to(cuda_device)
+    # calibration runs where its detector lies: on the card here, and from
+    # the same weights it packages the CPU calibration's ``wq``
+    pkg = quantize_darknet_from_frames(
+        darknet_from_raw(plan, raw).to(cuda_device), on_card, size,
+        k3_only=True)
+    on_cpu = quantize_darknet_from_frames(darknet_from_raw(plan, raw), frames,
+                                          size, k3_only=True)
+    assert set(pkg) == set(on_cpu)
+    for idx in pkg:
+        assert pkg[idx]["wq"].tobytes() == on_cpu[idx]["wq"].tobytes()
+        np.testing.assert_allclose(pkg[idx]["xinv"], on_cpu[idx]["xinv"],
+                                   rtol=1e-4)
+    cl = torch.channels_last
+    detector = darknet_from_raw(plan, raw).to(cuda_device, torch.bfloat16,
+                                              memory_format=cl)
+    reid = reid_from_params(random_reid_params(0)).to(
+        cuda_device, torch.bfloat16, memory_format=cl)
+    det_cfg = DetectorConfig(img_size=size, conf_thres=0.5, max_dets=8)
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    step = make_batched_step(detector, reid, det_cfg, trk_cfg, (h, w), cap=6,
+                             crop_window=(48, 64), use_pallas_conv=True,
+                             backbone_int8_pkg=pkg)
+    states = init_stream_states(trk_cfg, s)  # the card is the default
+    assert states.mean.device.type == "cuda"
+    routed = []
+    impl = conv_kernel.make_backbone_conv_impl(int8_pkg=pkg)
+    with torch.no_grad():
+        detector(letterbox_kernel.letterbox_batch_fused(
+            on_card, size, torch.bfloat16),
+            conv_impl=lambda *a: routed.append(a[-1]) if impl(
+                *a) is not None else None)
+    assert len(routed) >= 3 and set(pkg) < set(routed)
+    counters = (letterbox_kernel, crops_kernel, tracker_kernel, conv_kernel)
+    for _ in range(3):
+        before = [m.launches for m in counters]
+        states, (outputs, emit) = step(states, on_card)
+        torch.cuda.synchronize()
+        got = [m.launches - b for m, b in zip(counters, before)]
+        assert got == [1, 1, 1, len(routed)], got
+    assert outputs.shape == (s, 16, 5) and emit.shape == (s, 16)
+    assert bool(torch.isfinite(states.mean).all())

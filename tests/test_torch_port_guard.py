@@ -60,6 +60,7 @@ def _calls():
     from yolo_deepsort_tpu_torch.config import TrackerConfig
     from yolo_deepsort_tpu_torch.ops import (
         assignment_kernel,
+        conv_kernel,
         crops_kernel,
         letterbox_kernel,
     )
@@ -90,8 +91,26 @@ def _calls():
                 *args, args[0], args[2], 0.7)
         return call
 
+    def conv(int8):
+        def call():
+            x = torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=meta)
+            b = torch.zeros((128,), device=meta)
+            if not int8:
+                return conv_kernel.conv_bf16(
+                    x, torch.zeros((3, 3, 128, 128), dtype=torch.bfloat16,
+                                   device=meta), b)
+            return conv_kernel.conv_int8(
+                x, torch.zeros((3, 3, 128, 128), dtype=torch.int8,
+                               device=meta), b,
+                torch.ones((128,), device=meta), 1.0)
+        return call
+
     # (module, plain function, launch counter, call)
     return {
+        "conv_bf16": (conv_kernel, "conv_plain_bf16", "launches",
+                      conv(False)),
+        "conv_int8": (conv_kernel, "conv_plain_int8", "launches",
+                      conv(True)),
         "letterbox": (letterbox_kernel, "letterbox_batch", "launches",
                       lambda: letterbox_kernel.letterbox_batch_fused(
                           torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
@@ -110,7 +129,8 @@ def _calls():
 
 
 @pytest.mark.parametrize("kernel", ["letterbox", "crops", "tracker",
-                                    "jv_cascade", "jv_two_stage"])
+                                    "jv_cascade", "jv_two_stage",
+                                    "conv_bf16", "conv_int8"])
 def test_non_cpu_tensor_never_takes_the_plain_version(kernel, monkeypatch,
                                                       tmp_path):
     if torch.cuda.is_available():
@@ -153,3 +173,43 @@ def test_facade_on_a_missing_cuda_device_raises(facade):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(api, facade)(**kwargs)
     assert api.DeepSort(use_cuda=True, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["Darknet", "init_tracker_state",
+                                   "init_stream_states", "DeepSort"])
+def test_entry_points_default_to_the_card(entry):
+    """``device=None`` means the CUDA card: without one the entry point
+    raises, and only an explicit ``device="cpu"`` takes the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from yolo_deepsort_tpu_torch import api
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import init_stream_states
+    from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
+
+    cfg = TrackerConfig(max_tracks=8, max_dets=4, nn_budget=2, feat_dim=8)
+    make = {
+        "Darknet": lambda **kw: api.Darknet("yolov3-tiny", img_size=64,
+                                            **kw).device,
+        "init_tracker_state": lambda **kw: init_tracker_state(
+            cfg, 1, **kw).mean.device,
+        "init_stream_states": lambda **kw: init_stream_states(
+            cfg, 2, **kw).mean.device,
+        "DeepSort": lambda **kw: api.DeepSort(**kw).device,
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu").type == "cpu"
+
+
+def test_native_frame_pool_build_failure_raises(monkeypatch, tmp_path):
+    """The port's frame-ring binding has no quiet fallback: a build that
+    fails raises from ``FramePool``."""
+    from yolo_deepsort_tpu_torch.runtime import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_SRC", str(tmp_path / "missing.cpp"))
+    (tmp_path / "missing.cpp").write_text("this is not C++")
+    with pytest.raises(RuntimeError, match="native frame_ring"):
+        native.FramePool(1, 8, 8)

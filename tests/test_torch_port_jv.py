@@ -142,7 +142,8 @@ def test_tracker_step_dispatcher_matches_per_stream_loop(monkeypatch):
                         max_age=5)
     rng = np.random.default_rng(21)
     scenes = [scene(rng, 7, 14, 240, 320, dropout=0.25) for _ in range(3)]
-    new, old = T.init_tracker_state(cfg, 3), T.init_tracker_state(cfg, 3)
+    new, old = (T.init_tracker_state(cfg, 3, "cpu"),
+                T.init_tracker_state(cfg, 3, "cpu"))
     emitted = 0
     for f in range(14):
         args = [torch.from_numpy(a) for a in pack(scenes, f, cfg.max_dets)]

@@ -79,7 +79,7 @@ def test_tracker_plain_vs_pallas_interpret(case):
     step = jax.jit(lambda st, a, b, c, d: j_fused(cfg, st, a, b, c, d, img_hw,
                                                   interpret=True))
     j_state = jax.tree.map(lambda x: jnp.stack([x] * s), j_init(cfg))
-    t_state = init_tracker_state(cfg, s)
+    t_state = init_tracker_state(cfg, s, "cpu")
     for f in range(len(scenes[0])):
         args = pack(scenes, f, cfg.max_dets)
         j_state, j_out, j_emit = step(j_state, *args)

@@ -74,7 +74,7 @@ def test_bucketed_scanned_step_matches_jax():
         det_cfg, trk_cfg, (H, W_), **kw)
     reid_params = j_reid_params(0)
     j_states = JS.init_stream_states(trk_cfg, S)
-    t_states = TS.init_stream_states(trk_cfg, S)
+    t_states = TS.init_stream_states(trk_cfg, S, "cpu")
     emitted = 0
     for _ in range(CHUNKS):
         j_handle = j_step.detect(folded, jnp.asarray(frames))

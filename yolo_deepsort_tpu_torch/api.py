@@ -5,10 +5,11 @@
 track_id]`` rows, ``VideoTracker.track_frame`` / ``track_frames`` /
 ``track``.
 
-Devices are explicit. ``Darknet``, ``Extractor`` and ``DeepSort`` take
-``device=``; ``use_cuda=True`` (the reference's flag) means ``cuda`` when no
-device is given, and a CUDA device that does not exist raises -- nothing
-falls back to the CPU. ``ImageDetector``, ``VideoDetector`` and
+``Darknet``, ``Extractor`` and ``DeepSort`` take ``device=``. With none
+given they run on the CUDA card (``device.py``); the CPU is taken only when
+the caller asks (``device="cpu"``, or the reference's ``use_cuda=False``),
+and a CUDA device that does not exist raises -- nothing falls back to the
+CPU. ``ImageDetector``, ``VideoDetector`` and
 ``VideoTracker`` run on their model's device. On the card the per-frame
 steps launch the port's kernels: the letterbox (K1) and the two-stage JV
 match (K5) in ``track_frame``, K5 in ``DeepSort.update``, and the
@@ -44,6 +45,7 @@ from . import weights as W
 from .cfg import COCO_NAMES, parse_model_config
 from .cfg.architectures import ARCHITECTURES
 from .config import DetectorConfig, TrackerConfig
+from .device import resolve_device
 from .models.darknet import Darknet as DarknetModule
 from .models.darknet import NetworkPlan, build_network
 from .models.reid import feat_dim_of, load_reid_checkpoint, random_reid_params
@@ -69,17 +71,6 @@ from .tracking.tracker import TrackerState, init_tracker_state, tracker_step
 from .utils.checkpoint import load_pytree, save_pytree
 
 MAX_GEOMETRIES = 8  # chunked steps kept per VideoTracker, one per (h, w)
-
-
-def resolve_device(device=None, use_cuda: bool = False) -> torch.device:
-    """``device`` when given, else ``cuda`` if ``use_cuda`` else ``cpu``. A
-    CUDA device that does not exist raises."""
-    dev = torch.device(device if device is not None
-                       else ("cuda" if use_cuda else "cpu"))
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} was asked for, but no CUDA device "
-                           "is available")
-    return dev
 
 
 def _memory_format(device: torch.device):
@@ -159,7 +150,7 @@ class Darknet:
     copy a facade computes with in ``dtype``."""
 
     def __init__(self, source: str, img_size: Optional[int] = None,
-                 num_classes: int = 80, device="cpu"):
+                 num_classes: int = 80, device=None):
         if source in ARCHITECTURES:
             module_defs = ARCHITECTURES[source](
                 num_classes=num_classes, img_size=img_size or

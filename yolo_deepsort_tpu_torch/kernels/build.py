@@ -34,7 +34,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # --fmad=false: every kernel must round like its plain PyTorch version (the
 # tracker's KF algebra, Cholesky and JV reduced costs decide gates and argmin
 # ties; the crop weights are compared bit for bit), so nvcc may not contract
-# a*b+c into an FMA. The kernels are bound by bytes or latency, not flops.
+# a*b+c into an FMA. That costs nothing: the kernels are bound by bytes or
+# latency, and the conv kernel's products run on the tensor cores (its f32
+# epilogue must round like the plain version for int8 mode to be exact).
 BASE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               "--fmad=false"]
 
@@ -55,6 +57,9 @@ SIGNATURES = {
     # aug_a, order_a, levels_a, aug_b, order_b, n2, out_a, out_b, s, r, nc,
     # c_real, stream
     "ydt_jv_two_stage": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # x, w, bias, scale, xinv, out, n, hi, wi, ci, ho, wo, co, k, stride,
+    # pad, act, mode, stream
+    "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()

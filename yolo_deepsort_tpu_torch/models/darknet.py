@@ -165,11 +165,19 @@ class Darknet(nn.Module):
             conv.weight.copy_(torch.as_tensor(p["w"]))
             conv.bias.copy_(torch.as_tensor(p["b"]))
 
-    def forward(self, x: torch.Tensor, capture_all_layers: bool = False):
+    def forward(self, x: torch.Tensor, capture_all_layers: bool = False,
+                conv_impl=None):
         """x: (N, S, S, 3) NHWC in [0, 1] -> (N, boxes, 5+C) float32
         detections (centre format, input pixels, sigmoided scores). With
         ``capture_all_layers`` also returns every layer's output (NHWC for
-        feature maps, decoded rows for yolo layers)."""
+        feature maps, decoded rows for yolo layers).
+
+        ``conv_impl(x, w, b, stride, pad, act, layer_idx)`` may claim a conv
+        layer (conv + bias + activation fused, e.g. the tensor-core kernel
+        of ``ops/conv_kernel.py``) by returning its NHWC output, or return
+        None for the library conv. It sees the reference's layouts: ``x``
+        NHWC and ``w`` HWIO, both views of the module's own tensors (of a
+        channels_last model's memory as it lies, so nothing is copied)."""
         dtype = next(self.parameters()).dtype
         prev = x.to(dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         cache: Dict[int, torch.Tensor] = {}
@@ -178,8 +186,18 @@ class Darknet(nn.Module):
         for i, mdef in enumerate(self._defs):
             t = mdef["type"]
             if t == "convolutional":
-                out = _activate(self.convs[str(i)](prev),
-                                mdef.get("activation", "linear"))
+                conv = self.convs[str(i)]
+                act = mdef.get("activation", "linear")
+                out = None
+                if conv_impl is not None:
+                    out = conv_impl(prev.permute(0, 2, 3, 1),
+                                    conv.weight.permute(2, 3, 1, 0),
+                                    conv.bias, conv.stride[0],
+                                    conv.padding[0], act, i)
+                    if out is not None:
+                        out = out.permute(0, 3, 1, 2).to(dtype)
+                if out is None:
+                    out = _activate(conv(prev), act)
             elif t == "maxpool":
                 k, stride = int(mdef["size"]), int(mdef["stride"])
                 if k == 2 and stride == 1:

@@ -1,0 +1,299 @@
+"""Kernel 7: backbone conv + bias + activation on the tensor cores (CUDA
+``csrc/conv.cu``), in bf16 and in W8A8 int8.
+
+Replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_conv.py``
+(``_conv_kernel`` via ``conv_mxu_bf16`` / ``conv_mxu_int8``), with its routing
+policy (``backbone_conv_eligible``, ``make_backbone_conv_impl``,
+``load_conv_whitelist``). Bound on the H100 by operations (hundreds to
+thousands per byte moved at the backbone's shapes). The design is an implicit
+GEMM -- rows N*Ho*Wo, columns Co, depth k*k*Ci walked tap by tap -- one
+output tile per block, tiles gathered into shared memory with the padding,
+the ragged edges and stride 2 handled by index and mask, the products on the
+tensor cores through ``wmma``, bias and activation fused into the bf16 NHWC
+store (see the note at the top of the .cu file).
+
+Layouts are the reference's: ``x`` (N, Hi, Wi, Ci) NHWC, ``w`` (k, k, Ci, Co)
+HWIO, whose contiguous memory is the tap-major (k*k*Ci, Co) matrix the
+kernel reads; ``b`` (Co,) f32; int8 mode adds ``scale`` (Co,) f32 =
+xscale * wscale and the host scalar ``xinv`` = 1 / xscale. The result is
+bf16 NHWC.
+
+``conv_plain_bf16`` and ``conv_plain_int8`` are the plain PyTorch versions:
+the same values (bf16-rounded operands, or int8 codes quantized with
+ties-to-even) and the kernel's f32 epilogue, op for op. bf16 products are
+exact in f32 and only the order of the f32 sums differs, so the kernel is
+held to within 2 bf16 ulps of the plain version; int32 sums are exact, so
+int8 mode is held exactly equal. ``conv_bf16`` / ``conv_int8`` take the
+plain version for CPU tensors only; a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..kernels import build
+
+launches = 0  # kernel launches; only the launch below adds to it
+
+_ACT_CODES = {"linear": 0, "": 0, "leaky": 1, "mish": 2}
+
+
+def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "leaky":
+        return torch.where(y > 0, y, 0.1 * y)
+    if act == "mish":
+        return y * torch.tanh(torch.logaddexp(torch.zeros_like(y), y))
+    if act in ("linear", ""):
+        return y
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def _geometry(x, w, stride: int, pad: int):
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"conv: expected NHWC x and HWIO w, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, hi, wi, ci = x.shape
+    k, k2, wci, co = w.shape
+    if k != k2 or k not in (1, 3) or wci != ci:
+        raise ValueError(f"conv: w {tuple(w.shape)} does not fit x "
+                         f"{tuple(x.shape)} (k must be 1 or 3)")
+    if pad != (k - 1) // 2 or stride not in (1, 2):
+        raise ValueError(f"conv: k={k} needs pad {(k - 1) // 2} and stride 1 "
+                         f"or 2, got pad {pad}, stride {stride}")
+    if stride == 2 and (hi % 2 or wi % 2):
+        raise ValueError(f"conv: stride 2 needs even spatial dims, got "
+                         f"{hi}x{wi}")
+    ho = (hi + 2 * pad - k) // stride + 1
+    wo = (wi + 2 * pad - k) // stride + 1
+    return n, hi, wi, ci, ho, wo, co, k
+
+
+def _conv_nhwc(x, w_hwio, stride, pad):
+    """NHWC x, HWIO w (both of one float dtype) -> NHWC product."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                 stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_plain_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
+                    act: str = "leaky") -> torch.Tensor:
+    """Plain version of the bf16 mode: operands rounded to bf16, products
+    and sums in f32, + bias, activation, rounded to bf16."""
+    _geometry(x, w, stride, pad)
+    y = _conv_nhwc(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float(),
+                   stride, pad)
+    y = apply_act(y + b.float(), act)
+    return y.to(torch.bfloat16).contiguous()
+
+
+def quantize_activations(x: torch.Tensor, xinv: float) -> torch.Tensor:
+    """clip(rint(f32(x) * xinv), -127, 127) as integer-valued f32 (ties to
+    even, as ``jnp.round`` and the kernel's ``rintf``)."""
+    # a Python scalar, exactly the f32 value: no tensor is built from host
+    # data (that would synchronize a CUDA stream)
+    return torch.round(x.float() * float(np.float32(xinv))).clamp(-127, 127)
+
+
+def conv_plain_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
+                    act: str = "leaky", return_acc: bool = False):
+    """Plain version of the int8 mode. PyTorch has no int8 conv, and the
+    sums pass 2^24, so the integer codes are convolved in float64 (exact
+    below 2^53) and cast to int32; then the kernel's f32 epilogue
+    f32(acc) * scale + b, activation, bf16. ``return_acc`` returns the
+    int32 sums instead."""
+    _geometry(x, wq, stride, pad)
+    xq = quantize_activations(x, xinv).double()
+    acc = _conv_nhwc(xq, wq.double(), stride, pad).to(torch.int32)
+    if return_acc:
+        return acc.contiguous()
+    y = acc.float() * scale.float() + b.float()
+    return apply_act(y, act).to(torch.bfloat16).contiguous()
+
+
+def _launch(x, w, b, scale, xinv, stride, pad, act, mode):
+    n, hi, wi, ci, ho, wo, co, k = _geometry(x, w, stride, pad)
+    tensors = (x, w, b) if scale is None else (x, w, b, scale)
+    build.require_cuda("conv", *tensors)
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if ci % 8:
+        raise ValueError(f"conv kernel: Ci must be a multiple of 8 (16-byte "
+                         f"gathers of activation rows), got {ci}")
+    if b.dtype != torch.float32 or tuple(b.shape) != (co,):
+        raise ValueError("conv kernel: b must be (Co,) float32")
+    if scale is not None and (scale.dtype != torch.float32
+                              or tuple(scale.shape) != (co,)):
+        raise ValueError("conv kernel: scale must be (Co,) float32")
+    out = torch.empty((n, ho, wo, co), dtype=torch.bfloat16, device=x.device)
+    lib = build.load()
+    err = lib.ydt_conv(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if scale is None else scale.data_ptr(), float(xinv),
+        out.data_ptr(), n, hi, wi, ci, ho, wo, co, k, stride, pad,
+        _ACT_CODES[act], mode,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch("conv", err)
+    global launches
+    launches += 1
+    return out
+
+
+def conv_bf16_cuda(x, w, b, *, stride=1, pad=1, act="leaky"):
+    """Launch the kernel in bf16 mode: contiguous bf16 NHWC ``x`` and HWIO
+    ``w`` on the card (a ``torch.cat`` result must be contiguous in
+    channels_last; anything else raises)."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"conv kernel (bf16): expected bfloat16 x and w, "
+                         f"got {x.dtype} and {w.dtype}")
+    return _launch(x, w, b, None, 0.0, stride, pad, act, 0)
+
+
+def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky"):
+    """Launch the kernel in int8 mode: ``x`` bf16 or f32 (quantized in the
+    tile load), ``wq`` int8 HWIO, ``xinv`` a host scalar."""
+    if wq.dtype != torch.int8 or x.dtype not in (torch.bfloat16,
+                                                 torch.float32):
+        raise ValueError(f"conv kernel (int8): expected int8 wq and bfloat16 "
+                         f"or float32 x, got {wq.dtype} and {x.dtype}")
+    mode = 1 if x.dtype == torch.bfloat16 else 2
+    return _launch(x, wq, b, scale, xinv, stride, pad, act, mode)
+
+
+def conv_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
+              act: str = "leaky") -> torch.Tensor:
+    """bf16 conv + bias + activation, f32 accumulation; bf16 NHWC. The
+    kernel for CUDA tensors, ``conv_plain_bf16`` for CPU tensors."""
+    if x.device.type == "cpu":
+        return conv_plain_bf16(x, w, b, stride=stride, pad=pad, act=act)
+    return conv_bf16_cuda(x, w, b, stride=stride, pad=pad, act=act)
+
+
+def conv_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
+              act: str = "leaky") -> torch.Tensor:
+    """W8A8 conv with bf16 glue: quantize in, int8 products, int32 sums,
+    per-channel dequant + bias + activation out (bf16 NHWC). The kernel for
+    CUDA tensors, ``conv_plain_int8`` for CPU tensors."""
+    if x.device.type == "cpu":
+        return conv_plain_int8(x, wq, b, scale, xinv, stride=stride, pad=pad,
+                               act=act)
+    return conv_int8_cuda(x, wq, b, scale, xinv, stride=stride, pad=pad,
+                          act=act)
+
+
+def int8_package_to_torch(pkg: Dict[int, Dict],
+                          device=None) -> Dict[int, Dict]:
+    """The numpy package of ``models/quantize_darknet.py`` (either
+    package's) as the tensors the kernel reads, on ``device`` (the CUDA
+    card unless another is named): ``wq`` int8 HWIO contiguous (its memory
+    is the tap-major (k*k*Ci, Co) matrix), ``scale`` and ``b`` f32, ``xinv``
+    kept as a host float (the kernel takes it by value). The conv routes
+    accept either form; converting up front keeps the first routed call
+    free of uploads."""
+    device = resolve_device(device)
+
+    def tensor(v, np_dtype):
+        if isinstance(v, torch.Tensor):  # already converted: move only
+            return v.to(device).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(v, np_dtype))).to(device)
+
+    return {
+        int(idx): {
+            "wq": tensor(qp["wq"], np.int8),
+            "scale": tensor(qp["scale"], np.float32),
+            "b": tensor(qp["b"], np.float32),
+            "xinv": float(np.float32(qp["xinv"])),
+        }
+        for idx, qp in pkg.items()
+    }
+
+
+def backbone_conv_eligible(hi: int, wi: int, ci: int, co: int, k: int,
+                           stride: int, act: str, max_hw: int = 64) -> bool:
+    """Routing policy of the conv hook, the reference's: deep backbone and
+    head convs (Ci, Co >= 128, spatial <= ``max_hw``), k 1 or 3, stride 2
+    only on even maps; the spatially large early layers stay on the library
+    conv."""
+    if k not in (1, 3) or act not in ("leaky", "linear", "mish"):
+        return False
+    if stride == 2 and (hi % 2 or wi % 2):
+        return False
+    if max(hi, wi) > max_hw:
+        return False
+    return ci >= 128 and co >= 128
+
+
+def make_backbone_conv_impl(*, max_hw: int = 64,
+                            layer_whitelist: Optional[frozenset] = None,
+                            int8_pkg: Optional[Dict[int, Dict]] = None):
+    """``conv_impl`` hook for ``Darknet.forward``: route eligible convs
+    through ``conv_bf16`` and the layers of ``int8_pkg`` (the package of
+    ``models/quantize_darknet.py``) through ``conv_int8``; return None (the
+    library conv) for every other layer. ``layer_whitelist`` restricts the
+    route to those module indices.
+
+    The hook receives the module's weights as an HWIO view. Each routed
+    layer's weights are packed once, on the layer's first call -- contiguous
+    HWIO in bf16, or the package's int8 tensors on the device -- and kept:
+    the route serves one detector whose inference weights are frozen; load
+    new weights, build a new route."""
+    packed: Dict[int, tuple] = {}   # layer -> (w bf16 HWIO, b f32)
+    int8_dev: Dict[int, Dict] = {}
+
+    def impl(x, w, b, stride, pad, act, layer_idx):
+        hi, wi, ci = int(x.shape[1]), int(x.shape[2]), int(x.shape[3])
+        co, k = int(w.shape[3]), int(w.shape[0])
+        if layer_whitelist is not None and layer_idx not in layer_whitelist:
+            return None
+        if pad != (k - 1) // 2:  # unpadded k=3 convs (rare cfg) are not routed
+            return None
+        if not backbone_conv_eligible(hi, wi, ci, co, k, stride, act,
+                                      max_hw=max_hw):
+            return None
+        if int8_pkg is not None and layer_idx in int8_pkg:
+            if layer_idx not in int8_dev:
+                int8_dev[layer_idx] = int8_package_to_torch(
+                    {layer_idx: int8_pkg[layer_idx]}, x.device)[layer_idx]
+            qp = int8_dev[layer_idx]
+            return conv_int8(x, qp["wq"], qp["b"], qp["scale"], qp["xinv"],
+                             stride=stride, pad=pad, act=act)
+        if layer_idx not in packed:
+            packed[layer_idx] = (w.detach().to(torch.bfloat16).contiguous(),
+                                 b.detach().float().contiguous())
+        wp, bp = packed[layer_idx]
+        return conv_bf16(x.to(torch.bfloat16), wp, bp, stride=stride,
+                         pad=pad, act=act)
+
+    return impl
+
+
+def load_conv_whitelist(model: str, img_size: int, batch: int,
+                        tuned_dir: Optional[str] = None):
+    """Load a per-layer routing whitelist ``conv_whitelist_<model>_<size>_
+    b<batch>.json``: {"bf16": frozenset(layer), "int8": frozenset(layer)}
+    for the serving steps' ``use_pallas_conv=`` argument, or None when there
+    is no file for this (model, img_size, batch) or its ``backend`` field is
+    not ``"cuda"``: per-shape winners belong to the chip they were timed
+    on, so a file tuned on a TPU (or one that does not say) is refused."""
+    if tuned_dir is None:
+        tuned_dir = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))), "tuned")
+    path = os.path.join(
+        tuned_dir, f"conv_whitelist_{model}_{img_size}_b{batch}.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        d = json.load(f)
+    if d.get("backend") != "cuda":
+        return None
+    return {"bf16": frozenset(d.get("bf16", ())),
+            "int8": frozenset(d.get("int8", ()))}

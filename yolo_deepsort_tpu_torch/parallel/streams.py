@@ -1,5 +1,6 @@
-"""Multi-stream chunked serving: the bucketed detect -> track step (port of
-the serving subset of yolo_deepsort_tpu/parallel/streams.py).
+"""Multi-stream serving steps: the bucketed chunked detect -> track step and
+the single-frame low-latency step (port of the serving subset of
+yolo_deepsort_tpu/parallel/streams.py).
 
 A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 
@@ -13,6 +14,11 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 * Track stage (``make_scanned_track_stage``): rescale -> windowed crops
   (kernel 2) -> ReID embed -> a K-frame Python loop of the fused tracker
   step (kernel 3), one launch per frame.
+
+``make_batched_step`` is the K=1 step: one frame of every stream per call,
+no readback inside the step -- capacity is a static ``cap`` and the crop
+window is guarded on the device. Both steps can route whitelisted backbone
+convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``).
 
 The models are ``nn.Module``s already on the target device and dtype; the
 kernel wrappers launch their CUDA kernels for CUDA tensors and run their
@@ -38,14 +44,60 @@ from ..ops.crops import (
 from ..ops.crops_kernel import crop_and_normalize_fused
 from ..ops.letterbox import rescale_boxes
 from ..ops.letterbox_kernel import letterbox_batch_fused
-from ..ops.nms import batched_nms_with_stats
+from ..ops.nms import batched_nms, batched_nms_with_stats
 from ..tracking.tracker import TrackerState, init_tracker_state
 from ..tracking.tracker_kernel import tracker_step_fused_batched
 
 
+def _make_conv_impl(use_pallas_conv, backbone_int8_pkg):
+    """Resolve the backbone conv route of the serving steps (the argument
+    keeps the reference's name).
+
+    use_pallas_conv: False (library convs) | True (the tensor-core conv
+    kernel on every eligible layer; on CPU tensors its plain version) |
+    "plain-twin" (the arithmetically identical plain int8 route,
+    ``models/quantize_darknet.make_plain_int8_conv_impl``, for accuracy
+    gates; requires backbone_int8_pkg) | a dict {"bf16": frozenset, "int8":
+    frozenset} as ``ops/conv_kernel.load_conv_whitelist`` returns it
+    (per-layer routing: only those layers leave the library conv; int8
+    layers also need their entry in backbone_int8_pkg, else they run the
+    bf16 kernel)."""
+    if not use_pallas_conv:
+        return None
+    from ..ops.conv_kernel import make_backbone_conv_impl
+
+    if isinstance(use_pallas_conv, dict):
+        wl = (frozenset(use_pallas_conv.get("bf16", ()))
+              | frozenset(use_pallas_conv.get("int8", ())))
+        return make_backbone_conv_impl(layer_whitelist=wl,
+                                       int8_pkg=backbone_int8_pkg)
+    if use_pallas_conv == "plain-twin":
+        if backbone_int8_pkg is None:
+            raise ValueError("plain-twin conv route requires "
+                             "backbone_int8_pkg")
+        from ..models.quantize_darknet import make_plain_int8_conv_impl
+
+        return make_plain_int8_conv_impl(backbone_int8_pkg)
+    if use_pallas_conv is not True:
+        raise ValueError(f"unknown conv route {use_pallas_conv!r}")
+    return make_backbone_conv_impl(int8_pkg=backbone_int8_pkg)
+
+
+def _refuse_unported(use_resblock, embed_int8=False):
+    if use_resblock:
+        raise NotImplementedError(
+            "use_resblock: the fused residual-chain kernel (K9, "
+            "ops/pallas_resblock.py) is not ported yet")
+    if embed_int8:
+        raise NotImplementedError(
+            "embed_int8: the int8-resident ReID conv kernels (K8, "
+            "ops/pallas_conv_int8.py) are not ported yet")
+
+
 def init_stream_states(trk_cfg: TrackerConfig, n_streams: int,
-                       device="cpu") -> TrackerState:
-    """Fresh tracker state for ``n_streams`` streams (ids are per stream)."""
+                       device=None) -> TrackerState:
+    """Fresh tracker state for ``n_streams`` streams (ids are per stream),
+    on the CUDA card unless ``device`` names another."""
     return init_tracker_state(trk_cfg, n_streams, device)
 
 
@@ -82,6 +134,9 @@ def make_scanned_detect_stage(
     frame_hw: Tuple[int, int],
     conf_thres_per_stream: Optional[Sequence[float]] = None,
     tracked_class_ids=None,
+    use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
+    backbone_int8_pkg=None,  # models/quantize_darknet package (int8 layers)
+    use_resblock=False,
 ):
     """Returns detect(frames (K, S, H, W, 3) uint8) -> (boxes7 (K*S, D, 7),
     mask (K*S, D), stats (5,) int32). stats = [max per-frame count
@@ -97,13 +152,15 @@ def make_scanned_detect_stage(
     thr = (None if conf_thres_per_stream is None else torch.as_tensor(
         np.asarray(conf_thres_per_stream, np.float32), device=param.device))
     tracked = class_filter(tracked_class_ids, param.device)
+    _refuse_unported(use_resblock)
+    conv_impl = _make_conv_impl(use_pallas_conv, backbone_int8_pkg)
 
     @torch.no_grad()
     def detect(frames: torch.Tensor):
         k, s = frames.shape[0], frames.shape[1]
         flat = frames.reshape(k * s, h, w, 3)
         xs = letterbox_batch_fused(flat, size, out_dtype=dtype)
-        decoded = detector(xs)
+        decoded = detector(xs, conv_impl=conv_impl)
         conf = det_cfg.conf_thres if thr is None else thr.repeat(k)
         boxes7, mask, sat = batched_nms_with_stats(
             decoded, conf, det_cfg.nms_thres, det_cfg.max_boxes,
@@ -181,6 +238,122 @@ def make_scanned_track_stage(
         return states, (torch.stack(outputs), torch.stack(emits))
 
     return track
+
+
+def make_batched_step(
+    detector: Darknet,
+    reid: ReIDNet,
+    det_cfg: DetectorConfig,
+    trk_cfg: TrackerConfig,
+    frame_hw: Tuple[int, int],
+    tracked_class_ids=None,
+    with_validity: bool = False,
+    cap: Optional[int] = None,  # NMS and tracker at the top-``cap`` by score
+    crop_window: Optional[Tuple[int, int]] = None,  # windowed ReID crops
+    embed_int8=False,
+    use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
+    backbone_int8_pkg=None,  # models/quantize_darknet package (int8 layers)
+    use_resblock=False,
+):
+    """Single-frame multi-stream step: step(states, frames (S, H, W, 3)
+    uint8) -> (states, (outputs (S, T, 5), emit (S, T))). The models are
+    shared; tracker state is per stream. The compute dtype is the models'.
+
+    ``with_validity`` adds a (S,) bool ``frame_valid`` argument: a stream
+    whose decode failed this step keeps its tracker state unchanged (no
+    aging, no deletions: the frame never happened) and emits nothing, while
+    the healthy streams proceed. The gallery is written in place, so an
+    invalid stream's detections are masked before the tracker step (no
+    detection, no gallery write) and its other fields are taken from the
+    old state afterwards.
+
+    Low-latency mode: ``cap`` runs NMS and the tracker at capacity ``cap``
+    (NMS emits score-descending, so a frame with more real detections drops
+    its lowest-scoring ones), and ``crop_window`` routes the ReID crops
+    through the windowed resampler (kernel 2 for a bf16 embed) with an
+    exactness guard on the device: the windowed crops equal the dense ones
+    bit for bit only when every consumed crop fits the window. The
+    reference branches on that with ``lax.cond``; a branch on a device value
+    would cost a host sync here, so both forms are computed and
+    ``torch.where`` selects on the device flag.
+
+    The step launches the letterbox (K1), with a conv route the conv kernel
+    (K7) once per routed layer, the windowed crops (K2) and the fused
+    tracker step (K3), and reads nothing back."""
+    h, w = frame_hw
+    size = det_cfg.img_size
+    _refuse_unported(use_resblock, embed_int8)
+    crop_window_eff = None
+    if crop_window is not None:
+        cw = (min(crop_window[0], h), min(crop_window[1], w))
+        crop_window_eff = None if cw == (h, w) else cw
+    cfg_c = trk_cfg
+    if cap is not None and cap < trk_cfg.max_dets:
+        cfg_c = dataclasses.replace(trk_cfg, max_dets=cap)
+    d = cfg_c.max_dets
+    conv_impl = _make_conv_impl(use_pallas_conv, backbone_int8_pkg)
+    param = next(detector.parameters())
+    det_dtype = param.dtype
+    reid_dtype = reid.stem.weight.dtype
+    tracked = class_filter(tracked_class_ids, param.device)
+
+    def dense(frames, boxes_xyxy):
+        return torch.stack([
+            crop_and_normalize(frames[i], boxes_xyxy[i],
+                               compute_dtype=reid_dtype)
+            for i in range(frames.shape[0])])
+
+    def windowed(frames, boxes_xyxy):
+        wh, ww = crop_window_eff
+        if reid_dtype == torch.bfloat16:
+            return crop_and_normalize_fused(frames, boxes_xyxy.contiguous(),
+                                            wh, ww)
+        return torch.stack([
+            crop_and_normalize_windowed(frames[i], boxes_xyxy[i], wh, ww,
+                                        compute_dtype=reid_dtype)
+            for i in range(frames.shape[0])])
+
+    @torch.no_grad()
+    def run(states: TrackerState, frames: torch.Tensor, frame_valid=None):
+        s = frames.shape[0]
+        xs = letterbox_batch_fused(frames, size, out_dtype=det_dtype)
+        decoded = detector(xs, conv_impl=conv_impl)
+        # NMS at the ``cap`` capacity directly: its rows are a contiguous
+        # score-descending prefix, so the first ``cap`` equal a run at
+        # max_dets sliced, in cap-many steps instead of max_dets-many
+        boxes7, mask = batched_nms(decoded, det_cfg.conf_thres,
+                                   det_cfg.nms_thres, det_cfg.max_boxes, d)
+        if tracked is not None:
+            mask = mask & tracked(boxes7)
+        if frame_valid is not None:
+            mask = mask & frame_valid[:, None]
+        boxes_xyxy, tlwh = _frame_boxes(boxes7, size, h, w)
+        if crop_window_eff is not None:
+            wh, ww = crop_window_eff
+            x1i, y1i, x2i, y2i = crop_window_bounds(boxes_xyxy, h, w)
+            fits = (~mask | (((y2i - y1i) <= wh) & ((x2i - x1i) <= ww))).all()
+            crops = torch.where(fits, windowed(frames, boxes_xyxy),
+                                dense(frames, boxes_xyxy))
+        else:
+            crops = dense(frames, boxes_xyxy)
+        feats = reid(crops.reshape(s * d, *crops.shape[2:])).reshape(s, d, -1)
+        new, outputs, emit = tracker_step_fused_batched(
+            cfg_c, states, tlwh, boxes7[..., 5], feats, mask, (h, w))
+        if frame_valid is None:
+            return new, (outputs, emit)
+        kept = {}
+        for f in dataclasses.fields(TrackerState):
+            a, b = getattr(new, f.name), getattr(states, f.name)
+            if f.name == "gallery":  # written in place; untouched rows above
+                kept[f.name] = a
+            else:
+                valid = frame_valid.reshape((-1,) + (1,) * (a.dim() - 1))
+                kept[f.name] = torch.where(valid, a, b)
+        return TrackerState(**kept), (outputs, emit & frame_valid[:, None])
+
+    if not with_validity:
+        return lambda states, frames: run(states, frames)
+    return run
 
 
 class BucketedScannedStep:

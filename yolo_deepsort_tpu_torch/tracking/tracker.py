@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from ..config import TrackerConfig
+from ..device import resolve_device
 from ..ops import boxes as B
 from ..ops.assignment_kernel import solve_two_stage_assignment_fused
 from . import kalman as K
@@ -59,7 +60,10 @@ class TrackerState:
 
 
 def init_tracker_state(cfg: TrackerConfig, n_streams: int,
-                       device="cpu") -> TrackerState:
+                       device=None) -> TrackerState:
+    """Fresh state on ``device``: the CUDA card unless the caller names
+    another (``resolve_device``)."""
+    device = resolve_device(device)
     s, t, b, f = n_streams, cfg.max_tracks, cfg.nn_budget, cfg.feat_dim
 
     def zi(*shape):

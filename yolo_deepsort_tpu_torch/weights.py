@@ -8,6 +8,10 @@
   conv_bias, conv OIHW without BN). Folding BN (eps 1e-5) into the conv
   gives the HWIO {"w", "b"} tree both packages compute from.
 * Darknet: that folded tree -> OIHW tensors for ``Darknet.load_params``.
+* ``conv_int8_package_to_torch``: the numpy int8 package of
+  ``models/quantize_darknet.py`` (either package's) -> the device tensors
+  the conv kernel reads (``ops/conv_kernel.int8_package_to_torch`` under
+  the name this module's callers use).
 * ReID: a folded HWIO tree (``models/reid.py`` random params or loaders)
   -> ``ReIDNet`` or, for the 128-d layout, ``OriginalReIDNet``.
 """
@@ -22,6 +26,9 @@ import torch
 
 from .models.darknet import Darknet, NetworkPlan, conv_layer_shapes
 from .models.reid import OriginalReIDNet, ReIDNet
+from .ops.conv_kernel import (  # noqa: F401  (re-exported)
+    int8_package_to_torch as conv_int8_package_to_torch,
+)
 
 BN_EPS = 1e-5
 
