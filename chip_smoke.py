@@ -23,17 +23,30 @@ which ends the run with a non-zero exit code when it fails:
                    Ci 128-1024 incl. 384 and 768, Co 128-1024 and 255) plus
                    one mish shape, in bf16 mode (within 2 bf16 ulps) and in
                    int8 mode (exactly equal); ``check_conv``
+     crops_interleaved  the same boxes through kernel 6 (the interleaved-RGB
+                   variant, staged window rows): to its plain version within
+                   the crops tolerance, and exactly equal to kernel 2
+     conv_int8     kernel 8 at the nine conv shape classes of one int8-
+                   resident ReID embed of 320 crops (``REID_INT8_CLASSES``),
+                   each in every epilogue its layers use (ReLU, residual,
+                   f32 out): int8 codes exactly equal, f32 out within 1e-5
+                   relative; ``check_conv_int8``. After path 4c the same
+                   once more at the chunked step's own crop count (K x S x
+                   the bucket it took)
    The kernel times are CUDA-event means of repeated launches on the same
    inputs (the tracker and the JV solvers: the kernel alone, with the whole
    wrapper beside it). Each kernel's line also gives its roofline bound
    (``roofline``: bytes in and out over 3.35 TB/s, or operations over the
-   card's peak for their type) and, for the conv, the time of the library
+   card's peak for their type; for the crops the bytes in are the frame
+   pixels that lie in a box, ``crops_io_bytes``) and, for the conv, the time of the library
    call that computes the same function (``F.conv2d`` + activation), a
    yardstick the port never calls.
 3. small paths: ``BucketedScannedStep`` on the card against the same step on
    the CPU, where every wrapper runs its plain version (yolov3-tiny at 64,
    2 streams of 64x128, 3 chunks of K=2; ``check_small_path``), and the K=1
-   step ``make_batched_step`` likewise (``check_small_k1``).
+   step ``make_batched_step`` likewise (``check_small_k1``); and
+   ``reid_apply_int8_resident`` with kernel 8 on the card against the same
+   package on the CPU (``check_small_reid_int8``).
 4. main path: yolov3-416 at full width in bf16 with seeded well-conditioned
    random weights (head biases aimed at person-sized boxes, per-stream
    thresholds calibrated to ~32 detections per frame), 8 temporally static
@@ -51,6 +64,15 @@ which ends the run with a non-zero exit code when it fails:
    synchronizing call; prints p50/p99 ms per step with the route and
    without it, whether both emit the same rows, and what the window guard's
    dense crops cost alone.
+4c. int8-resident ReID embed (``run_int8_embed_paths``): the package of
+   ``quantize_reid_params_resident`` (seeded ReID weights, 64 N(0, 1) crops,
+   calibrated on the card) through the chunked step and the K=1 step with
+   ``embed_int8="resident_pallas"`` on the main path's model and frames:
+   per chunk K8 15 launches, K1 1, K2 1, K3 K; per K=1 step K8 15, K1, K2,
+   K3 1; one readback each and no other synchronizing call; frames/s and
+   p50/p99 beside the bf16 embed's in alternated blocks; and both steps
+   under ``YDT_CROPS_LAYOUT=interleaved`` (K6 1 per chunk and per step, K2
+   0, rows equal to the planar run's).
 5. public JV ops (``run_jv_ops``): ``solve_cascade_assignment_fused`` and
    ``solve_masked_assignment_fused`` on the card over 8 streams of
    tracker-sized problems, equal to the same ops on the CPU.
@@ -78,7 +100,8 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 builds the kernels and the main path's, the K=1 path's and the facades'
 setups, then prints where their time goes instead (``profile_main_path``,
-``profile_k1``, ``profile_facades``), with no result line.
+``profile_k1``, ``profile_int8_embed``, ``profile_facades``), with no
+result line.
 """
 
 from __future__ import annotations
@@ -114,6 +137,24 @@ CONV_ROUTE = {
 N_ROUTED = len(CONV_ROUTE["bf16"]) + len(CONV_ROUTE["int8"])
 MST_FRAMES, MST_SHORT = 6, 3  # frames per stream; the last stream's
 
+# The int8-resident ReID embed (kernel 8). One embed runs 15 quantized convs
+# in nine shape classes: (layers, k, stride, input map h, w, Ci, Co). A
+# layer's epilogue follows from its name (``_reid_layer_epilogue``).
+REID_INT8_CLASSES = (
+    (("l1b0c1",), 3, 2, 64, 32, 64, 128),
+    (("l1b0d",), 1, 2, 64, 32, 64, 128),
+    (("l1b0c2", "l1b1c1", "l1b1c2"), 3, 1, 32, 16, 128, 128),
+    (("l2b0c1",), 3, 2, 32, 16, 128, 256),
+    (("l2b0d",), 1, 2, 32, 16, 128, 256),
+    (("l2b0c2", "l2b1c1", "l2b1c2"), 3, 1, 16, 8, 256, 256),
+    (("l3b0c1",), 3, 2, 16, 8, 256, 512),
+    (("l3b0d",), 1, 2, 16, 8, 256, 512),
+    (("l3b0c2", "l3b1c1", "l3b1c2"), 3, 1, 8, 4, 512, 512),
+)
+EMBED_CROPS = STREAMS * K1_CAP  # crops of one K=1 embed
+N_INT8_CONVS = sum(len(c[0]) for c in REID_INT8_CLASSES)  # 15
+INT8_CHUNKS, INT8_K1_STEPS = 4, 20
+
 # the card's published peaks (H100 SXM, dense): the roofline bounds below
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -137,6 +178,14 @@ TOL_SMALL_BOXES = 1e-3
 # libraries: int8 mode within 1 bf16 ulp there.
 TOL_CONV_ULPS = 2.0
 CONV_ULP_FLOOR = 2.0 ** -6
+# kernel 8: int32 sums are exact and its f32 epilogue is the plain version's
+# op for op, so int8 codes must be exactly equal; the f32 output (the last
+# conv) is held to 1e-5 relative (of max(|want|, 1e-3))
+TOL_CONV_INT8_F32 = 1e-5
+# reid_apply_int8_resident, card vs CPU, bf16 front on both: the two fronts
+# sum in another order and round to bf16, which flips int8 codes at the
+# first quantize; minimum feature cosine
+MIN_COS_REID_INT8 = 0.999
 
 
 def nbytes(*tensors) -> int:
@@ -218,7 +267,25 @@ def check_letterbox(rng, dev):
     return err, ms, plain_ms, "", nbytes(frames, got)
 
 
-def check_crops(rng, dev):
+def crops_io_bytes(boxes, frame_hw, out) -> int:
+    """The bytes a windowed crop must move: every frame pixel that lies in
+    at least one box of its frame read once (3 bytes; the rest of the frame
+    is never needed), the boxes read, the crops written."""
+    from yolo_deepsort_tpu_torch.ops.crops import crop_window_bounds
+
+    h, w = frame_hw
+    corners = crop_window_bounds(boxes.cpu(), h, w)
+    x1, y1, x2, y2 = (c.numpy() for c in corners)
+    needed = np.zeros((boxes.shape[0], h, w), bool)
+    for s, d in np.ndindex(*x1.shape):
+        needed[s, y1[s, d]:y2[s, d], x1[s, d]:x2[s, d]] = True
+    return 3 * int(needed.sum()) + nbytes(boxes, out)
+
+
+def check_crops(rng, dev, interleaved=False):
+    """Kernel 2 or, with ``interleaved``, kernel 6 against ``crops_plain``
+    (the plain version of both: same rounding points); kernel 6 also against
+    kernel 2, exactly."""
     import torch
 
     from yolo_deepsort_tpu_torch.ops import crops_kernel as CK
@@ -233,15 +300,22 @@ def check_crops(rng, dev):
     boxes = np.stack([x1, y1, np.minimum(x1 + bw, FRAME_W - 1),
                       np.minimum(y1 + bh, FRAME_H - 1)], -1)
     boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
-    got = CK.crops_cuda(frames, boxes, 320, 192)
+    got = CK.crops_cuda(frames, boxes, 320, 192, interleaved=interleaved)
     want = CK.crops_plain(frames, boxes, 320, 192)
     err = (got - want).abs().max().item()
     if got.shape != (STREAMS, d, 128, 64, 3) or not err <= TOL_CROPS:
         raise AssertionError(f"crops: shape {tuple(got.shape)}, max |err| "
                              f"{err} > {TOL_CROPS}")
-    ms = cuda_ms(lambda: CK.crops_cuda(frames, boxes, 320, 192), 50)
+    note = ""
+    if interleaved:
+        if not torch.equal(got, CK.crops_cuda(frames, boxes, 320, 192)):
+            raise AssertionError("crops: kernel 6 differs from kernel 2")
+        note = ", exactly equal to kernel 2"
+    ms = cuda_ms(lambda: CK.crops_cuda(frames, boxes, 320, 192,
+                                       interleaved=interleaved), 50)
     plain_ms = cuda_ms(lambda: CK.crops_plain(frames, boxes, 320, 192), 5)
-    return err, ms, plain_ms, "", nbytes(frames, boxes, got)
+    return (err, ms, plain_ms, note,
+            crops_io_bytes(boxes, (FRAME_H, FRAME_W), got))
 
 
 def _tracker_scene(rng, s, d, n_frames, feat_dim):
@@ -695,6 +769,185 @@ def conv_kernel_entry(per_class, launches):
     }
 
 
+def _reid_layer_epilogue(name):
+    """(relu, out_int8, residual) of a quantized ReID conv by its name:
+    conv1 ReLU; the shortcut conv neither; conv2 ReLU after the residual;
+    the last conv2 emits f32."""
+    if name.endswith("d"):
+        return False, True, False
+    if name.endswith("c1"):
+        return True, True, False
+    return True, name != "l3b1c2", True
+
+
+def check_conv_int8(rng, dev, n=EMBED_CROPS):
+    """Kernel 8 against ``conv_int8_plain`` at the nine shape classes of one
+    embed (``REID_INT8_CLASSES``) of ``n`` crops (the K=1 step's EMBED_CROPS,
+    or a chunk's K x S x bucket), in every epilogue the class's layers use: int8 codes exactly equal, the f32 output within
+    TOL_CONV_INT8_F32 relative. Times per class and epilogue (CUDA events,
+    mean of 50), the plain version (mean of 2), the bound (int8 peak), and
+    as a yardstick only the bf16 ``F.conv2d`` (with bias) of the same layer
+    on channels_last tensors. Returns {layer name: {...}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_deepsort_tpu_torch.ops import conv_int8_kernel as C8
+
+    out = {}
+    for layers, k, stride, hi, wi, ci, co in REID_INT8_CLASSES:
+        ho, wo = hi // stride, wi // stride
+        xq = torch.from_numpy(rng.integers(
+            -127, 128, (n, hi, wi, ci)).astype(np.int8)).to(dev)
+        w = (rng.standard_normal((k, k, ci, co), np.float32)
+             / np.sqrt(k * k * ci)).astype(np.float32)
+        wscale = (np.abs(w).reshape(-1, co).max(0) / 127.0).astype(np.float32)
+        wq = torch.from_numpy(np.clip(np.rint(w / wscale), -127, 127).astype(
+            np.int8)).to(dev)
+        # codes ~U(-127, 127) stand for activations of scale 0.02; the
+        # output requantizes at a scale that keeps it off the clip
+        scale = torch.from_numpy(np.float32(0.02) * wscale).to(dev)
+        b = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).to(dev)
+        oinv, res_scale = np.float32(1.0 / 0.05), np.float32(0.03)
+        res = torch.from_numpy(rng.integers(
+            -127, 128, (n, ho, wo, co)).astype(np.int8)).to(dev)
+        x_cl = (xq.float() * 0.02).to(torch.bfloat16).permute(0, 3, 1, 2)
+        w_cl = torch.from_numpy(w).to(dev, torch.bfloat16).permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16 = b.to(torch.bfloat16)
+        library = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, stride=stride,
+                                           padding=(k - 1) // 2), 50)
+        ops = 2.0 * n * ho * wo * k * k * ci * co
+        done = {}
+        for name in layers:
+            relu, out_int8, has_res = epi = _reid_layer_epilogue(name)
+            if epi not in done:
+                args = (xq, wq, scale, b, oinv, res if has_res else None,
+                        res_scale if has_res else None)
+                kw = dict(stride=stride, pad=(k - 1) // 2, relu=relu,
+                          out_int8=out_int8)
+                got = C8.conv_int8(*args, **kw)
+                want = C8.conv_int8_plain(*args, **kw)
+                torch.cuda.synchronize()
+                tag = (f"conv_int8 N={n} {k}x{k} s{stride} {hi}x{wi} {ci}->"
+                       f"{co} relu={relu} int8={out_int8} residual={has_res}")
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
+                if not bool(want.float().abs().max() > 0):
+                    raise AssertionError(f"{tag}: all-zero reference")
+                err = float((got.float() - want.float()).abs().max())
+                ok = (torch.equal(got, want) if out_int8 else bool(
+                    ((got - want).abs() <= TOL_CONV_INT8_F32
+                     * want.abs().clamp(min=1e-3)).all()))
+                if not ok:
+                    raise AssertionError(f"{tag}: differs from its plain "
+                                         f"version (max |err| {err})")
+                io = nbytes(xq, wq, scale, b, got) + (nbytes(res) if has_res
+                                                      else 0)
+                done[epi] = dict(
+                    err=err, bound=roofline(io, ops, "int8"),
+                    ms=cuda_ms(lambda: C8.conv_int8(*args, **kw), 50),
+                    plain_ms=cuda_ms(lambda: C8.conv_int8_plain(*args, **kw),
+                                     2))
+            out[name] = dict(done[epi], library=library, relu=relu,
+                             out_int8=out_int8, residual=has_res,
+                             shape=[k, stride, hi, wi, ci, co])
+    return out
+
+
+def _conv_int8_embed_totals(per_layer):
+    """The 15 launches of one embed, summed: kernel, plain, bound and
+    library (bf16 ``F.conv2d``) times, and each layer's own numbers."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    by = {"operations": 0.0, "bytes": 0.0}
+    for r in per_layer.values():
+        tot["ms"] += r["ms"]
+        tot["plain_ms"] += r["plain_ms"]
+        tot["bound_ms"] += r["bound"][0]
+        tot["library_ms"] += r["library"]
+        by[r["bound"][1]] += r["bound"][0]
+    return {
+        "max_abs_err": max(r["err"] for r in per_layer.values()),
+        **tot, "bound_by": max(by, key=by.get),
+        "per_layer": [{
+            "layer": name, "shape": r["shape"], "relu": r["relu"],
+            "out_int8": r["out_int8"], "residual": r["residual"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library"], "max_abs_err": r["err"]}
+            for name, r in per_layer.items()],
+    }
+
+
+def conv_int8_kernel_entry(per_layer, launches, launches_k1, chunk_crops,
+                           per_layer_chunk):
+    """K8's entry of the ``kernels`` line: its times are those of one embed
+    of EMBED_CROPS crops (the K=1 step's), and under ``at_chunk_crops``
+    those of one embed of ``chunk_crops`` crops (the chunked step's)."""
+    return {
+        "name": "conv_int8", "route": "cuda",
+        "source": "yolo_deepsort_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "yolo_deepsort_tpu/ops/pallas_conv_int8.py:59",
+        "launches": launches, "launches_k1_path": launches_k1,
+        **_conv_int8_embed_totals(per_layer),
+        "at_chunk_crops": {"crops": chunk_crops,
+                           **_conv_int8_embed_totals(per_layer_chunk)},
+    }
+
+
+def reid_int8_package(dev):
+    """The int8-resident package of the seeded ReID weights, calibrated on
+    the card from 64 seeded N(0, 1) crops (the reference bench's calibration
+    input), as the numpy package and as device tensors with a bf16 front."""
+    from yolo_deepsort_tpu_torch.models.quantize import (
+        quantize_reid_params_resident,
+    )
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.weights import reid_int8_package_to_torch
+
+    calib = np.random.default_rng(5).normal(0, 1, (64, 128, 64, 3)).astype(
+        np.float32)
+    pkg = quantize_reid_params_resident(random_reid_params(0), calib)
+    on_card = reid_int8_package_to_torch(pkg)  # the card by default
+    if on_card["in_scale"].device != dev:
+        raise AssertionError("the int8 package did not take the card")
+    return pkg, on_card
+
+
+def check_small_reid_int8(dev):
+    """``reid_apply_int8_resident`` with kernel 8 on the card against the
+    same package on the CPU (kernel 8's plain version), 24 seeded crops, a
+    bf16 front on both: features finite, (24, 512), minimum cosine above
+    MIN_COS_REID_INT8; on the card the kernel route and the plain route
+    (same front) give features within 1e-6."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.models.quantize import (
+        reid_apply_int8_resident,
+    )
+    from yolo_deepsort_tpu_torch.ops import conv_int8_kernel
+    from yolo_deepsort_tpu_torch.weights import reid_int8_package_to_torch
+
+    pkg, on_card = reid_int8_package(dev)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (24, 128, 64, 3)).astype(np.float32))
+    before = conv_int8_kernel.launches
+    card = reid_apply_int8_resident(on_card, x.to(dev), use_pallas=True)
+    launched = conv_int8_kernel.launches - before
+    plain = reid_apply_int8_resident(on_card, x.to(dev))
+    cpu = reid_apply_int8_resident(reid_int8_package_to_torch(pkg, "cpu"), x,
+                                   use_pallas=True)
+    cos = float((card.cpu() * cpu).sum(1).min())
+    twin = float((card - plain).abs().max())
+    if (card.shape != (24, 512) or not bool(torch.isfinite(card).all())
+            or launched != N_INT8_CONVS or not cos > MIN_COS_REID_INT8
+            or not twin <= 1e-6):
+        raise AssertionError(f"int8-resident embed card vs CPU: shape "
+                             f"{tuple(card.shape)}, {launched} K8 launches, "
+                             f"min cosine {cos}, kernel vs plain route on "
+                             f"the card {twin}")
+    return cos, twin
+
+
 def main_path_setup(dev):
     """yolov3-416 bf16 with its per-stream thresholds, the serving step,
     fresh states for 8 streams and one chunk of K static 1080p frames."""
@@ -967,6 +1220,214 @@ def run_k1_path(dev, setup=None):
           f"{n_conf}; window guard: dense crops alone {dense_ms:.4f} ms, "
           f"windowed crops (K2) alone {win_ms:.4f} ms per step", flush=True)
     return launches
+
+
+def run_int8_embed_paths(dev, setup):
+    """The int8-resident ReID embed at full width (phase 4c of the module
+    docstring) on the main path's model, weights and frames. Returns the
+    launch counts of its three counted runs."""
+    import os
+
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import (
+        conv_int8_kernel,
+        crops_kernel,
+        letterbox_kernel,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        BucketedScannedStep,
+        init_stream_states,
+        make_batched_step,
+    )
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
+
+    bf16_step, _, frames, parts = setup
+    trk_cfg, det_cfg = parts["trk_cfg"], parts["det_cfg"]
+    hw = (FRAME_H, FRAME_W)
+    _, pkg = reid_int8_package(dev)
+    int8_step = BucketedScannedStep(
+        parts["detector"], pkg, det_cfg, trk_cfg, hw,
+        buckets=(16, 24, 32, 36, 40, 48),
+        conf_thres_per_stream=parts["conf_vec"],
+        embed_int8="resident_pallas")
+
+    def reset_counters():
+        for m in (letterbox_kernel, crops_kernel, tracker_kernel,
+                  conv_int8_kernel):
+            m.launches = 0
+        crops_kernel.launches_interleaved = 0
+
+    def counts():
+        return {"letterbox": letterbox_kernel.launches,
+                "crops": crops_kernel.launches,
+                "crops_interleaved": crops_kernel.launches_interleaved,
+                "tracker": tracker_kernel.launches,
+                "conv_int8": conv_int8_kernel.launches}
+
+    # chunked path: both embeds from fresh states over the same chunks
+    st = {"int8": init_stream_states(trk_cfg, STREAMS),
+          "bf16": init_stream_states(trk_cfg, STREAMS)}
+    steps = {"int8": int8_step, "bf16": bf16_step}
+    for name, step in steps.items():
+        for _ in range(2):  # warm-up: tracks confirm after n_init frames
+            st[name], _ = step(st[name], frames)
+    torch.cuda.synchronize()
+    readbacks = int8_step.host_readbacks
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st["int8"], _ = pipelined(int8_step, st["int8"], frames, 2)
+        st["bf16"], _ = pipelined(bf16_step, st["bf16"], frames, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    readbacks = int8_step.host_readbacks - readbacks
+    if readbacks != 2:
+        raise AssertionError(f"int8 embed: {readbacks} stats readbacks in 2 "
+                             "chunks")
+    fps, last, chunk_counts = {"int8": [], "bf16": []}, {}, None
+    for name in ("bf16", "int8", "int8", "bf16"):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st[name], last[name] = pipelined(steps[name], st[name], frames,
+                                         INT8_CHUNKS)
+        torch.cuda.synchronize()
+        fps[name].append(STREAMS * K_FRAMES * INT8_CHUNKS
+                         / (time.perf_counter() - t0))
+        if name == "int8":
+            chunk_counts = counts()
+    want = {"letterbox": INT8_CHUNKS, "crops": INT8_CHUNKS,
+            "crops_interleaved": 0, "tracker": K_FRAMES * INT8_CHUNKS,
+            "conv_int8": N_INT8_CONVS * INT8_CHUNKS}
+    if chunk_counts != want:
+        raise AssertionError(f"int8 embed, chunked: launches over "
+                             f"{INT8_CHUNKS} chunks {chunk_counts}, expected "
+                             f"{want}")
+    out8, emit8 = last["int8"]
+    n_conf = int((st["int8"].state == 2).sum())
+    if (n_conf == 0 or int(emit8.sum()) == 0
+            or not bool(torch.isfinite(st["int8"].mean).all())
+            or not bool(torch.isfinite(st["int8"].gallery).all())):
+        raise AssertionError("int8 embed, chunked: no confirmed / emitted "
+                             "tracks, or a non-finite state")
+    same = (torch.equal(out8[emit8], last["bf16"][0][last["bf16"][1]])
+            if torch.equal(emit8, last["bf16"][1]) else False)
+    crops_per_chunk = K_FRAMES * STREAMS * int8_step.last_bucket
+    print(f"int8 embed, chunked (yolov3-416 bf16, {STREAMS} x {FRAME_H}p, "
+          f"K={K_FRAMES}, embed_int8=resident_pallas, {crops_per_chunk} crops "
+          f"per chunk at bucket {int8_step.last_bucket}, window "
+          f"{int8_step.last_window}): launches per chunk K8 {N_INT8_CONVS}, "
+          f"K1 1, K2 1, K3 {K_FRAMES}; 1 readback per chunk and no other "
+          f"sync; frames/s over {INT8_CHUNKS} chunks, blocks bf16 int8 int8 "
+          f"bf16: int8 {fps['int8']}, bf16 {fps['bf16']}; confirmed tracks "
+          f"{n_conf}, emitted rows {int(emit8.sum())}; rows equal to the "
+          f"bf16 embed's: {same}", flush=True)
+
+    # kernel 6 on the chunked path: the same chunks from fresh states under
+    # YDT_CROPS_LAYOUT=interleaved and planar; kernels 6 and 2 are equal bit
+    # for bit, so the rows must be
+    def chunk_run():
+        states = init_stream_states(trk_cfg, STREAMS)
+        for _ in range(2):
+            states, _ = int8_step(states, frames)
+        reset_counters()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, res = pipelined(int8_step, states, frames, INT8_CHUNKS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return res, counts()
+
+    os.environ["YDT_CROPS_LAYOUT"] = "interleaved"
+    try:
+        (out6, emit6), k6_chunk_counts = chunk_run()
+    finally:
+        del os.environ["YDT_CROPS_LAYOUT"]
+    (out2, emit2), _ = chunk_run()
+    want = dict(want, crops=0, crops_interleaved=INT8_CHUNKS)
+    if k6_chunk_counts != want:
+        raise AssertionError(f"int8 embed, chunked, interleaved crops: "
+                             f"launches over {INT8_CHUNKS} chunks "
+                             f"{k6_chunk_counts}, expected {want}")
+    if (int(emit6.sum()) == 0 or not torch.equal(emit6, emit2)
+            or not torch.equal(out6[emit6], out2[emit2])):
+        raise AssertionError("chunked rows under YDT_CROPS_LAYOUT=interleaved "
+                             "differ from the planar run's, or none emitted")
+    print(f"int8 embed, chunked, under YDT_CROPS_LAYOUT=interleaved: "
+          f"launches per chunk K6 1, K2 0, K8 {N_INT8_CONVS}, K1 1, K3 "
+          f"{K_FRAMES}; no sync besides the readback; {int(emit6.sum())} "
+          f"emitted rows equal to the planar run's", flush=True)
+
+    # K=1 path: the int8 embed, planar then interleaved crops, and the bf16
+    # embed, each from fresh states over the same number of steps
+    base = frames[0]
+    args = (parts["detector"], pkg, det_cfg, trk_cfg, hw)
+    kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
+    k1_int8 = make_batched_step(*args, embed_int8="resident_pallas", **kw)
+    k1_bf16 = make_batched_step(parts["detector"], parts["reid"], det_cfg,
+                                trk_cfg, hw, **kw)
+
+    def k1_run(step, check_sync):
+        states = init_stream_states(trk_cfg, STREAMS)
+        _, _, states = _k1_latency(step, states, base, 5)
+        if check_sync:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, _, states = _k1_latency(step, states, base, 2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            _, _, states = _k1_latency(step, states, base, 2)
+        reset_counters()
+        ms, rows, states = _k1_latency(step, states, base, INT8_K1_STEPS)
+        return ms, rows, states, counts()
+
+    ms8, rows8, st8, k1_counts = k1_run(k1_int8, True)
+    want = {"letterbox": INT8_K1_STEPS, "crops": INT8_K1_STEPS,
+            "crops_interleaved": 0, "tracker": INT8_K1_STEPS,
+            "conv_int8": N_INT8_CONVS * INT8_K1_STEPS}
+    if k1_counts != want:
+        raise AssertionError(f"int8 embed, K=1: launches over "
+                             f"{INT8_K1_STEPS} steps {k1_counts}, expected "
+                             f"{want}")
+    if (int((st8.state == 2).sum()) == 0 or sum(len(r) for r in rows8) == 0
+            or not bool(torch.isfinite(st8.mean).all())):
+        raise AssertionError("int8 embed, K=1: no confirmed / emitted tracks")
+    ms16, rows16, _, _ = k1_run(k1_bf16, False)
+    os.environ["YDT_CROPS_LAYOUT"] = "interleaved"
+    try:
+        ms6, rows6, _, k6_counts = k1_run(k1_int8, True)
+    finally:
+        del os.environ["YDT_CROPS_LAYOUT"]
+    want = dict(want, crops=0, crops_interleaved=INT8_K1_STEPS)
+    if k6_counts != want:
+        raise AssertionError(f"int8 embed, K=1, interleaved crops: launches "
+                             f"{k6_counts}, expected {want}")
+    if not all(np.array_equal(a, b) for a, b in zip(rows6, rows8)):
+        raise AssertionError("K=1 rows under YDT_CROPS_LAYOUT=interleaved "
+                             "differ from the planar run's (kernels 6 and 2 "
+                             "are equal bit for bit)")
+    same = all(np.array_equal(a, b) for a, b in zip(rows8, rows16))
+
+    def pct(ms, q):
+        return float(np.percentile(ms, q))
+
+    print(f"int8 embed, K=1 (cap {K1_CAP}, window {K1_WINDOW}, "
+          f"{EMBED_CROPS} crops per step, no conv route, {INT8_K1_STEPS} "
+          f"steps): launches per step K8 {N_INT8_CONVS}, K1 1, K2 1, K3 1; 1 "
+          f"readback per step and no other sync; p50 {pct(ms8, 50):.4f} ms, "
+          f"p99 {pct(ms8, 99):.4f} ms per step; bf16 embed: p50 "
+          f"{pct(ms16, 50):.4f} ms, p99 {pct(ms16, 99):.4f} ms; rows equal "
+          f"to the bf16 embed's: {same} ({sum(len(r) for r in rows8)} vs "
+          f"{sum(len(r) for r in rows16)} rows); under "
+          f"YDT_CROPS_LAYOUT=interleaved: launches per step K6 1, K2 0, K8 "
+          f"{N_INT8_CONVS}, rows equal to the planar run's, p50 "
+          f"{pct(ms6, 50):.4f} ms, p99 {pct(ms6, 99):.4f} ms", flush=True)
+    return {"conv_int8": chunk_counts["conv_int8"],
+            "conv_int8_k1": k1_counts["conv_int8"],
+            "crops_interleaved": k6_chunk_counts["crops_interleaved"],
+            "crops_interleaved_k1": k6_counts["crops_interleaved"],
+            "crops_per_chunk": crops_per_chunk}
 
 
 def run_multistream(dev, tmp_dir):
@@ -1343,22 +1804,29 @@ def _timed(fn, repeats: int):
     return out, float(np.median(ms))
 
 
-def _device_profile(run, units: int, unit: str, unprofiled_ms: float):
-    """``torch.profiler`` over run(), which does ``units`` units of work:
-    prints the device time per unit, the device ops per unit, the idle share
-    against ``unprofiled_ms`` per unit, and the top 15 device ops."""
+def _device_kernels(run):
+    """``torch.profiler`` over run(): {device op name: [launches, device
+    us]}."""
     import torch
 
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    per_kernel = {}  # name -> [launches, device us] over the run
+    per_kernel = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             acc = per_kernel.setdefault(e.name, [0, 0.0])
             acc[0] += 1
             acc[1] += e.time_range.elapsed_us()
+    return per_kernel
+
+
+def _device_profile(run, units: int, unit: str, unprofiled_ms: float):
+    """``torch.profiler`` over run(), which does ``units`` units of work:
+    prints the device time per unit, the device ops per unit, the idle share
+    against ``unprofiled_ms`` per unit, and the top 15 device ops."""
+    per_kernel = _device_kernels(run)
     dev_ms = sum(us for _, us in per_kernel.values()) / 1e3 / units
     print(f"profile: device time per {unit} {dev_ms:.4f} ms over "
           f"{sum(n for n, _ in per_kernel.values()) // units} device ops; "
@@ -1536,6 +2004,85 @@ def profile_k1(dev, repeats: int = 5):
           f"{conv_us / total_us:.4f}", flush=True)
 
 
+def profile_int8_embed(dev, repeats: int = 5):
+    """``--profile``: the ReID embed's share of device time with the int8
+    route and without it, on the setups of ``run_int8_embed_paths``. Per
+    embed route: the pipelined chunk (host clock, median of ``repeats``) and
+    its device time (``torch.profiler``, 4 chunks), the embed alone on the
+    chunk's crops (host clock and device time), their ratio, and the same
+    for one K=1 embed of EMBED_CROPS crops with its top 8 device ops; for
+    the int8 route also kernel 8's own device time per chunk."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.models.quantize import (
+        reid_apply_int8_resident,
+    )
+    from yolo_deepsort_tpu_torch.ops.crops_kernel import (
+        crop_and_normalize_fused,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        BucketedScannedStep,
+        _frame_boxes,
+        init_stream_states,
+    )
+
+    bf16_step, _, frames, parts = main_path_setup(dev)
+    trk_cfg, det_cfg = parts["trk_cfg"], parts["det_cfg"]
+    _, pkg = reid_int8_package(dev)
+    int8_step = BucketedScannedStep(
+        parts["detector"], pkg, det_cfg, trk_cfg, (FRAME_H, FRAME_W),
+        buckets=(16, 24, 32, 36, 40, 48),
+        conf_thres_per_stream=parts["conf_vec"],
+        embed_int8="resident_pallas")
+    embeds = {
+        "bf16": (bf16_step, parts["reid"]),
+        "int8": (int8_step, lambda c: reid_apply_int8_resident(
+            pkg, c, use_pallas=True)),
+    }
+    k, s = frames.shape[:2]
+    flat = frames.reshape(k * s, FRAME_H, FRAME_W, 3)
+    for name, (step, embed) in embeds.items():
+        states = init_stream_states(trk_cfg, STREAMS)
+        for _ in range(2):
+            states, _ = step(states, frames)
+
+        def advance():
+            nonlocal states
+            states, _ = pipelined(step, states, frames, 4)
+
+        _, four_ms = _timed(advance, repeats)
+        per_kernel = _device_kernels(advance)
+        chunk_dev = sum(us for _, us in per_kernel.values()) / 4e3
+        k8_dev = sum(us for n, (_, us) in per_kernel.items()
+                     if "conv_int8_kernel" in n) / 4e3
+        cap, win = step.last_bucket, step.last_window
+        with torch.no_grad():
+            b7 = step.detect(frames)[1]
+            xyxy, _ = _frame_boxes(b7[:, :cap], 416, FRAME_H, FRAME_W)
+            crops = crop_and_normalize_fused(flat, xyxy.contiguous(), *win)
+            crops = crops.reshape(-1, *crops.shape[2:])
+            _, embed_ms = _timed(lambda: embed(crops), repeats)
+            embed_dev = sum(us for _, us in _device_kernels(
+                lambda: embed(crops)).values()) / 1e3
+            k1_crops = crops[:EMBED_CROPS]
+            _, k1_ms = _timed(lambda: embed(k1_crops), repeats)
+            k1_kernels = _device_kernels(lambda: embed(k1_crops))
+            k1_dev = sum(us for _, us in k1_kernels.values()) / 1e3
+        print(f"profile: {name} embed: pipelined chunk {four_ms / 4:.4f} ms, "
+              f"device time {chunk_dev:.4f} ms per chunk; the embed alone on "
+              f"the chunk's {crops.shape[0]} crops (bucket {cap}) "
+              f"{embed_ms:.4f} ms by host clock, {embed_dev:.4f} ms of "
+              f"device time, share of the chunk's device time "
+              f"{embed_dev / chunk_dev:.4f}; kernel 8 {k8_dev:.4f} ms per "
+              f"chunk; one K=1 embed of {k1_crops.shape[0]} crops "
+              f"{k1_ms:.4f} ms by host clock, {k1_dev:.4f} ms of device time",
+              flush=True)
+        top = sorted(k1_kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        for op, (n, us) in top:
+            print(f"profile:   {us / 1e3:9.4f} ms/embed {n:6d} per embed  "
+                  f"{op[:100]}")
+
+
 def profile_facades(dev, tmp_dir, repeats: int = 5):
     """``--profile``: where a facade call's time goes, on the setup of
     ``run_facades``: ``VideoTracker.track_frame`` whole and each part alone
@@ -1620,6 +2167,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
 
@@ -1634,6 +2182,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_main_path(dev)
         profile_k1(dev)
+        profile_int8_embed(dev)
         with tempfile.TemporaryDirectory() as tmp_dir:
             profile_facades(dev, tmp_dir)
         return 0
@@ -1642,12 +2191,15 @@ def main() -> int:
     results = {}
     for name, check in (("letterbox", check_letterbox),
                         ("crops", check_crops),
+                        ("crops_interleaved",
+                         lambda r, d: check_crops(r, d, interleaved=True)),
                         ("tracker", check_tracker),
                         ("jv_cascade", check_jv_cascade),
                         ("jv_two_stage", check_jv_two_stage)):
         err, ms, plain_ms, note, io_bytes = check(rng, dev)
-        # K1 and K2 move bytes; K3-K5 are latency chains of block-wide
-        # reductions, far above their byte bound, which is what is stated
+        # K1, K2 and K6 move bytes (the crops: the box pixels, not the whole
+        # frames); K3-K5 are latency chains of block-wide reductions, far
+        # above their byte bound, which is what is stated
         bound_ms, bound_by = roofline(io_bytes)
         results[name] = (err, ms, plain_ms, bound_ms, bound_by)
         print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms, "
@@ -1669,6 +2221,20 @@ def main() -> int:
               f"{r['bound_int8'][0]:.4f} ms ({r['bound_int8'][1]}){f32_in}; "
               f"library conv2d+act {r['library']:.4f} ms", flush=True)
 
+    def conv_int8_lines(per_layer, n):
+        for name, r in per_layer.items():
+            k, stride, hi, wi, ci, co = r["shape"]
+            print(f"kernel conv_int8 {name} {k}x{k} s{stride} {hi}x{wi} "
+                  f"{ci}->{co} N={n} relu={r['relu']} int8_out="
+                  f"{r['out_int8']} residual={r['residual']}: max |err| "
+                  f"{r['err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}); library bf16 conv2d "
+                  f"{r['library']:.4f} ms", flush=True)
+
+    conv8 = check_conv_int8(rng, dev)
+    conv_int8_lines(conv8, EMBED_CROPS)
+
     box_err, emitted, bucket, window = check_small_path(dev)
     print(f"small path (yolov3-tiny-64, 2 x 64x128, 3 chunks of K=2) card "
           f"vs CPU: detect mask and stats equal, boxes max |err| "
@@ -1679,12 +2245,27 @@ def main() -> int:
           f"(48, 64), 4 frames) card vs CPU: emit, ids and discrete state "
           f"equal, boxes within 1 px ({emitted} rows)", flush=True)
 
+    cos, twin = check_small_reid_int8(dev)
+    print(f"small int8-resident embed (24 crops, bf16 front, {N_INT8_CONVS} "
+          f"K8 launches) card vs CPU: min feature cosine {cos:.6f} (> "
+          f"{MIN_COS_REID_INT8}); kernel vs plain route on the card max "
+          f"|err| {twin:.3g}", flush=True)
+
     setup = main_path_setup(dev)
     launches = run_main_path(dev, setup)
     # the K=1 path's counts; the chunked path's counts of K1-K3 stay in
     # ``launches`` (both paths launched every kernel they list)
     k1_launches = run_k1_path(dev, setup)
+    int8_launches = run_int8_embed_paths(dev, setup)
     del setup
+    # kernel 6's paths are the chunked and the K=1 step under
+    # YDT_CROPS_LAYOUT=interleaved
+    launches["crops_interleaved"] = int8_launches["crops_interleaved"]
+    k1_launches["crops_interleaved"] = int8_launches["crops_interleaved_k1"]
+    # kernel 8 once more at the chunked path's own crop count
+    chunk_crops = int8_launches["crops_per_chunk"]
+    conv8_chunk = check_conv_int8(rng, dev, chunk_crops)
+    conv_int8_lines(conv8_chunk, chunk_crops)
     launches["jv_cascade"] = run_jv_ops(dev)
     with tempfile.TemporaryDirectory() as tmp_dir:
         launches["jv_two_stage"] = run_facades(dev, tmp_dir)
@@ -1693,6 +2274,8 @@ def main() -> int:
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
         "crops": ("crops.cu", "yolo_deepsort_tpu/ops/pallas_crops.py:150"),
+        "crops_interleaved": ("crops.cu",
+                              "yolo_deepsort_tpu/ops/pallas_crops.py:282"),
         "tracker": ("tracker.cu", "yolo_deepsort_tpu/tracking/tracker_pallas.py:127"),
         "jv_cascade": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:158"),
         "jv_two_stage": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:174"),
@@ -1706,6 +2289,15 @@ def main() -> int:
         "launches_k1_path": k1_launches.get(name, 0),
     } for name in meta]
     kernels.append(conv_kernel_entry(conv, k1_launches["conv"]))
+    kernels.append(conv_int8_kernel_entry(
+        conv8, int8_launches["conv_int8"], int8_launches["conv_int8_k1"],
+        chunk_crops, conv8_chunk))
+    for entry in kernels:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"kernel {entry['name']} was launched on "
+                                 "no counted path")
+    print(f"smoke: all phases passed in {time.perf_counter() - t_start:.0f} "
+          f"s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

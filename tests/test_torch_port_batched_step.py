@@ -275,12 +275,67 @@ def test_detect_stage_takes_the_conv_route(setup):
 
 
 @pytest.mark.parametrize("kw,name", [(dict(use_resblock=True), "K9"),
-                                     (dict(embed_int8="resident"), "K8")])
+                                     (dict(embed_int8="resident"), "K8")],
+                         ids=["kw0-K9", "kw1-K8"])
 def test_unported_routes_raise(setup, kw, name):
-    with pytest.raises(NotImplementedError, match=name):
+    """Only the fused residual chains (K9) are still unported. The int8
+    embed (K8) is ported: asking for it with the float ``nn.Module`` in
+    place of its quantized package is refused by name."""
+    exc, match = ((NotImplementedError, "K9") if name == "K9" else
+                  (ValueError, "quantize_reid_params_resident"))
+    with pytest.raises(exc, match=match):
         TS.make_batched_step(setup["detector"], setup["reid"],
                              DetectorConfig(img_size=64), TrackerConfig(),
                              (H, W_), **kw)
+
+
+def test_make_batched_step_embed_int8_matches_jax(setup):
+    """``embed_int8="resident"`` with cap and a crop window that fits, ONE
+    resident package (the JAX quantizer's) on both sides: the discrete state
+    and every emitted row exactly equal, as in the f32 variants (the features
+    differ by the two frameworks' bf16 roundings of crops and front, which
+    on static frames moves no assignment; stored gallery features agree to
+    cosine > 0.999). ``"resident_pallas"`` on CPU tensors takes kernel 8's
+    plain version: the same states bit for bit."""
+    from yolo_deepsort_tpu.models import quantize as JQR
+    from yolo_deepsort_tpu_torch.weights import reid_int8_package_to_torch
+
+    calib = np.random.default_rng(5).normal(0, 1, (8, 128, 64, 3)).astype(
+        np.float32)
+    pkg = JQR.quantize_reid_params_resident(setup["j_reid"], calib)
+    t_pkg = reid_int8_package_to_torch(pkg, "cpu")
+    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
+                             max_dets=8)
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    kw = dict(cap=6, crop_window=(32, 40))
+    j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
+                                  donate_state=False, use_fused_tracker=True,
+                                  embed_int8="resident", **kw)
+    t_step = TS.make_batched_step(setup["detector"], t_pkg, det_cfg, trk_cfg,
+                                  (H, W_), embed_int8="resident", **kw)
+    k_step = TS.make_batched_step(setup["detector"], t_pkg, det_cfg, trk_cfg,
+                                  (H, W_), embed_int8="resident_pallas", **kw)
+    j_states = JS.init_stream_states(trk_cfg, S)
+    t_states = TS.init_stream_states(trk_cfg, S, "cpu")
+    k_states = TS.init_stream_states(trk_cfg, S, "cpu")
+    frames = setup["frames"]
+    emitted = 0
+    for f in range(FRAMES):
+        j_states, (j_out, j_emit) = j_step(setup["folded"], pkg, j_states,
+                                           jnp.asarray(frames))
+        t_states, (t_out, t_emit) = t_step(t_states,
+                                           torch.from_numpy(frames))
+        k_states, (k_out, k_emit) = k_step(k_states,
+                                           torch.from_numpy(frames))
+        _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit,
+                       f"embed_int8 frame {f}")
+        assert torch.equal(k_out, t_out) and torch.equal(k_emit, t_emit)
+        emitted += int(t_emit.sum())
+    assert emitted > 0
+    assert torch.equal(k_states.gallery, t_states.gallery)
+    j_gal, t_gal = np.asarray(j_states.gallery), t_states.gallery.numpy()
+    filled = np.linalg.norm(j_gal, axis=-1) > 0
+    assert filled.any() and (j_gal * t_gal).sum(-1)[filled].min() > 0.999
 
 
 def _write_clip(path, n, h, w, seed):

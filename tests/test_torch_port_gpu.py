@@ -13,6 +13,7 @@ import torch
 from yolo_deepsort_tpu_torch.config import TrackerConfig
 from yolo_deepsort_tpu_torch.ops import (
     assignment_kernel,
+    conv_int8_kernel,
     conv_kernel,
     crops_kernel,
     letterbox_kernel,
@@ -339,3 +340,142 @@ def test_k1_step_launch_counts(cuda_device):
         assert got == [1, 1, 1, len(routed)], got
     assert outputs.shape == (s, 16, 5) and emit.shape == (s, 16)
     assert bool(torch.isfinite(states.mean).all())
+
+
+@pytest.mark.parametrize("window", [(32, 40), (320, 192), (64, 128),
+                                    (96, 160)])
+def test_interleaved_crops_kernel_vs_plain_and_planar(cuda_device, window):
+    """Kernel 6 against the plain version (1e-4, kernel 2's bound: the same
+    rounding points) and against kernel 2 (exactly equal: the same f32 ops
+    on the same taps). Boxes taller and wider than the window are included
+    (the strip is cut shorter there), the last window is the whole frame,
+    and a frame batch sliced at an odd byte offset exercises the unaligned
+    staging copies."""
+    rng = np.random.default_rng(5)
+    b, d, h, w = 2, 9, 96, 160
+    bw, bh = rng.uniform(2, 60, (b, d)), rng.uniform(2, 95, (b, d))
+    x1, y1 = rng.uniform(-10, w, (b, d)), rng.uniform(-10, h, (b, d))
+    boxes = np.clip(np.stack([x1, y1, x1 + bw, y1 + bh], -1), 0,
+                    [w - 1, h - 1, w - 1, h - 1]).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(cuda_device)
+    flat = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (b * h * w * 3 + 7,), np.uint8)).to(cuda_device)
+    for offset in (0, 7):
+        frames = flat[offset:offset + b * h * w * 3].view(b, h, w, 3)
+        before = (crops_kernel.launches, crops_kernel.launches_interleaved)
+        got = crops_kernel.crops_cuda(frames, boxes, *window,
+                                      interleaved=True)
+        assert (crops_kernel.launches,
+                crops_kernel.launches_interleaved) == (before[0],
+                                                       before[1] + 1)
+        planar = crops_kernel.crops_cuda(frames, boxes, *window)
+        want = crops_kernel.crops_plain(frames, boxes, *window)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4
+        assert torch.equal(got, planar)
+
+
+def test_crops_layout_is_read_at_the_call(cuda_device, monkeypatch):
+    frames = _frames(8, 1, 64, 128, cuda_device)
+    boxes = torch.tensor([[[10.0, 5.0, 40.0, 50.0]]], device=cuda_device)
+    monkeypatch.setenv("YDT_CROPS_LAYOUT", "interleaved")
+    before = (crops_kernel.launches, crops_kernel.launches_interleaved)
+    a = crops_kernel.crop_and_normalize_fused(frames, boxes, 48, 64)
+    monkeypatch.delenv("YDT_CROPS_LAYOUT")
+    b = crops_kernel.crop_and_normalize_fused(frames, boxes, 48, 64)
+    assert (crops_kernel.launches, crops_kernel.launches_interleaved) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(a, b)
+
+
+def _int8_conv_case(seed, n, hi, wi, ci, co, k, dev, residual, stride):
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(-127, 128, (n, hi, wi, ci)).astype(np.int8)
+    w = rng.normal(0, 0.4, (k, k, ci, co)).astype(np.float32)
+    wscale = np.abs(w).reshape(-1, co).max(0) / 127.0
+    wq = np.clip(np.rint(w / wscale), -127, 127).astype(np.int8)
+    ho, wo = hi // stride, wi // stride
+    res = (torch.from_numpy(rng.integers(
+        -127, 128, (n, ho, wo, co)).astype(np.int8)).to(dev)
+        if residual else None)
+    return (torch.from_numpy(xq).to(dev), torch.from_numpy(wq).to(dev),
+            torch.from_numpy((0.02 * wscale).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).to(
+                dev),
+            np.float32(1.0 / 0.05), res,
+            np.float32(0.03) if residual else None)
+
+
+INT8_CASES = [
+    # (n, hi, wi, ci, co, k, stride, relu, out_int8, residual)
+    (4, 8, 8, 128, 128, 3, 1, True, True, False),
+    (4, 8, 8, 128, 128, 3, 1, True, True, True),
+    (4, 8, 8, 64, 128, 3, 2, True, True, False),
+    (8, 4, 4, 256, 256, 3, 1, True, False, True),    # f32 out (last conv)
+    (4, 8, 8, 128, 256, 1, 2, False, True, False),   # 1x1 downsample
+    (3, 6, 10, 48, 80, 3, 1, True, True, True),      # ragged tile edges
+    (3, 6, 10, 16, 144, 1, 1, False, False, False),  # Ci below a depth step
+    (40, 32, 16, 128, 128, 3, 1, True, True, True),  # the 128-row tile
+    (40, 8, 4, 512, 512, 3, 1, True, False, True),   # the deepest class
+]
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_conv_int8_kernel_vs_plain(cuda_device, case):
+    """Kernel 8 against its plain version: int8 codes exactly equal (int32
+    sums are exact and the f32 epilogue is the same op sequence without
+    FMA), f32 outputs likewise equal, held to 1e-5 relative."""
+    n, hi, wi, ci, co, k, stride, relu, out_int8, residual = case
+    args = _int8_conv_case(3, n, hi, wi, ci, co, k, cuda_device, residual,
+                           stride)
+    kw = dict(stride=stride, pad=(k - 1) // 2, relu=relu, out_int8=out_int8)
+    before = conv_int8_kernel.launches
+    got = conv_int8_kernel.conv_int8(*args, **kw)
+    assert conv_int8_kernel.launches == before + 1
+    want = conv_int8_kernel.conv_int8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(want.float().abs().max() > 0)
+    if out_int8:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs()
+                     <= 1e-5 * want.abs().clamp(min=1e-3)).all())
+
+
+def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda_device):
+    args = _int8_conv_case(3, 2, 4, 4, 24, 32, 3, cuda_device, False, 1)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv_int8_kernel.conv_int8(*args)
+    args = _int8_conv_case(3, 2, 4, 4, 32, 32, 3, cuda_device, False, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_int8_kernel.conv_int8(args[0].transpose(1, 2), *args[1:])
+
+
+def test_reid_resident_forward_card_vs_cpu(cuda_device):
+    """``reid_apply_int8_resident`` with kernel 8 on the card against the
+    plain version on the CPU, one package, bf16 front on both: the fronts
+    differ by bf16 roundings of differently ordered sums, which flip int8
+    codes at the first quantize; features agree to cosine > 0.999."""
+    from yolo_deepsort_tpu_torch.models import quantize as Q
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.weights import reid_int8_package_to_torch
+
+    rng = np.random.default_rng(11)
+    calib = rng.normal(0, 1, (16, 128, 64, 3)).astype(np.float32)
+    x = torch.from_numpy(rng.normal(0, 1, (24, 128, 64, 3)).astype(
+        np.float32))
+    pkg = Q.quantize_reid_params_resident(random_reid_params(3), calib)
+    before = conv_int8_kernel.launches
+    card = Q.reid_apply_int8_resident(
+        reid_int8_package_to_torch(pkg), x.to(cuda_device),
+        use_pallas=True)
+    assert conv_int8_kernel.launches == before + 15
+    plain_card = Q.reid_apply_int8_resident(
+        reid_int8_package_to_torch(pkg), x.to(cuda_device))
+    cpu = Q.reid_apply_int8_resident(
+        reid_int8_package_to_torch(pkg, "cpu"), x, use_pallas=True)
+    assert card.shape == (24, 512) and bool(torch.isfinite(card).all())
+    # same front on the card: kernel and plain stages give equal features
+    assert (card - plain_card).abs().max().item() <= 1e-6
+    assert (card.cpu() * cpu).sum(1).min().item() > 0.999

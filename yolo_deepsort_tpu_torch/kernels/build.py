@@ -35,8 +35,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # tracker's KF algebra, Cholesky and JV reduced costs decide gates and argmin
 # ties; the crop weights are compared bit for bit), so nvcc may not contract
 # a*b+c into an FMA. That costs nothing: the kernels are bound by bytes or
-# latency, and the conv kernel's products run on the tensor cores (its f32
-# epilogue must round like the plain version for int8 mode to be exact).
+# latency, and the conv kernels' products run on the tensor cores (their f32
+# epilogues must round like the plain versions for the int8 codes to be
+# exactly equal).
 BASE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               "--fmad=false"]
 
@@ -48,6 +49,7 @@ SIGNATURES = {
     "ydt_letterbox": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # frames, boxes, out, b, d, h, w, win_h, win_w, stream
     "ydt_crops": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ydt_crops_interleaved": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # n3, app, det8, mask, order_a, levels_a, order_b, mean, cov, ints,
     # mean_out, cov_out, ints_out, aug, s, t, d, nc, max_dist,
     # max_iou_distance, max_age, n_init, stream
@@ -60,6 +62,9 @@ SIGNATURES = {
     # x, w, bias, scale, xinv, out, n, hi, wi, ci, ho, wo, co, k, stride,
     # pad, act, mode, stream
     "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 12 + [_P],
+    # x, w, scale, bias, res, res_scale, oinv, out, n, hi, wi, ci, ho, wo,
+    # co, k, stride, pad, relu, out_int8, stream
+    "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,19 +1,26 @@
-"""Kernel 2: windowed ReID crops (CUDA ``csrc/crops.cu``).
+"""Kernels 2 and 6: windowed ReID crops (CUDA ``csrc/crops.cu``).
 
-Replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_crops.py``
-(``_pallas_crops_planar`` via ``pallas_crop_and_normalize_batch``). Bound on
-the H100 by the f32 crop bytes it writes (96 KB per box); the window is
-read through L1/L2 and the weights live in shared memory (see the note at
-the top of the .cu file).
+Kernel 2 replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_crops.py``
+``_pallas_crops_planar``, kernel 6 its ``_pallas_crops_interleaved`` (both
+via ``pallas_crop_and_normalize_batch``). Both are bound on the H100 by the
+f32 crop bytes they write (96 KB per box). Kernel 2 reads the window
+through L1/L2, four taps per output value; kernel 6 stages each box's
+window rows -- contiguous runs of interleaved RGB bytes -- in shared memory
+with 16-byte asynchronous copies and resamples from there (see the notes in
+the .cu file). As in the reference, ``YDT_CROPS_LAYOUT=interleaved``, read
+at the call, selects kernel 6; the default is kernel 2.
 
-``crops_plain`` is the plain PyTorch version. It keeps the TPU kernel's
-rounding points -- bf16 weights (/255 folded into Wy) and pixels, f32 sums,
-the Y-resampled rows rounded to bf16, then the X-resample and the ImageNet
-affine -- so the CUDA kernel can be held to it. ``crop_and_normalize_fused``
-takes it for CPU tensors only; a CUDA tensor launches the kernel or raises.
+``crops_plain`` is the plain PyTorch version of BOTH: the two TPU kernels
+round at the same points -- bf16 weights (/255 folded into Wy) and pixels,
+f32 sums, the Y-resampled rows rounded to bf16, then the X-resample and the
+ImageNet affine -- and so do the two CUDA kernels, which are held to it and
+to each other. ``crop_and_normalize_fused`` takes it for CPU tensors only; a
+CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -28,7 +35,8 @@ from .crops import (
     crop_window_bounds,
 )
 
-launches = 0  # kernel launches; only the launch below adds to it
+launches = 0  # kernel 2's launches; only its launch below adds to it
+launches_interleaved = 0  # kernel 6's, likewise
 
 # ImageNet affine as the TPU kernel rounds it: x * f32(1/std) - f32(mean/std)
 # with both constants formed in double
@@ -70,15 +78,19 @@ def crops_plain(frames: torch.Tensor, boxes_xyxy: torch.Tensor, win_h: int,
 
 def crop_and_normalize_fused(frames: torch.Tensor, boxes_xyxy: torch.Tensor,
                              win_h: int, win_w: int) -> torch.Tensor:
-    """Windowed crops of a frame batch: the CUDA kernel for CUDA tensors,
+    """Windowed crops of a frame batch: a CUDA kernel for CUDA tensors
+    (kernel 6 under ``YDT_CROPS_LAYOUT=interleaved``, else kernel 2),
     ``crops_plain`` for CPU tensors."""
     if frames.device.type == "cpu":
         return crops_plain(frames, boxes_xyxy, win_h, win_w)
-    return crops_cuda(frames, boxes_xyxy, win_h, win_w)
+    interleaved = os.environ.get("YDT_CROPS_LAYOUT", "planar") == "interleaved"
+    return crops_cuda(frames, boxes_xyxy, win_h, win_w,
+                      interleaved=interleaved)
 
 
 def crops_cuda(frames: torch.Tensor, boxes_xyxy: torch.Tensor, win_h: int,
-               win_w: int) -> torch.Tensor:
+               win_w: int, interleaved: bool = False) -> torch.Tensor:
+    """Launch kernel 2 or, with ``interleaved``, kernel 6."""
     build.require_cuda("crops", frames, boxes_xyxy)
     if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError("crops: expected (B, H, W, 3) uint8 frames, got "
@@ -93,10 +105,14 @@ def crops_cuda(frames: torch.Tensor, boxes_xyxy: torch.Tensor, win_h: int,
     out = torch.empty((b, d, CROP_H, CROP_W, 3), dtype=torch.float32,
                       device=frames.device)
     lib = build.load()
-    err = lib.ydt_crops(
+    fn = lib.ydt_crops_interleaved if interleaved else lib.ydt_crops
+    err = fn(
         frames.data_ptr(), boxes_xyxy.data_ptr(), out.data_ptr(), b, d, h, w,
         win_h, win_w, torch.cuda.current_stream(frames.device).cuda_stream)
     build.check_launch("crops", err)
-    global launches
-    launches += 1
+    global launches, launches_interleaved
+    if interleaved:
+        launches_interleaved += 1
+    else:
+        launches += 1
     return out

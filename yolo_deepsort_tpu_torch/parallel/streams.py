@@ -12,17 +12,21 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 * One host readback of the stats picks the capacity bucket and the ReID
   crop window (``BucketedScannedStep.track``).
 * Track stage (``make_scanned_track_stage``): rescale -> windowed crops
-  (kernel 2) -> ReID embed -> a K-frame Python loop of the fused tracker
-  step (kernel 3), one launch per frame.
+  (kernel 2, or kernel 6 under ``YDT_CROPS_LAYOUT=interleaved``) -> ReID
+  embed -> a K-frame Python loop of the fused tracker step (kernel 3), one
+  launch per frame.
 
 ``make_batched_step`` is the K=1 step: one frame of every stream per call,
 no readback inside the step -- capacity is a static ``cap`` and the crop
 window is guarded on the device. Both steps can route whitelisted backbone
-convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``).
+convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``)
+and run the ReID embed in int8 (``embed_int8``, ``_make_embed``: the
+int8-resident route launches kernel 8 once per quantized conv).
 
-The models are ``nn.Module``s already on the target device and dtype; the
-kernel wrappers launch their CUDA kernels for CUDA tensors and run their
-plain PyTorch versions for CPU tensors.
+The models are ``nn.Module``s already on the target device and dtype (with
+an int8 embed route, ``reid`` is the quantized package instead); the kernel
+wrappers launch their CUDA kernels for CUDA tensors and run their plain
+PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -83,15 +87,59 @@ def _make_conv_impl(use_pallas_conv, backbone_int8_pkg):
     return make_backbone_conv_impl(int8_pkg=backbone_int8_pkg)
 
 
-def _refuse_unported(use_resblock, embed_int8=False):
+def _refuse_unported(use_resblock):
     if use_resblock:
         raise NotImplementedError(
             "use_resblock: the fused residual-chain kernel (K9, "
             "ops/pallas_resblock.py) is not ported yet")
-    if embed_int8:
-        raise NotImplementedError(
-            "embed_int8: the int8-resident ReID conv kernels (K8, "
-            "ops/pallas_conv_int8.py) are not ported yet")
+
+
+def _resolve_reid(reid, embed_int8):
+    """The ReID net as the embed route reads it (the argument keeps the
+    reference's name and values).
+
+    embed_int8: False (``reid`` is the ``nn.Module``) | True (per-layer
+    W8A8, no kernel; ``reid`` is the ``models/quantize.quantize_reid_params``
+    package) | "resident" (the plain version of the int8-resident dataflow)
+    | "resident_pallas" (kernel 8 on every quantized conv; on CPU tensors
+    its plain version); the resident routes take the
+    ``quantize_reid_params_resident`` package. A package may be numpy
+    (converted here, onto the CUDA card) or already converted by
+    ``weights.reid_int8_package_to_torch``."""
+    if not embed_int8:
+        if isinstance(reid, dict):
+            raise ValueError("an int8 ReID package needs an embed_int8 route")
+        return reid
+    if embed_int8 not in (True, "resident", "resident_pallas"):
+        raise ValueError(f"unknown embed route {embed_int8!r}")
+    from ..models.quantize import is_torch_package
+    from ..weights import reid_int8_package_to_torch
+
+    resident = embed_int8 is not True
+    if not isinstance(reid, dict) or ("front" in reid) != resident:
+        raise ValueError(
+            f"embed_int8={embed_int8!r} takes the package of models/quantize."
+            f"{'quantize_reid_params_resident' if resident else 'quantize_reid_params'}"
+            " as reid")
+    return reid if is_torch_package(reid) else reid_int8_package_to_torch(reid)
+
+
+def _make_embed(reid, embed_int8):
+    """-> (embed(crops (N, 128, 64, 3)) -> (N, F) f32 features, the dtype
+    the crops are made in, the device the net lies on)."""
+    reid = _resolve_reid(reid, embed_int8)
+    if not embed_int8:
+        return reid, reid.stem.weight.dtype, reid.stem.weight.device
+    from ..models import quantize as Q
+
+    if embed_int8 is True:
+        def embed(crops):
+            return Q.reid_apply_int8(reid, crops)
+    else:
+        def embed(crops):
+            return Q.reid_apply_int8_resident(
+                reid, crops, use_pallas=embed_int8 == "resident_pallas")
+    return embed, Q.package_front_dtype(reid), Q.package_device(reid)
 
 
 def init_stream_states(trk_cfg: TrackerConfig, n_streams: int,
@@ -188,20 +236,22 @@ def make_scanned_track_stage(
     cap: int,
     crop_window: Optional[Tuple[int, int]] = None,
     tracked_class_ids=None,
+    embed_int8=False,  # the ReID embed's int8 route, see _resolve_reid
 ):
     """Returns track(states, frames (K, S, H, W, 3), boxes7, mask) ->
     (states, (outputs (K, S, T, 5), emit (K, S, T))) at detection capacity
     ``cap``. ``crop_window`` (win_h, win_w) must cover every valid
     detection's integer crop (the detect stage's stats guarantee it). With
-    a bf16 embed the windowed crops go through kernel 2; an f32 embed
-    keeps the f32 windowed resampler, so the compute dtype is honoured."""
+    a bf16 embed (an int8-resident one: a bf16 front) the windowed crops go
+    through kernel 2; an f32 embed keeps the f32 windowed resampler, so the
+    compute dtype is honoured."""
     h, w = frame_hw
     size = det_cfg.img_size
     cfg_c = dataclasses.replace(trk_cfg, max_dets=cap)
     if crop_window is not None and crop_window[0] >= h and crop_window[1] >= w:
         crop_window = None  # a full-frame window is the dense path
-    dtype = reid.stem.weight.dtype
-    tracked = class_filter(tracked_class_ids, reid.stem.weight.device)
+    embed, dtype, device = _make_embed(reid, embed_int8)
+    tracked = class_filter(tracked_class_ids, device)
 
     @torch.no_grad()
     def track(states: TrackerState, frames, boxes7, mask):
@@ -225,7 +275,7 @@ def make_scanned_track_stage(
             crops = torch.stack([
                 crop_and_normalize(flat[i], boxes_xyxy[i], compute_dtype=dtype)
                 for i in range(k * s)])
-        feats = reid(crops.reshape(k * s * cap, *crops.shape[2:]))
+        feats = embed(crops.reshape(k * s * cap, *crops.shape[2:]))
         feats = feats.reshape(k, s, cap, -1)
         per_frame = lambda a: a.reshape(k, s, *a.shape[1:])  # noqa: E731
         tlwh, conf, m = per_frame(tlwh), per_frame(b7[..., 5]), per_frame(m)
@@ -250,7 +300,7 @@ def make_batched_step(
     with_validity: bool = False,
     cap: Optional[int] = None,  # NMS and tracker at the top-``cap`` by score
     crop_window: Optional[Tuple[int, int]] = None,  # windowed ReID crops
-    embed_int8=False,
+    embed_int8=False,  # the ReID embed's int8 route, see _resolve_reid
     use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
     backbone_int8_pkg=None,  # models/quantize_darknet package (int8 layers)
     use_resblock=False,
@@ -278,11 +328,13 @@ def make_batched_step(
     ``torch.where`` selects on the device flag.
 
     The step launches the letterbox (K1), with a conv route the conv kernel
-    (K7) once per routed layer, the windowed crops (K2) and the fused
-    tracker step (K3), and reads nothing back."""
+    (K7) once per routed layer, the windowed crops (K2), with
+    ``embed_int8="resident_pallas"`` the int8 conv kernel (K8) once per
+    quantized ReID conv, and the fused tracker step (K3), and reads nothing
+    back."""
     h, w = frame_hw
     size = det_cfg.img_size
-    _refuse_unported(use_resblock, embed_int8)
+    _refuse_unported(use_resblock)
     crop_window_eff = None
     if crop_window is not None:
         cw = (min(crop_window[0], h), min(crop_window[1], w))
@@ -294,7 +346,7 @@ def make_batched_step(
     conv_impl = _make_conv_impl(use_pallas_conv, backbone_int8_pkg)
     param = next(detector.parameters())
     det_dtype = param.dtype
-    reid_dtype = reid.stem.weight.dtype
+    embed, reid_dtype, _ = _make_embed(reid, embed_int8)
     tracked = class_filter(tracked_class_ids, param.device)
 
     def dense(frames, boxes_xyxy):
@@ -336,7 +388,7 @@ def make_batched_step(
                                 dense(frames, boxes_xyxy))
         else:
             crops = dense(frames, boxes_xyxy)
-        feats = reid(crops.reshape(s * d, *crops.shape[2:])).reshape(s, d, -1)
+        feats = embed(crops.reshape(s * d, *crops.shape[2:])).reshape(s, d, -1)
         new, outputs, emit = tracker_step_fused_batched(
             cfg_c, states, tlwh, boxes7[..., 5], feats, mask, (h, w))
         if frame_valid is None:
@@ -376,16 +428,23 @@ class BucketedScannedStep:
             (160, 96), (240, 128), (320, 192), (640, 384),
         ),
         tracked_class_ids=None,
+        embed_int8=False,  # the ReID embed's int8 route, see _resolve_reid
+        use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
+        backbone_int8_pkg=None,  # models/quantize_darknet package
+        use_resblock=False,
     ):
         h, w = frame_hw
-        self._reid = reid
+        self._reid = _resolve_reid(reid, embed_int8)  # converted once
+        self._embed_int8 = embed_int8
         self._det_cfg, self._trk_cfg = det_cfg, trk_cfg
         self._frame_hw = frame_hw
         self._class_ids = tracked_class_ids
         self._detect = make_scanned_detect_stage(
             detector, det_cfg, trk_cfg, frame_hw,
             conf_thres_per_stream=conf_thres_per_stream,
-            tracked_class_ids=tracked_class_ids)
+            tracked_class_ids=tracked_class_ids,
+            use_pallas_conv=use_pallas_conv,
+            backbone_int8_pkg=backbone_int8_pkg, use_resblock=use_resblock)
         self._buckets = tuple(sorted(
             {b for b in buckets if b < trk_cfg.max_dets} | {trk_cfg.max_dets}))
         ladder = [(min(wh, h), min(ww, w)) for wh, ww in (windows or ())]
@@ -459,7 +518,8 @@ class BucketedScannedStep:
         if fn is None:
             fn = self._track[(cap, win)] = make_scanned_track_stage(
                 self._reid, self._det_cfg, self._trk_cfg, self._frame_hw,
-                cap, crop_window=win, tracked_class_ids=self._class_ids)
+                cap, crop_window=win, tracked_class_ids=self._class_ids,
+                embed_int8=self._embed_int8)
         return fn(states, frames, boxes7, mask)
 
     def __call__(self, states: TrackerState, frames: torch.Tensor):
@@ -476,9 +536,13 @@ def make_scanned_step_bucketed(detector: Darknet, reid: ReIDNet,
                                windows: Optional[Tuple[Tuple[int, int], ...]] = (
                                    (160, 96), (240, 128), (320, 192),
                                    (640, 384)),
+                               embed_int8=False, use_pallas_conv=False,
+                               backbone_int8_pkg=None, use_resblock=False,
                                ) -> BucketedScannedStep:
     """The bucketed serving step (the reference's constructor function)."""
     return BucketedScannedStep(
         detector, reid, det_cfg, trk_cfg, frame_hw, buckets=buckets,
         conf_thres_per_stream=conf_thres_per_stream, windows=windows,
-        tracked_class_ids=tracked_class_ids)
+        tracked_class_ids=tracked_class_ids, embed_int8=embed_int8,
+        use_pallas_conv=use_pallas_conv, backbone_int8_pkg=backbone_int8_pkg,
+        use_resblock=use_resblock)

@@ -12,6 +12,10 @@
   ``models/quantize_darknet.py`` (either package's) -> the device tensors
   the conv kernel reads (``ops/conv_kernel.int8_package_to_torch`` under
   the name this module's callers use).
+* ``reid_int8_package_to_torch``: the numpy int8 package of
+  ``models/quantize.py`` (either package's; resident or per layer) -> device
+  tensors, the int8 weights laid out once for kernel 8; the one form the
+  forward functions of ``models/quantize.py`` and the serving steps read.
 * ReID: a folded HWIO tree (``models/reid.py`` random params or loaders)
   -> ``ReIDNet`` or, for the 128-d layout, ``OriginalReIDNet``.
 """
@@ -25,6 +29,8 @@ import numpy as np
 import torch
 
 from .models.darknet import Darknet, NetworkPlan, conv_layer_shapes
+from .device import resolve_device
+from .models.quantize import is_torch_package
 from .models.reid import OriginalReIDNet, ReIDNet
 from .ops.conv_kernel import (  # noqa: F401  (re-exported)
     int8_package_to_torch as conv_int8_package_to_torch,
@@ -160,3 +166,72 @@ def reid_from_params(params: Dict) -> torch.nn.Module:
     model = OriginalReIDNet() if "dense" in params else ReIDNet()
     model.load_params(params)
     return model.eval()
+
+
+def reid_int8_package_to_torch(pkg: Dict, device=None,
+                               front_dtype=torch.bfloat16) -> Dict:
+    """A numpy int8 package (either package's; resident or per layer) as
+    the tensors the forward functions read, on ``device`` (the CUDA card
+    unless another is named).
+
+    Resident: the front's convs as OIHW weights in ``front_dtype`` with f32
+    biases; ``in_scale`` as a 0-dim f32 tensor (the first quantize DIVIDES
+    by it on the device; a host scalar would be turned into a multiply by
+    its reciprocal on a CUDA tensor, which rounds differently); every int8
+    conv's ``wq`` HWIO contiguous -- its memory is the tap-major (k*k*Ci,
+    Co) matrix kernel 8 reads -- with ``scale`` and ``b`` f32; ``oinv`` and
+    ``res_scale`` stay host floats (the kernel takes them by value).
+    Per layer: ``wq``, ``scale`` = xscale * wscale, ``b``, and ``xscale`` as
+    a 0-dim tensor."""
+    device = resolve_device(device)
+    if is_torch_package(pkg):
+        raise ValueError("the package holds tensors already")
+
+    def f32(v) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(v, np.float32))).to(device)
+
+    def host(v) -> float:
+        return float(np.float32(v))
+
+    def scalar(v) -> torch.Tensor:
+        return torch.full((), host(v), dtype=torch.float32, device=device)
+
+    def wq_of(qp) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(qp["wq"], np.int8))).to(device)
+
+    def blocks_of(layers, conv):
+        return [[{name: (None if b[name] is None else conv(b[name]))
+                  for name in ("conv1", "conv2", "down")}
+                 | ({"res_scale": host(b["res_scale"])}
+                    if "res_scale" in b else {})
+                 for b in blocks] for blocks in layers]
+
+    if "front" not in pkg:
+        def per_layer(qp):
+            scale = (np.float32(qp["xscale"])
+                     * np.asarray(qp["wscale"], np.float32))
+            return {"wq": wq_of(qp), "scale": f32(scale),
+                    "b": f32(qp["b"]), "xscale": scalar(qp["xscale"])}
+
+        return {"stem": per_layer(pkg["stem"]),
+                "layers": blocks_of(pkg["layers"], per_layer)}
+
+    def fconv(p):
+        w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)  # from HWIO
+        return {"w": f32(w).to(front_dtype), "b": f32(p["b"])}
+
+    def resident(qp):
+        return {"wq": wq_of(qp), "scale": f32(qp["scale"]),
+                "b": f32(qp["b"]), "oinv": host(qp["oinv"])}
+
+    front = pkg["front"]
+    return {
+        "front": {"stem": fconv(front["stem"]),
+                  "layers0": [{"conv1": fconv(b["conv1"]),
+                               "conv2": fconv(b["conv2"])}
+                              for b in front["layers0"]]},
+        "in_scale": scalar(pkg["in_scale"]),
+        "layers": blocks_of(pkg["layers"], resident),
+    }
