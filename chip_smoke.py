@@ -33,6 +33,17 @@ which ends the run with a non-zero exit code when it fails:
                    relative; ``check_conv_int8``. After path 4c the same
                    once more at the chunked step's own crop count (K x S x
                    the bucket it took)
+     resblock      kernel 9 at the three residual-chain classes of
+                   yolov3-416 at full chain length (52x52 256/128 x 8, 26x26
+                   512/256 x 8, 13x13 1024/512 x 4) plus one mish chain, at
+                   batch 8 and at batch 32 (the K=1 and the chunked step's):
+                   int8 mode exactly equal, bf16 mode every element inside
+                   rtol = atol = 3e-2 and every block alone within 4 bf16
+                   ulps; timed beside the same blocks layer by layer through
+                   the library and through kernel 7; ``check_resblock``
+     matmul_probe  kernel 10 at (32768, 256) x (256, 256), inside the probe
+                   tool's own run (path 4e): int8 exactly equal (floor
+                   division), bf16 within 1 bf16 ulp
    The kernel times are CUDA-event means of repeated launches on the same
    inputs (the tracker and the JV solvers: the kernel alone, with the whole
    wrapper beside it). Each kernel's line also gives its roofline bound
@@ -46,7 +57,9 @@ which ends the run with a non-zero exit code when it fails:
    2 streams of 64x128, 3 chunks of K=2; ``check_small_path``), and the K=1
    step ``make_batched_step`` likewise (``check_small_k1``); and
    ``reid_apply_int8_resident`` with kernel 8 on the card against the same
-   package on the CPU (``check_small_reid_int8``).
+   package on the CPU (``check_small_reid_int8``); and a small residual
+   detector through the K=1 step with the chain route, bf16 and int8 chains
+   (``check_small_resblock``).
 4. main path: yolov3-416 at full width in bf16 with seeded well-conditioned
    random weights (head biases aimed at person-sized boxes, per-stream
    thresholds calibrated to ~32 detections per frame), 8 temporally static
@@ -73,6 +86,17 @@ which ends the run with a non-zero exit code when it fails:
    p50/p99 beside the bf16 embed's in alternated blocks; and both steps
    under ``YDT_CROPS_LAYOUT=interleaved`` (K6 1 per chunk and per step, K2
    0, rows equal to the planar run's).
+4d. fused residual chains (``run_resblock_paths``): the chunked step and
+   the K=1 step with ``use_resblock=True`` and ``use_resblock="int8"`` (the
+   package of the 40 chain convs calibrated on the card from two frames) on
+   the main path's model and frames: per chunk and per step K9 3 launches
+   (one per routed chain, what ``plan_chain_schedule`` promises), K1, K2, K3
+   as before, one readback and no other synchronizing call; the routed
+   detector's decoded output against the unrouted one; frames/s and p50/p99
+   beside the unrouted run's in alternated blocks; emitted rows beside the
+   unrouted run's, the number that differ printed.
+4e. the int8 probe (``run_probe_path``): ``tools/int8_probe.py``
+   ``run_probe`` at its default shape; its JSON record on a line of its own.
 5. public JV ops (``run_jv_ops``): ``solve_cascade_assignment_fused`` and
    ``solve_masked_assignment_fused`` on the card over 8 streams of
    tracker-sized problems, equal to the same ops on the CPU.
@@ -100,7 +124,8 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 builds the kernels and the main path's, the K=1 path's and the facades'
 setups, then prints where their time goes instead (``profile_main_path``,
-``profile_k1``, ``profile_int8_embed``, ``profile_facades``), with no
+``profile_k1``, ``profile_int8_embed``, ``profile_resblock``,
+``profile_facades``), with no
 result line.
 """
 
@@ -154,6 +179,32 @@ REID_INT8_CLASSES = (
 EMBED_CROPS = STREAMS * K1_CAP  # crops of one K=1 embed
 N_INT8_CONVS = sum(len(c[0]) for c in REID_INT8_CLASSES)  # 15
 INT8_CHUNKS, INT8_K1_STEPS = 4, 20
+
+# the fused residual chains (kernel 9) at yolov3-416: (map, Ci, Cm, blocks,
+# module index of the chain's first conv). The other two chains of
+# darknet-53 (starts 2 and 6: 208x208 and 104x104 maps) fail the route's
+# gates and stay on the library convs.
+RESBLOCK_CLASSES = (
+    (52, 256, 128, 8, 13),
+    (26, 512, 256, 8, 38),
+    (13, 1024, 512, 4, 63),
+)
+RESBLOCK_CHUNKS, RESBLOCK_K1_STEPS = 3, 15
+# kernel 9 against its plain version: the bounds and the seeded operands are
+# those of ``ops/resblock_kernel.py`` (CHAIN_TOL, CHAIN_BLOCK_ULPS,
+# ``seeded_chain_case``): bf16 mode, every element of a whole chain inside
+# rtol = atol = 3e-2 and every block, fed the plain chain's state, within 4
+# bf16 ulps of max(|x|, |out|, 2^-3); int8 mode with a leaky activation
+# exactly equal; mish to the bf16 bounds in both modes.
+# routed detector against the unrouted one: each decoded column relative to
+# its largest magnitude (the reference's bound for its hook), for the bf16
+# and the W8A8 chains alike, at the K=1 and at the chunked step's batch
+TOL_ROUTED_DECODED = 4e-2
+# routed against unrouted serving runs: a routed row counts as the same
+# object when a row of the unrouted run lies within this on every coordinate
+# (frame pixels; one pixel of the detector's 416 input is 4.6 of a 1080p
+# frame's)
+ROW_MATCH_PX = 5
 
 # the card's published peaks (H100 SXM, dense): the roofline bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -1430,6 +1481,630 @@ def run_int8_embed_paths(dev, setup):
             "crops_per_chunk": crops_per_chunk}
 
 
+def check_resblock(rng, dev):
+    """Kernel 9 against its plain versions at the three chain classes of
+    yolov3-416 at full chain length (``RESBLOCK_CLASSES``), plus one mish
+    chain (13x13, 128/128, 2 blocks), in both modes and at both batches the
+    main paths give it: STREAMS (the K=1 step's) and K_FRAMES * STREAMS (the
+    chunked step's, where the schedule gives a work item several column
+    tiles). int8 mode with a leaky activation exactly equal; everything else
+    with every element inside rtol = atol = CHAIN_TOL, and in bf16 mode
+    every block of the chain alone, fed the plain chain's state, within
+    CHAIN_BLOCK_ULPS. Times per class, mode and batch: the kernel (CUDA
+    events), the plain version, the bound (the chain's operations over the
+    bf16 / int8 peak against x read once, out written once and the weights),
+    and two yardsticks the route never calls: the same blocks layer by layer
+    through ``F.conv2d`` + activation + add (the library), and through
+    kernel 7 + add. Returns {(h, ci, cm, nblk, act): {...}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_deepsort_tpu_torch.ops import conv_kernel as CV
+    from yolo_deepsort_tpu_torch.ops import resblock_kernel as RK
+
+    def library(x, w1b, b1, w2b, b2, act):
+        nblk = w1b.shape[0]
+        w1c = [w1b[b].t()[:, :, None, None].contiguous(
+            memory_format=torch.channels_last) for b in range(nblk)]
+        w2c = [w2b[b].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last) for b in range(nblk)]
+        b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+        x_cl = x.permute(0, 3, 1, 2)
+        fn = ((lambda y: F.leaky_relu_(y, 0.1)) if act == "leaky"
+              else F.mish)
+
+        def run():
+            cur = x_cl
+            for b in range(nblk):
+                mid = fn(F.conv2d(cur, w1c[b], b1h[b]))
+                cur = cur + fn(F.conv2d(mid, w2c[b], b2h[b], padding=1))
+            return cur
+        return run
+
+    def through_k7(case, mode, act):
+        if mode == "bf16":
+            x, w1, b1, w2, b2 = case["bf16"]
+        else:
+            x, w1, b1, w2, b2, s1, s2, _ = case["int8"]
+        xinv = case["xinv"]
+
+        def run():
+            cur = x
+            for b in range(w1.shape[0]):
+                if mode == "bf16":
+                    mid = CV.conv_bf16(cur, w1[b][None, None], b1[b], pad=0,
+                                       act=act)
+                    y = CV.conv_bf16(mid, w2[b], b2[b], pad=1, act=act)
+                else:
+                    mid = CV.conv_int8(cur, w1[b][None, None], b1[b], s1[b],
+                                       xinv[b, 0], pad=0, act=act)
+                    y = CV.conv_int8(mid, w2[b], b2[b], s2[b], xinv[b, 1],
+                                     pad=1, act=act)
+                cur = y + cur
+            return cur
+        return run
+
+    out = {}
+    cases = [(h, ci, cm, nblk, "leaky") for h, ci, cm, nblk, _ in
+             RESBLOCK_CLASSES] + [(13, 128, 128, 2, "mish")]
+    for h, ci, cm, nblk, act in cases:
+        r = {}
+        for n in (STREAMS, K_FRAMES * STREAMS):
+            case = RK.seeded_chain_case(rng, dev, n, h, ci, cm, nblk, act)
+            ops = 2.0 * n * h * h * 10 * ci * cm * nblk
+            for mode, fn, plain in (
+                    ("bf16", RK.resblock_chain_bf16,
+                     RK.resblock_chain_plain_bf16),
+                    ("int8", RK.resblock_chain_int8,
+                     RK.resblock_chain_plain_int8)):
+                args = case[mode]
+                tag = f"resblock {mode} N={n} {h}x{h} {ci}/{cm} x{nblk} {act}"
+                got = fn(*args, act=act)
+                torch.cuda.synchronize()
+                if got.shape != args[0].shape or got.dtype != torch.bfloat16:
+                    raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
+                want = plain(*args, act=act)
+                err = float((got.float() - want.float()).abs().max())
+                outside = RK.chain_outside_tol(got, want)
+                ulps = _bf16_ulps(got.float(), want.float())
+                exact = mode == "int8" and act == "leaky"
+                ok = torch.equal(got, want) if exact else outside == 0
+                if not ok or not bool(want.float().abs().max() > 0):
+                    raise AssertionError(
+                        f"{tag}: differs from its plain version: max |err| "
+                        f"{err}, {outside} elements outside rtol = atol = "
+                        f"{RK.CHAIN_TOL}, {ulps} bf16 ulps")
+                sched = RK.plan_chain_schedule(n, h, h, ci, cm, nblk,
+                                               mode == "int8")
+                io = nbytes(*args) + nbytes(got)
+                rec = dict(
+                    err=err, ulps=ulps,
+                    rms=float(want.float().pow(2).mean().sqrt()),
+                    ms=cuda_ms(lambda: fn(*args, act=act), 10),
+                    plain=cuda_ms(lambda: plain(*args, act=act), 2),
+                    library=cuda_ms(library(*case["bf16"], act), 10),
+                    k7=cuda_ms(through_k7(case, mode, act), 5),
+                    bound=roofline(io, ops, mode),
+                    launches=len(sched.per_launch), tile=sched.tile,
+                    co_chunk=sched.co_chunk, smem=sched.smem_bytes)
+                del got, want
+                if mode == "bf16":
+                    # every block alone, on the plain chain's state
+                    state, worst = args[0], 0.0
+                    for b in range(nblk):
+                        one = tuple(a[b:b + 1] for a in args[1:])
+                        w_b = plain(state, *one, act=act)
+                        worst = max(worst, RK.chain_block_ulps(
+                            fn(state, *one, act=act), w_b, state))
+                        state = w_b
+                    rec["block_ulps"] = worst
+                    if not worst <= RK.CHAIN_BLOCK_ULPS:
+                        raise AssertionError(
+                            f"{tag}: a block alone is {worst} bf16 ulps of "
+                            f"max(|x|, |out|, 2^-3) from its plain version")
+                r[(mode, n)] = rec
+            del case
+        out[(h, ci, cm, nblk, act)] = r
+    return out
+
+
+def resblock_kernel_entry(per_class, launches, launches_k1):
+    """K9's entry of the ``kernels`` line: its times are those of the three
+    routed chains of one yolov3-416 forward in bf16 mode at batch STREAMS
+    (the K=1 step's), summed; ``library_ms`` is the layer-by-layer
+    ``F.conv2d`` + activation + add yardstick of the same blocks (there is no
+    single PyTorch call for a chain), ``k7_ms`` the same blocks through
+    kernel 7; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both
+    at K_FRAMES * STREAMS (the chunked step's); ``per_class`` every class."""
+    def totals(mode, n):
+        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, k7_ms=0.0)
+        plain, by = 0.0, {"operations": 0.0, "bytes": 0.0}
+        for (h, ci, cm, nblk, act), r in per_class.items():
+            if act != "leaky":
+                continue
+            rec = r[(mode, n)]
+            tot["ms"] += rec["ms"]
+            tot["bound_ms"] += rec["bound"][0]
+            tot["library_ms"] += rec["library"]
+            tot["k7_ms"] += rec["k7"]
+            by[rec["bound"][1]] += rec["bound"][0]
+            plain += rec["plain"]
+        tot["bound_by"] = max(by, key=by.get)
+        tot["plain_ms"] = plain
+        return tot
+
+    n_chunk = K_FRAMES * STREAMS
+    classes = []
+    for (h, ci, cm, nblk, act), r in per_class.items():
+        for (mode, n), rec in r.items():
+            classes.append({
+                "shape": [n, h, ci, cm, nblk, act], "mode": mode,
+                "ms": rec["ms"], "plain_ms": rec["plain"],
+                "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+                "library_ms": rec["library"], "k7_ms": rec["k7"],
+                "launches_per_chain": rec["launches"],
+                "tile": list(rec["tile"]), "co_chunk": rec["co_chunk"],
+                "smem_bytes": rec["smem"], "max_abs_err": rec["err"],
+                "out_rms": rec["rms"], "bf16_ulps": rec["ulps"],
+                "one_block_ulps": rec.get("block_ulps")})
+    return {
+        "name": "resblock", "route": "cuda",
+        "source": "yolo_deepsort_tpu_torch/csrc/resblock.cu",
+        "replaces": "yolo_deepsort_tpu/ops/pallas_resblock.py:80",
+        "launches": launches, "launches_k1_path": launches_k1,
+        "max_abs_err": max(rec["err"] for r in per_class.values()
+                           for (mode, _), rec in r.items() if mode == "bf16"),
+        **totals("bf16", STREAMS),
+        "int8": totals("int8", STREAMS),
+        "at_chunk_batch": {"n": n_chunk, "bf16": totals("bf16", n_chunk),
+                           "int8": totals("int8", n_chunk)},
+        "per_class": classes,
+    }
+
+
+def _residual_defs(size=64):
+    """A small residual detector: a stride-2 stem to width 128, one chain of
+    two residual blocks (128/128) at size/2, a linear head and a yolo layer
+    with 3 classes."""
+    def conv(filters, k, stride=1, act="leaky", bn="1"):
+        return {"type": "convolutional", "batch_normalize": bn,
+                "filters": str(filters), "size": str(k),
+                "stride": str(stride), "pad": "1", "activation": act}
+
+    block = [conv(128, 1), conv(128, 3),
+             {"type": "shortcut", "from": "-3", "activation": "linear"}]
+    return ([{"type": "net", "width": str(size), "height": str(size),
+              "channels": "3"}, conv(128, 3, stride=2)]
+            + [dict(d) for d in block] + [dict(d) for d in block]
+            + [conv(24, 1, act="linear", bn="0"),
+               {"type": "yolo", "mask": "0,1,2",
+                "anchors": "10,13, 16,30, 33,23", "classes": "3",
+                "num": "3"}])
+
+
+def check_small_resblock(dev):
+    """A small residual detector (``_residual_defs``: one chain of two
+    blocks at 32x32, width 128; f32, 2 streams of 64x128) through the K=1
+    step with the chain route on the card against the same step on the CPU,
+    where the chain runs its plain version, in both modes (the int8 package
+    calibrated once, on the CPU): per step one K9 launch; emit and track
+    ids equal, boxes within 1 px, over 4 frames. Returns the emitted rows
+    per mode."""
+    import torch
+
+    from specs.weights_np import random_darknet_weights
+    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.models.quantize_darknet import (
+        quantize_darknet_from_frames,
+    )
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.ops import resblock_kernel
+    from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        _make_block_impl,
+        init_stream_states,
+        make_batched_step,
+    )
+    from yolo_deepsort_tpu_torch.weights import (
+        darknet_from_raw,
+        load_darknet_weights,
+        reid_from_params,
+    )
+
+    h, w, s, size = 64, 128, 2, 64
+    plan = build_network(_residual_defs(size))
+    blob = random_darknet_weights(plan.defs(), seed=0, well_conditioned=True)
+    _, raw = load_darknet_weights(blob, plan.defs())
+    raw = plant_box_prior(raw, plan, (h, w), heights=(405.0,), aspect=0.5)
+    base = np.random.default_rng(0).integers(0, 256, (s, h, w, 3), np.uint8)
+    frames = torch.from_numpy(base)
+    cpu_det = darknet_from_raw(plan, raw)
+    pkg = quantize_darknet_from_frames(cpu_det, base, size)
+    if not {1, 2, 4, 5} <= set(pkg):
+        raise AssertionError(f"small residual net: package holds {set(pkg)}")
+    cl = torch.channels_last
+    reid = lambda: reid_from_params(random_reid_params(0)).to(  # noqa: E731
+        torch.bfloat16, memory_format=cl)
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    emitted = {}
+    for mode in (True, "int8"):
+        route = dict(use_resblock=mode,
+                     backbone_int8_pkg=pkg if mode == "int8" else None)
+        # one threshold in the widest gap of the routed objectness (CPU),
+        # ranks 8..20, so a bf16 ulp between the devices flips no candidate
+        with torch.no_grad():
+            obj = cpu_det(letterbox_batch(frames, size),
+                          block_impl=_make_block_impl(
+                              plan, mode, route["backbone_int8_pkg"]))[..., 4]
+        top = torch.sort(obj.flatten(), descending=True).values[8:21]
+        gap = int(torch.argmax(top[:-1] - top[1:]))
+        det_cfg = DetectorConfig(img_size=size, max_dets=8, conf_thres=float(
+            (top[gap] + top[gap + 1]) / 2))
+        kw = dict(cap=6, crop_window=(48, 64), **route)
+        ref = make_batched_step(cpu_det, reid(), det_cfg, trk_cfg, (h, w),
+                                **kw)
+        card = make_batched_step(
+            darknet_from_raw(plan, raw).to(dev, memory_format=cl),
+            reid().to(dev, memory_format=cl), det_cfg, trk_cfg, (h, w), **kw)
+        st_ref = init_stream_states(trk_cfg, s, "cpu")
+        st_card = init_stream_states(trk_cfg, s, dev)
+        frames_dev = frames.to(dev)
+        rows = 0
+        for f in range(4):
+            before = resblock_kernel.launches
+            st_ref, (out_r, emit_r) = ref(st_ref, frames)
+            st_card, (out_c, emit_c) = card(st_card, frames_dev)
+            if resblock_kernel.launches != before + 1:
+                raise AssertionError(
+                    f"small residual step ({mode}): "
+                    f"{resblock_kernel.launches - before} K9 launches")
+            out_c, emit_c = out_c.cpu(), emit_c.cpu()
+            if not (torch.equal(emit_r, emit_c)
+                    and torch.equal(out_r[..., 4], out_c[..., 4])):
+                raise AssertionError(f"small residual step ({mode}) frame "
+                                     f"{f}: emitted tracks differ between "
+                                     "the card and the CPU")
+            if (out_r[..., :4] - out_c[..., :4]).abs().max().item() > 1:
+                raise AssertionError(f"small residual step ({mode}) frame "
+                                     f"{f}: boxes differ by more than 1 px")
+            rows += int(emit_c.sum())
+        if rows == 0:
+            raise AssertionError(f"small residual step ({mode}): no rows")
+        emitted[str(mode)] = rows
+    return emitted
+
+
+def resblock_chain_layers(plan):
+    """The conv layers (module indices) of the chains the route takes at
+    yolov3-416: both convs of every block of ``RESBLOCK_CLASSES``."""
+    from yolo_deepsort_tpu_torch.ops.resblock_kernel import (
+        find_residual_spans,
+    )
+
+    starts = {c[4] for c in RESBLOCK_CLASSES}
+    chains = [c for c in find_residual_spans(plan) if c[0] in starts]
+    if sorted(len(c) for c in chains) != sorted(
+            c[3] for c in RESBLOCK_CLASSES):
+        raise AssertionError(f"yolov3 chains {chains}")
+    return frozenset(l for c in chains for s in c for l in (s, s + 1))
+
+
+def resblock_routes(dev, parts, base):
+    """The two chain routes of the full-width paths as keyword arguments of
+    the serving steps: bf16 chains, and W8A8 chains with the package of the
+    40 chain convs, calibrated on the card from two of the frames by the
+    f32 detector."""
+    from yolo_deepsort_tpu_torch.models.quantize_darknet import (
+        quantize_darknet_from_frames,
+    )
+    from yolo_deepsort_tpu_torch.weights import darknet_from_raw
+
+    layers = resblock_chain_layers(parts["plan"])
+    pkg = quantize_darknet_from_frames(
+        darknet_from_raw(parts["plan"], parts["raw"]).to(dev), base,
+        parts["det_cfg"].img_size, max_frames=2, layers=layers)
+    if set(pkg) != set(layers):
+        raise AssertionError(f"chain package holds {sorted(pkg)}")
+    return {"bf16": dict(use_resblock=True),
+            "int8": dict(use_resblock="int8", backbone_int8_pkg=pkg)}
+
+
+def run_resblock_paths(dev, setup):
+    """The fused residual-chain route at full width (yolov3-416 bf16, 8 x
+    1080p) on the main path's model, weights and frames: the chunked
+    ``BucketedScannedStep`` (K=4) and the K=1 ``make_batched_step`` (cap 40,
+    window (320, 192)) with ``use_resblock=True`` and with ``"int8"`` (the
+    package of the 40 chain convs, calibrated on the card from two of the
+    frames). Checks: K9 launches per chunk and per step equal to what the
+    planner promises (one per routed chain: 3), K1/K2/K3 as on the unrouted
+    paths, one readback and no other synchronizing call (sync debug mode
+    "error"); the routed detector's decoded output against the unrouted one
+    at both batches, 8 and 32 frames (both routes within TOL_ROUTED_DECODED
+    of each column's scale); confirmed tracks and emitted rows. Prints frames/s and
+    p50 / p99 beside the unrouted run's in alternated blocks, and how many
+    emitted rows differ from the unrouted run's. Returns the launch counts
+    of the counted runs."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import (
+        crops_kernel,
+        letterbox_kernel,
+        resblock_kernel,
+    )
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        BucketedScannedStep,
+        _make_block_impl,
+        init_stream_states,
+        make_batched_step,
+    )
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
+
+    off_step, _, frames, parts = setup
+    trk_cfg, det_cfg, plan = parts["trk_cfg"], parts["det_cfg"], parts["plan"]
+    detector, base = parts["detector"], frames[0]
+    hw = (FRAME_H, FRAME_W)
+    routes = resblock_routes(dev, parts, base)
+
+    # what the planner promises per forward, and the routed detector's
+    # decoded output against the unrouted one, at the K=1 step's batch and
+    # at the chunked step's (all K_FRAMES * STREAMS frames of a chunk)
+    promised, decoded_err, box_err = {}, {}, {}
+    batches = {STREAMS: base, K_FRAMES * STREAMS: frames.flatten(0, 1)}
+    with torch.no_grad():
+        for n, batch in batches.items():
+            xs = letterbox_batch_fused(batch, det_cfg.img_size,
+                                       torch.bfloat16)
+            want = detector(xs)
+            scale = want.abs().amax((0, 1)).clamp(min=1.0)
+            for name, route in routes.items():
+                promised[(name, n)] = sum(
+                    len(resblock_kernel.plan_chain_schedule(
+                        n, h, h, ci, cm, nblk, name == "int8").per_launch)
+                    for h, ci, cm, nblk, _ in RESBLOCK_CLASSES)
+                impl = _make_block_impl(plan, route["use_resblock"],
+                                        route.get("backbone_int8_pkg"))
+                before = resblock_kernel.launches
+                got = detector(xs, block_impl=impl)
+                if resblock_kernel.launches - before != promised[(name, n)]:
+                    raise AssertionError(
+                        f"routed forward ({name}, {n} frames): "
+                        f"{resblock_kernel.launches - before} K9 launches, "
+                        f"the planner promises {promised[(name, n)]}")
+                decoded_err[(name, n)] = float(
+                    ((got - want).abs() / scale).max())
+                box_err[(name, n)] = float((got - want)[..., :4].abs().max())
+                if not decoded_err[(name, n)] <= TOL_ROUTED_DECODED:
+                    raise AssertionError(
+                        f"routed detector ({name} chains, {n} frames): "
+                        f"decoded output {decoded_err[(name, n)]} of its "
+                        f"column scale from the unrouted one")
+            del xs, want, got
+    if set(promised.values()) != {len(RESBLOCK_CLASSES)}:
+        raise AssertionError(f"planner promises {promised} launches per "
+                             "forward, expected one per chain")
+    n_chains = len(RESBLOCK_CLASSES)
+
+    counters = {"letterbox": letterbox_kernel, "crops": crops_kernel,
+                "tracker": tracker_kernel, "resblock": resblock_kernel}
+
+    def reset_counters():
+        for m in counters.values():
+            m.launches = 0
+
+    def counts():
+        return {name: m.launches for name, m in counters.items()}
+
+    # chunked path
+    kw = dict(buckets=(16, 24, 32, 36, 40, 48),
+              conf_thres_per_stream=parts["conf_vec"])
+    steps = {"off": off_step}
+    for name, route in routes.items():
+        steps[name] = BucketedScannedStep(detector, parts["reid"], det_cfg,
+                                          trk_cfg, hw, **kw, **route)
+    st = {name: init_stream_states(trk_cfg, STREAMS) for name in steps}
+    for name, step in steps.items():
+        for _ in range(2):  # warm-up: weights packed, tracks confirm
+            st[name], _ = step(st[name], frames)
+    torch.cuda.synchronize()
+    for name in routes:
+        readbacks = steps[name].host_readbacks
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st[name], _ = pipelined(steps[name], st[name], frames, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if steps[name].host_readbacks - readbacks != 2:
+            raise AssertionError(f"chain route ({name}): "
+                                 f"{steps[name].host_readbacks - readbacks} "
+                                 "stats readbacks in 2 chunks")
+    st["off"], _ = pipelined(off_step, st["off"], frames, 2)
+    fps = {name: [] for name in steps}
+    last, chunk_counts = {}, {}
+    for name in ("off", "bf16", "int8", "int8", "bf16", "off"):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st[name], last[name] = pipelined(steps[name], st[name], frames,
+                                         RESBLOCK_CHUNKS)
+        torch.cuda.synchronize()
+        fps[name].append(STREAMS * K_FRAMES * RESBLOCK_CHUNKS
+                         / (time.perf_counter() - t0))
+        chunk_counts[name] = counts()
+    for name in routes:
+        want_counts = {"letterbox": RESBLOCK_CHUNKS, "crops": RESBLOCK_CHUNKS,
+                       "tracker": K_FRAMES * RESBLOCK_CHUNKS,
+                       "resblock": n_chains * RESBLOCK_CHUNKS}
+        if chunk_counts[name] != want_counts:
+            raise AssertionError(f"chain route ({name}), chunked: launches "
+                                 f"over {RESBLOCK_CHUNKS} chunks "
+                                 f"{chunk_counts[name]}, expected "
+                                 f"{want_counts}")
+        out, emit = last[name]
+        if (int((st[name].state == 2).sum()) == 0 or int(emit.sum()) == 0
+                or not bool(torch.isfinite(st[name].mean).all())):
+            raise AssertionError(f"chain route ({name}), chunked: no "
+                                 "confirmed / emitted tracks, or a "
+                                 "non-finite state")
+    if chunk_counts["off"]["resblock"] != 0:
+        raise AssertionError("the unrouted step launched K9")
+
+    def rows_differing(a, b):
+        """(emitted rows of run a, those with no exactly equal row in run b
+        -- (frame, stream, x1, y1, x2, y2, id) --, those with no row of b in
+        the same frame and stream within ROW_MATCH_PX on every coordinate,
+        whatever its id)."""
+        def rows(res):
+            out, emit = (t.cpu().numpy() for t in res)
+            idx = np.argwhere(emit)
+            return [(tuple(i[:-1]), out[tuple(i)]) for i in idx]
+        ra, rb = rows(a), rows(b)
+        exact = {(*k, *r) for k, r in rb}
+        by_frame = {}
+        for k, r in rb:
+            by_frame.setdefault(k, []).append(r[:4])
+        no_exact = sum((*k, *r) not in exact for k, r in ra)
+        no_near = sum(
+            not any(np.abs(r[:4] - o).max() <= ROW_MATCH_PX
+                    for o in by_frame.get(k, ())) for k, r in ra)
+        return len(ra), no_exact, no_near
+
+    diff = {name: rows_differing(last[name], last["off"]) for name in routes}
+    print(f"chain route, chunked (yolov3-416 bf16, {STREAMS} x {FRAME_H}p, "
+          f"K={K_FRAMES}, {K_FRAMES * STREAMS} frames per forward): launches "
+          f"per chunk K9 {n_chains} (the planner's promise: one per chain, "
+          f"chains at 52x52, 26x26, 13x13), K1 1, K2 1, K3 {K_FRAMES}; 1 "
+          f"readback per chunk and no other sync; decoded output against "
+          f"the unrouted detector at {STREAMS} / {K_FRAMES * STREAMS} "
+          f"frames, max |err| over the column's scale (each <= "
+          f"{TOL_ROUTED_DECODED}): bf16 chains "
+          f"{decoded_err[('bf16', STREAMS)]:.4g} / "
+          f"{decoded_err[('bf16', K_FRAMES * STREAMS)]:.4g}, int8 chains "
+          f"{decoded_err[('int8', STREAMS)]:.4g} / "
+          f"{decoded_err[('int8', K_FRAMES * STREAMS)]:.4g}, its box "
+          f"columns, max |err| in input pixels: "
+          f"{box_err[('bf16', STREAMS)]:.4g} / "
+          f"{box_err[('bf16', K_FRAMES * STREAMS)]:.4g} and "
+          f"{box_err[('int8', STREAMS)]:.4g} / "
+          f"{box_err[('int8', K_FRAMES * STREAMS)]:.4g}; frames/s over "
+          f"{RESBLOCK_CHUNKS} chunks, blocks off bf16 int8 int8 bf16 off: "
+          f"off {fps['off']}, bf16 {fps['bf16']}, int8 {fps['int8']}; "
+          f"emitted rows of the last chunk (rows; with no exactly equal row "
+          f"(box and id) in the unrouted run; with no box of the unrouted "
+          f"run within {ROW_MATCH_PX} px): bf16 chains {diff['bf16']}, int8 "
+          f"chains {diff['int8']}; the unrouted run emits "
+          f"{int(last['off'][1].sum())}", flush=True)
+
+    # K=1 path
+    args = (detector, parts["reid"], det_cfg, trk_cfg, hw)
+    k1_kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
+    k1 = {"off": make_batched_step(*args, **k1_kw)}
+    for name, route in routes.items():
+        k1[name] = make_batched_step(*args, **k1_kw, **route)
+    ms, rows, k1_counts = {}, {}, {}
+    for name in ("off", "bf16", "int8"):
+        states = init_stream_states(trk_cfg, STREAMS)
+        _, _, states = _k1_latency(k1[name], states, base, 5)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, states = _k1_latency(k1[name], states, base, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        reset_counters()
+        ms[name], rows[name], states = _k1_latency(k1[name], states, base,
+                                                   RESBLOCK_K1_STEPS)
+        k1_counts[name] = counts()
+        want_counts = {"letterbox": RESBLOCK_K1_STEPS,
+                       "crops": RESBLOCK_K1_STEPS,
+                       "tracker": RESBLOCK_K1_STEPS,
+                       "resblock": (0 if name == "off" else
+                                    n_chains * RESBLOCK_K1_STEPS)}
+        if k1_counts[name] != want_counts:
+            raise AssertionError(f"chain route ({name}), K=1: launches over "
+                                 f"{RESBLOCK_K1_STEPS} steps "
+                                 f"{k1_counts[name]}, expected {want_counts}")
+        if (int((states.state == 2).sum()) == 0
+                or sum(len(r) for r in rows[name]) == 0
+                or not bool(torch.isfinite(states.mean).all())):
+            raise AssertionError(f"chain route ({name}), K=1: no confirmed "
+                                 "/ emitted tracks")
+
+    def pct(v, q):
+        return float(np.percentile(v, q))
+
+    def k1_diff(name):
+        a, b = rows[name], rows["off"]
+        exact = {(s, *r) for s, rs in enumerate(b) for r in map(tuple, rs)}
+        flat = [(s, np.asarray(r)) for s, rs in enumerate(a) for r in rs]
+        no_exact = sum((s, *map(int, r)) not in exact for s, r in flat)
+        no_near = sum(
+            not any(np.abs(r[:4] - np.asarray(o)[:4]).max() <= ROW_MATCH_PX
+                    for o in b[s]) for s, r in flat)
+        return len(flat), no_exact, no_near
+
+    print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
+          f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
+          f"step K9 {n_chains}, K1 1, K2 1, K3 1; 1 readback per step and "
+          f"no other sync; p50 / p99 ms per step: off {pct(ms['off'], 50):.4f}"
+          f" / {pct(ms['off'], 99):.4f}, bf16 chains "
+          f"{pct(ms['bf16'], 50):.4f} / {pct(ms['bf16'], 99):.4f}, int8 "
+          f"chains {pct(ms['int8'], 50):.4f} / {pct(ms['int8'], 99):.4f}; "
+          f"last step's rows (rows; with no exactly equal row in the "
+          f"unrouted run; with no box of it within {ROW_MATCH_PX} px): bf16 "
+          f"chains {k1_diff('bf16')}, int8 chains {k1_diff('int8')}; the "
+          f"unrouted run emits {sum(len(r) for r in rows['off'])}",
+          flush=True)
+    return {"resblock": chunk_counts["bf16"]["resblock"]
+            + chunk_counts["int8"]["resblock"],
+            "resblock_k1": k1_counts["bf16"]["resblock"]
+            + k1_counts["int8"]["resblock"]}
+
+
+def run_probe_path(dev):
+    """The int8 probe tool at its default shape, (32768, 256) x (256, 256):
+    ``run_probe`` holds kernel 10 to its plain version (int8 exactly equal,
+    bf16 within 1 bf16 ulp), then times the library and the kernel in both
+    types. Prints the probe's JSON record on a line of its own. Returns
+    (the record, K10's launches, the bytes in and out per mode, the
+    operations)."""
+    from yolo_deepsort_tpu_torch.tools import int8_probe
+
+    m, k, n = 32768, 256, 256
+    int8_probe.launches = 0
+    rec = int8_probe.run_probe(m, k, n, dev)
+    launches = int8_probe.launches
+    print(json.dumps(rec), flush=True)
+    io = {"bf16": 2 * (m * k + k * n + m * n), "int8": m * k + k * n + m * n}
+    return rec, launches, io, 2.0 * m * k * n
+
+
+def probe_kernel_entry(rec, launches, io, ops):
+    """K10's entry of the ``kernels`` line: the bf16 product's numbers, the
+    int8 product's under ``int8``."""
+    b_bf16 = roofline(io["bf16"], ops, "bf16")
+    b_int8 = roofline(io["int8"], ops, "int8")
+    return {
+        "name": "matmul_probe", "route": "cuda",
+        "source": "yolo_deepsort_tpu_torch/csrc/matmul_probe.cu",
+        "replaces": "tools/int8_probe.py:90",
+        "launches": launches,
+        "max_abs_err": rec["kernel_bf16_max_abs_err"],
+        "ms": rec["kernel_bf16_ms"], "plain_ms": rec["plain_bf16_ms"],
+        "bound_ms": b_bf16[0], "bound_by": b_bf16[1],
+        "library_ms": rec["library_bf16_ms"],
+        "bf16_ulps": rec["kernel_bf16_ulps"],
+        "int8": {"ms": rec["kernel_int8_ms"],
+                 "plain_ms": rec["plain_int8_ms"], "bound_ms": b_int8[0],
+                 "bound_by": b_int8[1],
+                 "library_ms": rec["library_int8_ms"],
+                 "max_abs_err": rec["kernel_int8_max_abs_err"]},
+        "shape": [rec["m"], rec["k"], rec["n"]],
+    }
+
+
 def run_multistream(dev, tmp_dir):
     """``MultiStreamTracker``'s loop at full width without cv2: producer
     threads push seeded 1080p frames into the port's ``FramePool`` (built
@@ -2083,6 +2758,70 @@ def profile_int8_embed(dev, repeats: int = 5):
                   f"{op[:100]}")
 
 
+def profile_resblock(dev, repeats: int = 5):
+    """``--profile``: the routed detect stage. The main path's detector on
+    the K=1 step's 8 frames and on a chunk's 32, without the chain route,
+    with bf16 chains and with int8 chains: backbone + decode by host clock
+    around a synchronize (median of ``repeats``), its device time from
+    ``torch.profiler``, kernel 9's part and share of it, and the top 6
+    device ops; then the whole detect stage of the chunked step per
+    route."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        _make_block_impl,
+        make_scanned_detect_stage,
+    )
+
+    _, _, frames, parts = main_path_setup(dev)
+    det_cfg, trk_cfg, plan = parts["det_cfg"], parts["trk_cfg"], parts["plan"]
+    detector = parts["detector"]
+    routes = dict(off={}, **resblock_routes(dev, parts, frames[0]))
+    k, s = frames.shape[:2]
+    flat = frames.reshape(k * s, FRAME_H, FRAME_W, 3)
+    with torch.no_grad():
+        for n, batch in ((STREAMS, frames[0]), (k * s, flat)):
+            xs = letterbox_batch_fused(batch, det_cfg.img_size,
+                                       torch.bfloat16)
+            for name, route in routes.items():
+                impl = _make_block_impl(plan, route.get("use_resblock"),
+                                        route.get("backbone_int8_pkg"))
+                run = lambda: detector(xs, block_impl=impl)  # noqa: E731
+                run()  # the chains' weights are packed on the first call
+                _, host_ms = _timed(run, repeats)
+                per_kernel = _device_kernels(run)
+                dev_ms = sum(us for _, us in per_kernel.values()) / 1e3
+                k9_ms = sum(us for op, (_, us) in per_kernel.items()
+                            if "chain_kernel" in op) / 1e3
+                k9_n = sum(c for op, (c, _) in per_kernel.items()
+                           if "chain_kernel" in op)
+                print(f"profile: backbone + decode, {n} frames, chain route "
+                      f"{name}: {host_ms:.4f} ms by host clock, device time "
+                      f"{dev_ms:.4f} ms over "
+                      f"{sum(c for c, _ in per_kernel.values())} device "
+                      f"ops; kernel 9 {k9_ms:.4f} ms in {k9_n} launches, "
+                      f"share of the backbone's device time "
+                      f"{k9_ms / dev_ms:.4f}", flush=True)
+                top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+                for op, (c, us) in top:
+                    print(f"profile:   {us / 1e3:9.4f} ms {c:5d} launches  "
+                          f"{op[:100]}")
+    for name, route in routes.items():
+        detect = make_scanned_detect_stage(
+            detector, det_cfg, trk_cfg, (FRAME_H, FRAME_W),
+            conf_thres_per_stream=parts["conf_vec"], **route)
+        detect(frames)
+        _, stage_ms = _timed(lambda: detect(frames), repeats)
+        per_kernel = _device_kernels(lambda: detect(frames))
+        print(f"profile: detect stage of a chunk, chain route {name}: "
+              f"{stage_ms:.4f} ms by host clock, device time "
+              f"{sum(us for _, us in per_kernel.values()) / 1e3:.4f} ms",
+              flush=True)
+
+
 def profile_facades(dev, tmp_dir, repeats: int = 5):
     """``--profile``: where a facade call's time goes, on the setup of
     ``run_facades``: ``VideoTracker.track_frame`` whole and each part alone
@@ -2183,6 +2922,7 @@ def main() -> int:
         profile_main_path(dev)
         profile_k1(dev)
         profile_int8_embed(dev)
+        profile_resblock(dev)
         with tempfile.TemporaryDirectory() as tmp_dir:
             profile_facades(dev, tmp_dir)
         return 0
@@ -2235,6 +2975,25 @@ def main() -> int:
     conv8 = check_conv_int8(rng, dev)
     conv_int8_lines(conv8, EMBED_CROPS)
 
+    chains = check_resblock(rng, dev)
+    for (h, ci, cm, nblk, act), r in chains.items():
+        for (mode, n), rec in r.items():
+            held = (f"max |err| {rec['err']:.3g} (output rms "
+                    f"{rec['rms']:.3g}), every element inside rtol = atol = "
+                    f"3e-2, {rec['ulps']:.3g} bf16 ulps"
+                    + (f", every block alone within {rec['block_ulps']:.3g} "
+                       f"ulps of max(|x|, |out|, 2^-3)" if "block_ulps" in rec
+                       else "")
+                    + f", plain {rec['plain']:.4f} ms; ")
+            print(f"kernel resblock {mode} N={n} {h}x{h} {ci}/{cm} x{nblk} "
+                  f"{act}: {held}kernel {rec['ms']:.4f} ms in "
+                  f"{rec['launches']} launch (strips of {rec['tile'][0]} "
+                  f"rows, {rec['co_chunk']} output columns per item, "
+                  f"{rec['smem']} bytes of shared memory), bound "
+                  f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); layer by "
+                  f"layer: library conv2d+act+add {rec['library']:.4f} ms, "
+                  f"kernel 7 + add {rec['k7']:.4f} ms", flush=True)
+
     box_err, emitted, bucket, window = check_small_path(dev)
     print(f"small path (yolov3-tiny-64, 2 x 64x128, 3 chunks of K=2) card "
           f"vs CPU: detect mask and stats equal, boxes max |err| "
@@ -2244,6 +3003,13 @@ def main() -> int:
     print(f"small K=1 step (yolov3-tiny-64, 2 x 64x128, cap 6, window "
           f"(48, 64), 4 frames) card vs CPU: emit, ids and discrete state "
           f"equal, boxes within 1 px ({emitted} rows)", flush=True)
+
+    emitted = check_small_resblock(dev)
+    print(f"small residual detector (width 128, one chain of 2 blocks at "
+          f"32x32, f32, 2 x 64x128, K=1 step, cap 6, 4 frames) with the "
+          f"chain route, card vs CPU: 1 K9 launch per step; emit and ids "
+          f"equal, boxes within 1 px (rows: bf16 chains {emitted['True']}, "
+          f"int8 chains {emitted['int8']})", flush=True)
 
     cos, twin = check_small_reid_int8(dev)
     print(f"small int8-resident embed (24 crops, bf16 front, {N_INT8_CONVS} "
@@ -2257,7 +3023,9 @@ def main() -> int:
     # ``launches`` (both paths launched every kernel they list)
     k1_launches = run_k1_path(dev, setup)
     int8_launches = run_int8_embed_paths(dev, setup)
+    chain_launches = run_resblock_paths(dev, setup)
     del setup
+    probe_rec, probe_launches, probe_io, probe_ops = run_probe_path(dev)
     # kernel 6's paths are the chunked and the K=1 step under
     # YDT_CROPS_LAYOUT=interleaved
     launches["crops_interleaved"] = int8_launches["crops_interleaved"]
@@ -2292,6 +3060,10 @@ def main() -> int:
     kernels.append(conv_int8_kernel_entry(
         conv8, int8_launches["conv_int8"], int8_launches["conv_int8_k1"],
         chunk_crops, conv8_chunk))
+    kernels.append(resblock_kernel_entry(chains, chain_launches["resblock"],
+                                         chain_launches["resblock_k1"]))
+    kernels.append(probe_kernel_entry(probe_rec, probe_launches, probe_io,
+                                      probe_ops))
     for entry in kernels:
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "

@@ -269,20 +269,24 @@ def test_detect_stage_takes_the_conv_route(setup):
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a, b)
     assert not torch.equal(outs[0][0], outs[2][0])
-    with pytest.raises(NotImplementedError, match="K9"):
+    # the reference's CPU-test value of the chain route has no meaning
+    # here (CPU tensors take the plain version) and is refused by name
+    with pytest.raises(ValueError, match="unknown resblock route"):
         TS.make_scanned_detect_stage(setup["detector"], det_cfg, trk_cfg,
-                                     (H, W_), use_resblock=True)
+                                     (H, W_), use_resblock="interpret")
 
 
-@pytest.mark.parametrize("kw,name", [(dict(use_resblock=True), "K9"),
+@pytest.mark.parametrize("kw,name", [(dict(use_resblock="int8"), "K9"),
                                      (dict(embed_int8="resident"), "K8")],
                          ids=["kw0-K9", "kw1-K8"])
 def test_unported_routes_raise(setup, kw, name):
-    """Only the fused residual chains (K9) are still unported. The int8
-    embed (K8) is ported: asking for it with the float ``nn.Module`` in
-    place of its quantized package is refused by name."""
-    exc, match = ((NotImplementedError, "K9") if name == "K9" else
-                  (ValueError, "quantize_reid_params_resident"))
+    """No route is unported any more (the test keeps its name). The fused
+    residual chains (K9) and the int8 embed (K8) are ported: asking for the
+    int8 chains without the detector's int8 package, or for the int8 embed
+    with the float ``nn.Module`` in place of its quantized package, is
+    refused by name."""
+    exc, match = ((ValueError, "requires backbone_int8_pkg") if name == "K9"
+                  else (ValueError, "quantize_reid_params_resident"))
     with pytest.raises(exc, match=match):
         TS.make_batched_step(setup["detector"], setup["reid"],
                              DetectorConfig(img_size=64), TrackerConfig(),

@@ -17,7 +17,9 @@ from yolo_deepsort_tpu_torch.ops import (
     conv_kernel,
     crops_kernel,
     letterbox_kernel,
+    resblock_kernel,
 )
+from yolo_deepsort_tpu_torch.tools import int8_probe
 from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 from yolo_deepsort_tpu_torch.tracking.tracker import (
     init_tracker_state,
@@ -479,3 +481,164 @@ def test_reid_resident_forward_card_vs_cpu(cuda_device):
     # same front on the card: kernel and plain stages give equal features
     assert (card - plain_card).abs().max().item() <= 1e-6
     assert (card.cpu() * cpu).sum(1).min().item() > 0.999
+
+
+def _chain_case(seed, n, h, ci, cm, nblk, dev, act="leaky"):
+    """Seeded operands of one chain on the card, bf16 and W8A8."""
+    case = resblock_kernel.seeded_chain_case(
+        np.random.default_rng(seed), dev, n, h, ci, cm, nblk, act)
+    return case["bf16"], case["int8"]
+
+
+@pytest.mark.parametrize("shape", [
+    # n, h, ci, cm, nblk, act
+    (8, 52, 256, 128, 8, "leaky"),    # the three chain classes of yolov3-416
+    (8, 26, 512, 256, 8, "leaky"),
+    (8, 13, 1024, 512, 4, "leaky"),   # ragged 13x13 strips, columns split
+    (32, 52, 256, 128, 8, "leaky"),   # the chunked step's batch: a work item
+    (32, 26, 512, 256, 8, "leaky"),   # loops over several column tiles
+    (32, 13, 1024, 512, 4, "leaky"),
+    (3, 13, 128, 128, 2, "mish"),
+    (2, 20, 256, 128, 1, "leaky"),    # one block: no scratch buffer
+])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_resblock_chain_kernel_vs_plain(cuda_device, shape, mode):
+    """Kernel 9 against its plain versions. int8 mode with a leaky
+    activation: exactly equal (exact int32 sums, the same f32 epilogue,
+    ``mid`` quantized from the same bf16 values). bf16 mode: f32 sums in
+    another order move bf16 roundings and a chain compounds them: every
+    element inside the reference's elementwise bound rtol = atol = 3e-2
+    (``CHAIN_TOL``; the operands keep the chain state of order 1). mish goes
+    through two math libraries: held to the bf16 bound in both modes."""
+    n, h, ci, cm, nblk, act = shape
+    bf16, int8 = _chain_case(h + ci + nblk, n, h, ci, cm, nblk, cuda_device,
+                             act)
+    if n == 32:
+        sched = resblock_kernel.plan_chain_schedule(n, h, h, ci, cm, nblk,
+                                                    mode == "int8")
+        assert sched.co_chunk > 128, "several column tiles per work item"
+    before = resblock_kernel.launches
+    if mode == "bf16":
+        got = resblock_kernel.resblock_chain_bf16(*bf16, act=act)
+        want = resblock_kernel.resblock_chain_plain_bf16(*bf16, act=act)
+    else:
+        got = resblock_kernel.resblock_chain_int8(*int8, act=act)
+        want = resblock_kernel.resblock_chain_plain_int8(*int8, act=act)
+    torch.cuda.synchronize()
+    assert resblock_kernel.launches == before + 1, "one launch per chain"
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(want.float().abs().max() > 0)
+    if mode == "int8" and act == "leaky":
+        assert torch.equal(got, want)
+    else:
+        assert resblock_kernel.chain_outside_tol(got, want) == 0
+
+
+@pytest.mark.parametrize("n,h,ci,cm,nblk", [(8, 52, 256, 128, 8),
+                                            (8, 26, 512, 256, 8),
+                                            (32, 13, 1024, 512, 4)])
+def test_resblock_one_block_within_four_ulps_of_its_operands(cuda_device, n,
+                                                            h, ci, cm, nblk):
+    """Every block of a chain alone, in bf16 mode, fed the plain chain's
+    state: the 3x3 conv's result y is within the conv kernel's 2 bf16 ulps
+    of ITS magnitude, and |y| <= |x| + |out|, so the block's output is held
+    to 4 bf16 ulps of max(|x|, |out|, 2^-3) (``chain_block_ulps``; where the
+    shortcut add cancels, the ulp of |out| itself says nothing), and every
+    element lies inside rtol = atol = 3e-2."""
+    bf16, _ = _chain_case(5, n, h, ci, cm, nblk, cuda_device)
+    state = bf16[0]
+    for b in range(nblk):
+        one = tuple(a[b:b + 1] for a in bf16[1:])
+        got = resblock_kernel.resblock_chain_bf16(state, *one)
+        want = resblock_kernel.resblock_chain_plain_bf16(state, *one)
+        assert resblock_kernel.chain_block_ulps(got, want, state) <= \
+            resblock_kernel.CHAIN_BLOCK_ULPS, b
+        assert resblock_kernel.chain_outside_tol(got, want) == 0, b
+        state = want
+
+
+def test_resblock_kernel_refuses_what_it_does_not_take(cuda_device):
+    bf16, _ = _chain_case(6, 2, 8, 128, 128, 1, cuda_device)
+    x, w1, b1, w2, b2 = bf16
+    with pytest.raises(ValueError, match="contiguous"):
+        # an NCHW-contiguous tensor seen as NHWC: not channels_last memory
+        resblock_kernel.resblock_chain_bf16(
+            x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w1, b1,
+            w2, b2)
+    with pytest.raises(ValueError, match="no schedule"):
+        resblock_kernel.resblock_chain_bf16(
+            x[..., :64].contiguous(), w1[:, :64].contiguous(), b1, w2[
+                ..., :64].contiguous(), b2[:, :64].contiguous())
+
+
+def test_routed_darknet_forward_vs_unrouted(cuda_device):
+    """yolov3 at 416 in bf16 on the card, batch 2: the chain route claims
+    the three chains the gates leave (starts 13, 38, 63: one launch each),
+    and the decoded output stays within 4e-2 of the unrouted forward
+    (relative to each column's scale)."""
+    from specs.weights_np import random_darknet_weights
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.weights import (
+        darknet_from_raw,
+        load_darknet_weights,
+    )
+
+    plan = build_network(ARCHITECTURES["yolov3"](img_size=416))
+    blob = random_darknet_weights(plan.defs(), seed=0, well_conditioned=True)
+    _, raw = load_darknet_weights(blob, plan.defs())
+    model = darknet_from_raw(plan, raw).to(
+        cuda_device, torch.bfloat16, memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(2).random(
+        (2, 416, 416, 3), np.float32)).to(cuda_device, torch.bfloat16)
+    impl = resblock_kernel.make_resblock_impl(plan)
+    claimed = []
+
+    def hook(xx, convs, i):
+        res = impl(xx, convs, i)
+        if res is not None:
+            claimed.append((i, res[1]))
+        return res
+
+    before = resblock_kernel.launches
+    with torch.no_grad():
+        got = model(x, block_impl=hook)
+        want = model(x)
+    torch.cuda.synchronize()
+    assert claimed == [(13, 24), (38, 24), (63, 12)]
+    assert resblock_kernel.launches == before + 3
+    scale = want.abs().amax((0, 1)).clamp(min=1.0)
+    assert float(((got - want).abs() / scale).max()) <= 4e-2
+
+
+@pytest.mark.parametrize("m,k,n", [(32768, 256, 256), (1000, 64, 128)])
+def test_matmul_probe_kernel_vs_plain(cuda_device, m, k, n):
+    """Kernel 10: int8 mode exactly equal to the plain version (floor
+    division of negative sums included), bf16 mode within 1 bf16 ulp."""
+    xb, wb, xi, wi = int8_probe.probe_operands(m, k, n, cuda_device)
+    before = int8_probe.launches
+    got_b, got_i = int8_probe.matmul_probe(xb, wb), int8_probe.matmul_probe(
+        xi, wi)
+    assert int8_probe.launches == before + 2
+    want_b = int8_probe.matmul_probe_plain(xb, wb)
+    want_i = int8_probe.matmul_probe_plain(xi, wi)
+    torch.cuda.synchronize()
+    assert got_i.dtype == torch.int8 and torch.equal(got_i, want_i)
+    assert int((want_i < 0).sum()) > 0 and int((want_i > 0).sum()) > 0
+    assert int8_probe.bf16_ulps(got_b, want_b) <= 1
+
+
+def test_matmul_probe_floor_division_of_negative_sums(cuda_device):
+    """A sum of -1 must give -1 (floor), not 0 (C's truncation); -8 K gives
+    exactly -1 and 8 K - 1 gives 0."""
+    k, n = 32, 128
+    x = torch.zeros((3, k), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((k, n), dtype=torch.int8, device=cuda_device)
+    w[:, 0] = 1
+    x[0, 0] = -1                       # sum -1
+    x[1, :] = -8                       # sum -256 = -(8 * 32)
+    x[2, :] = 8
+    x[2, 0] = 7                        # sum 255 = 8 * 32 - 1
+    got = int8_probe.matmul_probe(x, w)
+    assert got[:, 0].tolist() == [-1, -1, 0]
+    assert torch.equal(got, int8_probe.matmul_probe_plain(x, w))

@@ -63,7 +63,9 @@ def _calls():
         conv_kernel,
         crops_kernel,
         letterbox_kernel,
+        resblock_kernel,
     )
+    from yolo_deepsort_tpu_torch.tools import int8_probe
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
     from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
 
@@ -105,8 +107,34 @@ def _calls():
                 torch.ones((128,), device=meta), 1.0)
         return call
 
+    def resblock(int8):
+        def call():
+            x = torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=meta)
+            wdt = torch.int8 if int8 else torch.bfloat16
+            w1 = torch.zeros((2, 128, 128), dtype=wdt, device=meta)
+            w2 = torch.zeros((2, 3, 3, 128, 128), dtype=wdt, device=meta)
+            b = torch.zeros((2, 128), device=meta)
+            if not int8:
+                return resblock_kernel.resblock_chain_bf16(x, w1, b, w2, b)
+            return resblock_kernel.resblock_chain_int8(
+                x, w1, b, w2, b, b, b, torch.ones((2, 2), device=meta))
+        return call
+
+    def probe(dtype):
+        return lambda: int8_probe.matmul_probe(
+            torch.zeros((128, 64), dtype=dtype, device=meta),
+            torch.zeros((64, 128), dtype=dtype, device=meta))
+
     # (module, plain function, launch counter, call)
     return {
+        "resblock_bf16": (resblock_kernel, "resblock_chain_plain_bf16",
+                          "launches", resblock(False)),
+        "resblock_int8": (resblock_kernel, "resblock_chain_plain_int8",
+                          "launches", resblock(True)),
+        "probe_bf16": (int8_probe, "matmul_probe_plain", "launches",
+                       probe(torch.bfloat16)),
+        "probe_int8": (int8_probe, "matmul_probe_plain", "launches",
+                       probe(torch.int8)),
         "conv_bf16": (conv_kernel, "conv_plain_bf16", "launches",
                       conv(False)),
         "conv_int8": (conv_kernel, "conv_plain_int8", "launches",
@@ -130,7 +158,9 @@ def _calls():
 
 @pytest.mark.parametrize("kernel", ["letterbox", "crops", "tracker",
                                     "jv_cascade", "jv_two_stage",
-                                    "conv_bf16", "conv_int8"])
+                                    "conv_bf16", "conv_int8",
+                                    "resblock_bf16", "resblock_int8",
+                                    "probe_bf16", "probe_int8"])
 def test_non_cpu_tensor_never_takes_the_plain_version(kernel, monkeypatch,
                                                       tmp_path):
     if torch.cuda.is_available():

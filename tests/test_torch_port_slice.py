@@ -217,9 +217,15 @@ def test_bucketed_step_hands_the_conv_route_to_its_detect_stage():
         for got, want in zip(handle[1:4], direct):
             assert torch.equal(got, want)
         assert not torch.equal(handle[1], plain[1])
-    with pytest.raises(NotImplementedError, match="K9"):
+    # the residual-chain route reaches the detect stage too: its int8 form
+    # needs the package (yolov3-tiny has no residual chain to route)
+    with pytest.raises(ValueError, match="requires backbone_int8_pkg"):
         TS.BucketedScannedStep(su["detector"], reid, det_cfg, trk_cfg,
-                               (H, W_), use_resblock=True, **kw)
+                               (H, W_), use_resblock="int8", **kw)
+    routed = TS.BucketedScannedStep(su["detector"], reid, det_cfg, trk_cfg,
+                                    (H, W_), use_resblock=True,
+                                    **kw).detect(frames)
+    assert torch.equal(routed[1], plain[1])
 
 
 def test_crops_layout_dispatch_matches_jax_interleaved(monkeypatch):

@@ -65,6 +65,11 @@ SIGNATURES = {
     # x, w, scale, bias, res, res_scale, oinv, out, n, hi, wi, ci, ho, wo,
     # co, k, stride, pad, relu, out_int8, stream
     "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 12 + [_P],
+    # x, out, tmp, w1, w2, b1, b2, s1, s2, xinv, n, h, w, ci, cm, nblk, act,
+    # th, csplit, int8_mode, stream
+    "ydt_resblock_chain": [_P] * 10 + [_I] * 10 + [_P],
+    # x, w, out, m, k, n, int8_mode, stream
+    "ydt_matmul_probe": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

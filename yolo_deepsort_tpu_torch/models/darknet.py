@@ -166,7 +166,7 @@ class Darknet(nn.Module):
             conv.bias.copy_(torch.as_tensor(p["b"]))
 
     def forward(self, x: torch.Tensor, capture_all_layers: bool = False,
-                conv_impl=None):
+                conv_impl=None, block_impl=None):
         """x: (N, S, S, 3) NHWC in [0, 1] -> (N, boxes, 5+C) float32
         detections (centre format, input pixels, sigmoided scores). With
         ``capture_all_layers`` also returns every layer's output (NHWC for
@@ -177,13 +177,35 @@ class Darknet(nn.Module):
         of ``ops/conv_kernel.py``) by returning its NHWC output, or return
         None for the library conv. It sees the reference's layouts: ``x``
         NHWC and ``w`` HWIO, both views of the module's own tensors (of a
-        channels_last model's memory as it lies, so nothing is copied)."""
+        channels_last model's memory as it lies, so nothing is copied).
+
+        ``block_impl(x, convs, layer_idx)`` is consulted first at every
+        module index and may claim a SPAN of modules starting there (e.g.
+        the fused residual chains of ``ops/resblock_kernel.py``) by
+        returning ``(out, consumed)``, ``out`` the NHWC output of the last
+        claimed module; its factory guarantees that nothing outside the
+        span references the outputs in between. ``x`` is the NHWC view of
+        the module's input, ``convs`` this module's conv layers. Ignored
+        under ``capture_all_layers`` (every layer's output is wanted)."""
         dtype = next(self.parameters()).dtype
         prev = x.to(dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         cache: Dict[int, torch.Tensor] = {}
         outputs = []
         all_layers = []
-        for i, mdef in enumerate(self._defs):
+        if capture_all_layers:
+            block_impl = None
+        i = 0
+        while i < len(self._defs):
+            mdef = self._defs[i]
+            if block_impl is not None and prev.dim() == 4:  # a feature map
+                res = block_impl(prev.permute(0, 2, 3, 1), self.convs, i)
+                if res is not None:
+                    out, consumed = res
+                    prev = out.permute(0, 3, 1, 2).to(dtype)
+                    i += consumed
+                    if i - 1 in self.plan.keep:
+                        cache[i - 1] = prev
+                    continue
             t = mdef["type"]
             if t == "convolutional":
                 conv = self.convs[str(i)]
@@ -235,6 +257,7 @@ class Darknet(nn.Module):
                 all_layers.append(out if t == "yolo"
                                   else out.permute(0, 2, 3, 1))
             prev = out
+            i += 1
         detections = torch.cat(outputs, 1) if outputs else None
         if capture_all_layers:
             return detections, all_layers

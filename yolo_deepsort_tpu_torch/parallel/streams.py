@@ -19,9 +19,11 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 ``make_batched_step`` is the K=1 step: one frame of every stream per call,
 no readback inside the step -- capacity is a static ``cap`` and the crop
 window is guarded on the device. Both steps can route whitelisted backbone
-convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``)
-and run the ReID embed in int8 (``embed_int8``, ``_make_embed``: the
-int8-resident route launches kernel 8 once per quantized conv).
+convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``),
+the backbone's residual chains through the fused chain kernel (kernel 9,
+``_make_block_impl``: one launch per chain) and run the ReID embed in int8
+(``embed_int8``, ``_make_embed``: the int8-resident route launches kernel 8
+once per quantized conv).
 
 The models are ``nn.Module``s already on the target device and dtype (with
 an int8 embed route, ``reid`` is the quantized package instead); the kernel
@@ -87,11 +89,39 @@ def _make_conv_impl(use_pallas_conv, backbone_int8_pkg):
     return make_backbone_conv_impl(int8_pkg=backbone_int8_pkg)
 
 
-def _refuse_unported(use_resblock):
-    if use_resblock:
-        raise NotImplementedError(
-            "use_resblock: the fused residual-chain kernel (K9, "
-            "ops/pallas_resblock.py) is not ported yet")
+def _make_block_impl(plan, use_resblock, backbone_int8_pkg):
+    """Resolve the fused residual-chain route (``ops/resblock_kernel.py``;
+    the argument keeps the reference's name and values).
+
+    use_resblock: False (off) | True (bf16 chains) | "int8" (W8A8 chains for
+    chains whose blocks all have BOTH convs in backbone_int8_pkg, bf16
+    chains otherwise; requires the package) | a dict {"chains": [start
+    indices], "int8": bool} restricting the route to those chains. On CPU
+    tensors a chain runs the kernel's plain version. Composable with a conv
+    route: ``Darknet.forward`` consults ``block_impl`` first (it claims whole
+    residual spans), ``conv_impl`` sees the remaining layers."""
+    if not use_resblock:
+        return None
+    from ..ops.resblock_kernel import make_resblock_impl
+
+    if isinstance(use_resblock, dict):
+        unknown = set(use_resblock) - {"chains", "int8"}
+        if unknown:
+            raise ValueError(f"unknown resblock route keys {sorted(unknown)}")
+        int8 = bool(use_resblock.get("int8"))
+        if int8 and backbone_int8_pkg is None:
+            raise ValueError("int8 resblock route requires backbone_int8_pkg")
+        wl = use_resblock.get("chains")
+        return make_resblock_impl(
+            plan, int8_pkg=backbone_int8_pkg if int8 else None,
+            chain_whitelist=None if wl is None else frozenset(wl))
+    if use_resblock == "int8":
+        if backbone_int8_pkg is None:
+            raise ValueError("int8 resblock route requires backbone_int8_pkg")
+        return make_resblock_impl(plan, int8_pkg=backbone_int8_pkg)
+    if use_resblock is not True:
+        raise ValueError(f"unknown resblock route {use_resblock!r}")
+    return make_resblock_impl(plan)
 
 
 def _resolve_reid(reid, embed_int8):
@@ -184,7 +214,7 @@ def make_scanned_detect_stage(
     tracked_class_ids=None,
     use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
     backbone_int8_pkg=None,  # models/quantize_darknet package (int8 layers)
-    use_resblock=False,
+    use_resblock=False,  # fused residual-chain route, see _make_block_impl
 ):
     """Returns detect(frames (K, S, H, W, 3) uint8) -> (boxes7 (K*S, D, 7),
     mask (K*S, D), stats (5,) int32). stats = [max per-frame count
@@ -200,15 +230,16 @@ def make_scanned_detect_stage(
     thr = (None if conf_thres_per_stream is None else torch.as_tensor(
         np.asarray(conf_thres_per_stream, np.float32), device=param.device))
     tracked = class_filter(tracked_class_ids, param.device)
-    _refuse_unported(use_resblock)
     conv_impl = _make_conv_impl(use_pallas_conv, backbone_int8_pkg)
+    block_impl = _make_block_impl(detector.plan, use_resblock,
+                                  backbone_int8_pkg)
 
     @torch.no_grad()
     def detect(frames: torch.Tensor):
         k, s = frames.shape[0], frames.shape[1]
         flat = frames.reshape(k * s, h, w, 3)
         xs = letterbox_batch_fused(flat, size, out_dtype=dtype)
-        decoded = detector(xs, conv_impl=conv_impl)
+        decoded = detector(xs, conv_impl=conv_impl, block_impl=block_impl)
         conf = det_cfg.conf_thres if thr is None else thr.repeat(k)
         boxes7, mask, sat = batched_nms_with_stats(
             decoded, conf, det_cfg.nms_thres, det_cfg.max_boxes,
@@ -303,7 +334,7 @@ def make_batched_step(
     embed_int8=False,  # the ReID embed's int8 route, see _resolve_reid
     use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
     backbone_int8_pkg=None,  # models/quantize_darknet package (int8 layers)
-    use_resblock=False,
+    use_resblock=False,  # fused residual-chain route, see _make_block_impl
 ):
     """Single-frame multi-stream step: step(states, frames (S, H, W, 3)
     uint8) -> (states, (outputs (S, T, 5), emit (S, T))). The models are
@@ -328,13 +359,13 @@ def make_batched_step(
     ``torch.where`` selects on the device flag.
 
     The step launches the letterbox (K1), with a conv route the conv kernel
-    (K7) once per routed layer, the windowed crops (K2), with
+    (K7) once per routed layer, with ``use_resblock`` the chain kernel (K9)
+    once per routed chain, the windowed crops (K2), with
     ``embed_int8="resident_pallas"`` the int8 conv kernel (K8) once per
     quantized ReID conv, and the fused tracker step (K3), and reads nothing
     back."""
     h, w = frame_hw
     size = det_cfg.img_size
-    _refuse_unported(use_resblock)
     crop_window_eff = None
     if crop_window is not None:
         cw = (min(crop_window[0], h), min(crop_window[1], w))
@@ -344,6 +375,8 @@ def make_batched_step(
         cfg_c = dataclasses.replace(trk_cfg, max_dets=cap)
     d = cfg_c.max_dets
     conv_impl = _make_conv_impl(use_pallas_conv, backbone_int8_pkg)
+    block_impl = _make_block_impl(detector.plan, use_resblock,
+                                  backbone_int8_pkg)
     param = next(detector.parameters())
     det_dtype = param.dtype
     embed, reid_dtype, _ = _make_embed(reid, embed_int8)
@@ -369,7 +402,7 @@ def make_batched_step(
     def run(states: TrackerState, frames: torch.Tensor, frame_valid=None):
         s = frames.shape[0]
         xs = letterbox_batch_fused(frames, size, out_dtype=det_dtype)
-        decoded = detector(xs, conv_impl=conv_impl)
+        decoded = detector(xs, conv_impl=conv_impl, block_impl=block_impl)
         # NMS at the ``cap`` capacity directly: its rows are a contiguous
         # score-descending prefix, so the first ``cap`` equal a run at
         # max_dets sliced, in cap-many steps instead of max_dets-many
@@ -431,7 +464,7 @@ class BucketedScannedStep:
         embed_int8=False,  # the ReID embed's int8 route, see _resolve_reid
         use_pallas_conv=False,  # backbone conv route, see _make_conv_impl
         backbone_int8_pkg=None,  # models/quantize_darknet package
-        use_resblock=False,
+        use_resblock=False,  # residual-chain route, see _make_block_impl
     ):
         h, w = frame_hw
         self._reid = _resolve_reid(reid, embed_int8)  # converted once
