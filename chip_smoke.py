@@ -44,9 +44,14 @@ which ends the run with a non-zero exit code when it fails:
      matmul_probe  kernel 10 at (32768, 256) x (256, 256), inside the probe
                    tool's own run (path 4e): int8 exactly equal (floor
                    division), bf16 within 1 bf16 ulp
-   The kernel times are CUDA-event means of repeated launches on the same
-   inputs (the tracker and the JV solvers: the kernel alone, with the whole
-   wrapper beside it). Each kernel's line also gives its roofline bound
+   The kernel times (``ms``, and ``library_ms`` beside them) are CUDA-event
+   means of repeated calls from Python on the same inputs (the tracker and
+   the JV solvers: the kernel alone, with the whole wrapper beside it). The
+   two conv kernels at their small shapes take the card less time than
+   their wrappers take the host, so they, their library yardstick and
+   kernel 9's yardsticks are also timed with the host out of the way, the
+   same calls replayed from a CUDA graph: ``device_ms``,
+   ``library_device_ms``, ``k7_device_ms``. Each kernel's line also gives its roofline bound
    (``roofline``: bytes in and out over 3.35 TB/s, or operations over the
    card's peak for their type; for the crops the bytes in are the frame
    pixels that lie in a box, ``crops_io_bytes``) and, for the conv, the time of the library
@@ -103,11 +108,11 @@ which ends the run with a non-zero exit code when it fails:
 6. facades (``run_facades``): the ``Darknet`` facade loads a yolov3-416
    ``.weights`` file written from the seeded weights; ``VideoTracker``
    (bf16, one 1080p stream, threshold calibrated to ~32 detections) runs
-   ``track_frame`` over 12 static frames -- confirmed rows from frame
+   ``track_frame`` over 8 static frames -- confirmed rows from frame
    n_init on, kernels K1 and K5 once per frame, K3 never, one readback per
    call and no other synchronizing call -- then one ``track_frames`` chunk
    of K=4 (K1, K2, K3); ``DeepSort.update`` on the card over a seeded
-   12-frame 1080p scene of ~32 textured walking objects with dropouts
+   8-frame 1080p scene of ~32 textured walking objects with dropouts
    gives exactly the rows of ``DeepSort(device="cpu")``.
 7. multi-stream runtime (``run_multistream``): ``MultiStreamTracker``'s loop
    over 8 x 1080p with producer threads pushing seeded frames into the
@@ -148,7 +153,7 @@ BOX_PRIOR_ASPECT = 0.41
 STREAMS, FRAME_H, FRAME_W, K_FRAMES, CHUNKS = 8, 1080, 1920, 4, 6
 TARGET_DETS = 32
 JV_SHAPE = (8, 128, 64)  # streams, rows (max_tracks), columns (max_dets)
-FACADE_FRAMES = 12
+FACADE_FRAMES = 8
 
 # the K=1 low-latency step (the reference bench's K=1 settings)
 K1_CAP, K1_WINDOW, K1_STEPS = 40, (320, 192), 30
@@ -297,6 +302,43 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_GRAPH_POOL = None  # one memory pool for every graph cuda_graph_ms captures
+
+
+def cuda_graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() with the host out of the way: ``reps``
+    calls captured into one CUDA graph (after one warm-up), the graph
+    replayed between two events, the median of three replays. Kernels 7 and
+    8 at their smaller shapes take less time on the card than their Python
+    wrappers take on the host, so back-to-back calls (``cuda_ms``) would
+    time the host there. The graphs are replayed one at a time and their
+    outputs never read, so all share one memory pool: none pays to reserve
+    and to return the memory of its ``reps`` outputs."""
+    import torch
+
+    global _GRAPH_POOL
+    if _GRAPH_POOL is None:
+        _GRAPH_POOL = torch.cuda.graph_pool_handle()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=_GRAPH_POOL):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[1]
 
 
 def check_letterbox(rng, dev):
@@ -693,15 +735,22 @@ def check_conv(rng, dev):
     activations at every class, and with f32 activations (the kernel's third
     instantiation, which quantizes f32 in the tile load) at the Co=255
     heads, the stride-2 classes, the 3x3 classes at 26x26 and the mish
-    shape. Times per class: the kernel in both modes (CUDA events, mean of
-    50), the plain versions, and as a yardstick one library call --
+    shape. Times per class, on two clocks: ``called_*``, the kernel in both
+    modes called from Python 50 times back to back between two events
+    (``cuda_ms``, the clock of every kernel's ``ms``; host-bound where the
+    kernel is shorter than its wrapper), and ``ms_*``, the device time of
+    the same 50 calls replayed from a CUDA graph (``cuda_graph_ms``); the
+    plain versions; and as a yardstick one library call on both clocks --
     ``F.conv2d`` with bias on the same channels_last bf16 tensors, then the
-    activation -- which the port's route never calls. Returns {class: {...}} with each class's
-    layers, times, bounds and errors."""
+    activation -- which the port's route never calls. Returns {class:
+    {...}} with each class's layers, times, bounds and errors, and per mode
+    the tile plan taken (``plan_conv_tiles``: BM, BN, stages, split), the
+    rate reached and the share of the bound (both from the device time)."""
     import torch
     import torch.nn.functional as F
 
     from yolo_deepsort_tpu_torch.ops import conv_kernel as CV
+    from yolo_deepsort_tpu_torch.ops.conv_plan import plan_for
 
     classes = conv_shape_classes(dev)
     if len(classes) != 15 or sum(len(v) for v in classes.values()) != 65:
@@ -748,7 +797,7 @@ def check_conv(rng, dev):
                     f"{hi, ci, co, k, stride, act}: differs from its plain "
                     f"version (max |err| {err32}), "
                     "or took the bf16 activations")
-            ms32 = cuda_ms(lambda: CV.conv_int8(*f_args, **kw), 50)
+            ms32 = cuda_graph_ms(lambda: CV.conv_int8(*f_args, **kw), 50)
         # the library yardstick, on the layouts a channels_last model holds
         x_cl = c["x"].permute(0, 3, 1, 2)
         w_cl = c["w"].permute(3, 2, 0, 1).contiguous(
@@ -761,21 +810,34 @@ def check_conv(rng, dev):
                 F.mish(y) if act == "mish" else y)
 
         ho = hi // stride
-        ops = 2.0 * STREAMS * ho * ho * k * k * ci * co
+        m, depth = STREAMS * ho * ho, k * k * ci
+        ops = 2.0 * m * depth * co
         io = nbytes(c["x"], c["b"], got)
-        out[(hi, ci, co, k, stride, act)] = dict(
+        r = dict(
             layers=layers, ulps=ulps, err_bf16=err, err_int8=err8,
             err_int8_f32=err32, ms_int8_f32=ms32,
-            ms_bf16=cuda_ms(lambda: CV.conv_bf16(
+            ms_bf16=cuda_graph_ms(lambda: CV.conv_bf16(
                 c["x"], c["w"], c["b"], **kw), 50),
-            ms_int8=cuda_ms(lambda: CV.conv_int8(*q_args, **kw), 50),
+            ms_int8=cuda_graph_ms(lambda: CV.conv_int8(*q_args, **kw), 50),
+            called_bf16=cuda_ms(lambda: CV.conv_bf16(
+                c["x"], c["w"], c["b"], **kw), 50),
+            called_int8=cuda_ms(lambda: CV.conv_int8(*q_args, **kw), 50),
             plain_bf16=cuda_ms(lambda: CV.conv_plain_bf16(
                 c["x"], c["w"], c["b"], **kw), 5),
             plain_int8=cuda_ms(lambda: CV.conv_plain_int8(*q_args, **kw), 2),
-            library=cuda_ms(library, 50),
+            library=cuda_graph_ms(library, 50),
+            library_called=cuda_ms(library, 50),
             bound_bf16=roofline(io + nbytes(c["w"]), ops, "bf16"),
             bound_int8=roofline(io + nbytes(c["wq"], c["scale"]), ops,
                                 "int8"))
+        for mode, es in (("bf16", 2), ("int8", 1)):
+            # the plan the wrapper took, the rate reached (T operations/s)
+            # and the share of the bound
+            r[f"plan_{mode}"] = tuple(plan_for(dev, m, co, depth, es,
+                                               quantizing=es == 1))
+            r[f"tops_{mode}"] = ops / r[f"ms_{mode}"] * 1e-9
+            r[f"share_{mode}"] = r[f"bound_{mode}"][0] / r[f"ms_{mode}"]
+        out[(hi, ci, co, k, stride, act)] = r
     return out
 
 
@@ -783,30 +845,43 @@ def conv_kernel_entry(per_class, launches):
     """K7's entry of the ``kernels`` line. Its times are those of one K=1
     step's routed layers (CONV_ROUTE): each routed layer's class time in the
     mode it is routed in, summed, and the plain, bound and library times of
-    the same layers likewise; ``per_shape`` lists every class in both
-    modes."""
+    the same layers likewise. ``ms`` and ``library_ms`` are on the clock of
+    every other kernel's (called from Python back to back, ``cuda_ms``);
+    ``device_ms`` and ``library_device_ms`` are the same sums of device
+    time (``cuda_graph_ms``). ``per_shape`` lists every class in both modes
+    on both clocks."""
     by_layer = {idx: (key, r) for key, r in per_class.items()
                 for idx in r["layers"]}
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               device_ms=0.0, library_device_ms=0.0)
     by = {"operations": 0.0, "bytes": 0.0}  # bound ms by what bounds a layer
     for mode in ("bf16", "int8"):
         for idx in CONV_ROUTE[mode]:
             r = by_layer[idx][1]
-            tot["ms"] += r[f"ms_{mode}"]
+            tot["ms"] += r[f"called_{mode}"]
+            tot["device_ms"] += r[f"ms_{mode}"]
             tot["plain_ms"] += r[f"plain_{mode}"]
             tot["bound_ms"] += r[f"bound_{mode}"][0]
-            tot["library_ms"] += r["library"]
+            tot["library_ms"] += r["library_called"]
+            tot["library_device_ms"] += r["library"]
             by[r[f"bound_{mode}"][1]] += r[f"bound_{mode}"][0]
     shapes = [{
-        "shape": list(key), "layers": r["layers"], "ms_bf16": r["ms_bf16"],
-        "ms_int8": r["ms_int8"], "plain_ms_bf16": r["plain_bf16"],
-        "plain_ms_int8": r["plain_int8"], "library_ms": r["library"],
+        "shape": list(key), "layers": r["layers"],
+        "ms_bf16": r["called_bf16"], "ms_int8": r["called_int8"],
+        "device_ms_bf16": r["ms_bf16"], "device_ms_int8": r["ms_int8"],
+        "plain_ms_bf16": r["plain_bf16"], "plain_ms_int8": r["plain_int8"],
+        "library_ms": r["library_called"], "library_device_ms": r["library"],
         "bound_ms_bf16": r["bound_bf16"][0], "bound_ms_int8":
         r["bound_int8"][0], "bound_by": r["bound_bf16"][1],
         "bf16_ulps": r["ulps"], "max_abs_err_bf16": r["err_bf16"],
         "max_abs_err_int8": r["err_int8"],
         "max_abs_err_int8_f32_input": r["err_int8_f32"],
-        "ms_int8_f32_input": r["ms_int8_f32"]}
+        "device_ms_int8_f32_input": r["ms_int8_f32"],
+        "plan_bf16": list(r["plan_bf16"]), "plan_int8": list(r["plan_int8"]),
+        "tera_ops_per_s_bf16": r["tops_bf16"],
+        "tera_ops_per_s_int8": r["tops_int8"],
+        "bound_share_bf16": r["share_bf16"],
+        "bound_share_int8": r["share_int8"]}
         for key, r in per_class.items()]
     return {
         "name": "conv", "route": "cuda",
@@ -835,18 +910,25 @@ def check_conv_int8(rng, dev, n=EMBED_CROPS):
     """Kernel 8 against ``conv_int8_plain`` at the nine shape classes of one
     embed (``REID_INT8_CLASSES``) of ``n`` crops (the K=1 step's EMBED_CROPS,
     or a chunk's K x S x bucket), in every epilogue the class's layers use: int8 codes exactly equal, the f32 output within
-    TOL_CONV_INT8_F32 relative. Times per class and epilogue (CUDA events,
-    mean of 50), the plain version (mean of 2), the bound (int8 peak), and
-    as a yardstick only the bf16 ``F.conv2d`` (with bias) of the same layer
-    on channels_last tensors. Returns {layer name: {...}}."""
+    TOL_CONV_INT8_F32 relative. Times per class and epilogue on two clocks
+    (``called``: 50 calls from Python back to back, ``cuda_ms``, the clock
+    of every kernel's ``ms``; ``ms``: the device time of the same calls
+    replayed from a CUDA graph, ``cuda_graph_ms``), the plain version (mean
+    of 2), the bound (int8 peak), and as a yardstick only the bf16
+    ``F.conv2d`` (with bias) of the same layer on channels_last tensors, on
+    both clocks. Returns {layer name: {...}}, with the tile plan taken (BM,
+    BN, stages, split), the rate reached (T operations/s) and the share of
+    the bound (both from the device time)."""
     import torch
     import torch.nn.functional as F
 
     from yolo_deepsort_tpu_torch.ops import conv_int8_kernel as C8
+    from yolo_deepsort_tpu_torch.ops.conv_plan import plan_for
 
     out = {}
     for layers, k, stride, hi, wi, ci, co in REID_INT8_CLASSES:
         ho, wo = hi // stride, wi // stride
+        plan = tuple(plan_for(dev, n * ho * wo, co, k * k * ci, 1))
         xq = torch.from_numpy(rng.integers(
             -127, 128, (n, hi, wi, ci)).astype(np.int8)).to(dev)
         w = (rng.standard_normal((k, k, ci, co), np.float32)
@@ -865,8 +947,12 @@ def check_conv_int8(rng, dev, n=EMBED_CROPS):
         w_cl = torch.from_numpy(w).to(dev, torch.bfloat16).permute(
             3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b16 = b.to(torch.bfloat16)
-        library = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, stride=stride,
-                                           padding=(k - 1) // 2), 50)
+        def library_call():
+            return F.conv2d(x_cl, w_cl, b16, stride=stride,
+                            padding=(k - 1) // 2)
+
+        library = cuda_graph_ms(library_call, 50)
+        library_called = cuda_ms(library_call, 50)
         ops = 2.0 * n * ho * wo * k * k * ci * co
         done = {}
         for name in layers:
@@ -896,25 +982,35 @@ def check_conv_int8(rng, dev, n=EMBED_CROPS):
                                                       else 0)
                 done[epi] = dict(
                     err=err, bound=roofline(io, ops, "int8"),
-                    ms=cuda_ms(lambda: C8.conv_int8(*args, **kw), 50),
+                    ms=cuda_graph_ms(lambda: C8.conv_int8(*args, **kw), 50),
+                    called=cuda_ms(lambda: C8.conv_int8(*args, **kw), 50),
                     plain_ms=cuda_ms(lambda: C8.conv_int8_plain(*args, **kw),
                                      2))
-            out[name] = dict(done[epi], library=library, relu=relu,
-                             out_int8=out_int8, residual=has_res,
+                done[epi]["tops"] = ops / done[epi]["ms"] * 1e-9
+                done[epi]["share"] = done[epi]["bound"][0] / done[epi]["ms"]
+            out[name] = dict(done[epi], library=library,
+                             library_called=library_called, relu=relu,
+                             out_int8=out_int8, residual=has_res, plan=plan,
                              shape=[k, stride, hi, wi, ci, co])
     return out
 
 
 def _conv_int8_embed_totals(per_layer):
     """The 15 launches of one embed, summed: kernel, plain, bound and
-    library (bf16 ``F.conv2d``) times, and each layer's own numbers."""
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    library (bf16 ``F.conv2d``) times, and each layer's own numbers. ``ms``
+    and ``library_ms`` are on the clock of every other kernel's (called
+    from Python back to back); ``device_ms`` and ``library_device_ms`` are
+    the same sums of device time."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               device_ms=0.0, library_device_ms=0.0)
     by = {"operations": 0.0, "bytes": 0.0}
     for r in per_layer.values():
-        tot["ms"] += r["ms"]
+        tot["ms"] += r["called"]
+        tot["device_ms"] += r["ms"]
         tot["plain_ms"] += r["plain_ms"]
         tot["bound_ms"] += r["bound"][0]
-        tot["library_ms"] += r["library"]
+        tot["library_ms"] += r["library_called"]
+        tot["library_device_ms"] += r["library"]
         by[r["bound"][1]] += r["bound"][0]
     return {
         "max_abs_err": max(r["err"] for r in per_layer.values()),
@@ -922,9 +1018,13 @@ def _conv_int8_embed_totals(per_layer):
         "per_layer": [{
             "layer": name, "shape": r["shape"], "relu": r["relu"],
             "out_int8": r["out_int8"], "residual": r["residual"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["called"], "device_ms": r["ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library"], "max_abs_err": r["err"]}
+            "library_ms": r["library_called"],
+            "library_device_ms": r["library"], "max_abs_err": r["err"],
+            "plan": list(r["plan"]), "tera_ops_per_s": r["tops"],
+            "bound_share": r["share"]}
             for name, r in per_layer.items()],
     }
 
@@ -1495,7 +1595,9 @@ def check_resblock(rng, dev):
     bf16 / int8 peak against x read once, out written once and the weights),
     and two yardsticks the route never calls: the same blocks layer by layer
     through ``F.conv2d`` + activation + add (the library), and through
-    kernel 7 + add. Returns {(h, ci, cm, nblk, act): {...}}."""
+    kernel 7 + add, each called from Python back to back like the kernel
+    (``cuda_ms``) and as device time (``cuda_graph_ms``). Returns {(h, ci,
+    cm, nblk, act): {...}}."""
     import torch
     import torch.nn.functional as F
 
@@ -1582,8 +1684,14 @@ def check_resblock(rng, dev):
                     rms=float(want.float().pow(2).mean().sqrt()),
                     ms=cuda_ms(lambda: fn(*args, act=act), 10),
                     plain=cuda_ms(lambda: plain(*args, act=act), 2),
+                    # the yardsticks are 16-40 launches each: called from
+                    # Python like the kernel, and replayed from a graph as
+                    # device time
                     library=cuda_ms(library(*case["bf16"], act), 10),
                     k7=cuda_ms(through_k7(case, mode, act), 5),
+                    library_device=cuda_graph_ms(
+                        library(*case["bf16"], act), 5),
+                    k7_device=cuda_graph_ms(through_k7(case, mode, act), 5),
                     bound=roofline(io, ops, mode),
                     launches=len(sched.per_launch), tile=sched.tile,
                     co_chunk=sched.co_chunk, smem=sched.smem_bytes)
@@ -1614,10 +1722,12 @@ def resblock_kernel_entry(per_class, launches, launches_k1):
     (the K=1 step's), summed; ``library_ms`` is the layer-by-layer
     ``F.conv2d`` + activation + add yardstick of the same blocks (there is no
     single PyTorch call for a chain), ``k7_ms`` the same blocks through
-    kernel 7; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both
+    kernel 7, ``library_device_ms`` and ``k7_device_ms`` the two yardsticks
+    as device time; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both
     at K_FRAMES * STREAMS (the chunked step's); ``per_class`` every class."""
     def totals(mode, n):
-        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, k7_ms=0.0)
+        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, k7_ms=0.0,
+                   library_device_ms=0.0, k7_device_ms=0.0)
         plain, by = 0.0, {"operations": 0.0, "bytes": 0.0}
         for (h, ci, cm, nblk, act), r in per_class.items():
             if act != "leaky":
@@ -1627,6 +1737,8 @@ def resblock_kernel_entry(per_class, launches, launches_k1):
             tot["bound_ms"] += rec["bound"][0]
             tot["library_ms"] += rec["library"]
             tot["k7_ms"] += rec["k7"]
+            tot["library_device_ms"] += rec["library_device"]
+            tot["k7_device_ms"] += rec["k7_device"]
             by[rec["bound"][1]] += rec["bound"][0]
             plain += rec["plain"]
         tot["bound_by"] = max(by, key=by.get)
@@ -1642,6 +1754,8 @@ def resblock_kernel_entry(per_class, launches, launches_k1):
                 "ms": rec["ms"], "plain_ms": rec["plain"],
                 "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
                 "library_ms": rec["library"], "k7_ms": rec["k7"],
+                "library_device_ms": rec["library_device"],
+                "k7_device_ms": rec["k7_device"],
                 "launches_per_chain": rec["launches"],
                 "tile": list(rec["tile"]), "co_chunk": rec["co_chunk"],
                 "smem_bytes": rec["smem"], "max_abs_err": rec["err"],
@@ -2672,7 +2786,8 @@ def profile_k1(dev, repeats: int = 5):
 
     per_kernel = _device_profile(advance, 4, "K=1 step", step_ms)
     conv_us = sum(us for name, (_, us) in per_kernel.items()
-                  if "conv_kernel" in name)
+                  if "conv_ring_kernel" in name
+                  and "BackboneEpilogue" in name)
     total_us = sum(us for _, us in per_kernel.values())
     print(f"profile: conv kernel (K7) {conv_us / 4e3:.4f} ms per K=1 step "
           f"over {N_ROUTED} launches, share of device time "
@@ -2729,7 +2844,8 @@ def profile_int8_embed(dev, repeats: int = 5):
         per_kernel = _device_kernels(advance)
         chunk_dev = sum(us for _, us in per_kernel.values()) / 4e3
         k8_dev = sum(us for n, (_, us) in per_kernel.items()
-                     if "conv_int8_kernel" in n) / 4e3
+                     if "conv_ring_kernel" in n
+                     and "ReidEpilogue" in n) / 4e3
         cap, win = step.last_bucket, step.last_window
         with torch.no_grad():
             b7 = step.detect(frames)[1]
@@ -2917,6 +3033,10 @@ def main() -> int:
     build.load()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    marks = [("build", time.perf_counter())]  # (phase that ended, when)
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(dev)
@@ -2946,20 +3066,30 @@ def main() -> int:
               f"plain {plain_ms:.4f} ms{note}; bound {bound_ms:.6f} ms "
               f"({bound_by}: {io_bytes} in and out), library call: none",
               flush=True)
+    mark("kernels 1-6")
     conv = check_conv(rng, dev)
+    mark("kernel 7")
     for (hi, ci, co, k, stride, act), r in conv.items():
         f32_in = ("" if r["ms_int8_f32"] is None else
                   f"; int8 with f32 activations max |err| "
-                  f"{r['err_int8_f32']:.3g}, kernel {r['ms_int8_f32']:.4f} ms")
+                  f"{r['err_int8_f32']:.3g}, kernel {r['ms_int8_f32']:.4f} ms "
+                  f"of device time")
         print(f"kernel conv {k}x{k} s{stride} {hi}x{hi} {ci}->{co} {act} "
               f"(layers {r['layers']}): bf16 {r['ulps']:.3g} bf16 ulps (max "
-              f"|err| {r['err_bf16']:.3g}), kernel {r['ms_bf16']:.4f} ms, "
+              f"|err| {r['err_bf16']:.3g}), kernel {r['called_bf16']:.4f} ms "
+              f"called, {r['ms_bf16']:.4f} ms of device time, "
               f"plain {r['plain_bf16']:.4f} ms, bound "
               f"{r['bound_bf16'][0]:.4f} ms ({r['bound_bf16'][1]}); int8 "
-              f"max |err| {r['err_int8']:.3g}, kernel {r['ms_int8']:.4f} ms, "
+              f"max |err| {r['err_int8']:.3g}, kernel {r['called_int8']:.4f} "
+              f"ms called, {r['ms_int8']:.4f} ms of device time, "
               f"plain {r['plain_int8']:.4f} ms, bound "
               f"{r['bound_int8'][0]:.4f} ms ({r['bound_int8'][1]}){f32_in}; "
-              f"library conv2d+act {r['library']:.4f} ms", flush=True)
+              f"library conv2d+act {r['library_called']:.4f} ms called, "
+              f"{r['library']:.4f} ms of device time; plan (BM, BN, "
+              f"stages, split) bf16 {r['plan_bf16']} {r['tops_bf16']:.1f} "
+              f"TFLOP/s, share of the bound {r['share_bf16']:.3f}; int8 "
+              f"{r['plan_int8']} {r['tops_int8']:.1f} TOP/s, share "
+              f"{r['share_int8']:.3f}", flush=True)
 
     def conv_int8_lines(per_layer, n):
         for name, r in per_layer.items():
@@ -2967,15 +3097,21 @@ def main() -> int:
             print(f"kernel conv_int8 {name} {k}x{k} s{stride} {hi}x{wi} "
                   f"{ci}->{co} N={n} relu={r['relu']} int8_out="
                   f"{r['out_int8']} residual={r['residual']}: max |err| "
-                  f"{r['err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+                  f"{r['err']:.3g}, kernel {r['called']:.4f} ms called, "
+                  f"{r['ms']:.4f} ms of device time, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
                   f"({r['bound'][1]}); library bf16 conv2d "
-                  f"{r['library']:.4f} ms", flush=True)
+                  f"{r['library_called']:.4f} ms called, {r['library']:.4f} "
+                  f"ms of device time; plan (BM, BN, stages, split) "
+                  f"{r['plan']}, {r['tops']:.1f} TOP/s, share of the bound "
+                  f"{r['share']:.3f}", flush=True)
 
     conv8 = check_conv_int8(rng, dev)
     conv_int8_lines(conv8, EMBED_CROPS)
+    mark("kernel 8")
 
     chains = check_resblock(rng, dev)
+    mark("kernel 9")
     for (h, ci, cm, nblk, act), r in chains.items():
         for (mode, n), rec in r.items():
             held = (f"max |err| {rec['err']:.3g} (output rms "
@@ -2991,8 +3127,10 @@ def main() -> int:
                   f"rows, {rec['co_chunk']} output columns per item, "
                   f"{rec['smem']} bytes of shared memory), bound "
                   f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); layer by "
-                  f"layer: library conv2d+act+add {rec['library']:.4f} ms, "
-                  f"kernel 7 + add {rec['k7']:.4f} ms", flush=True)
+                  f"layer: library conv2d+act+add {rec['library']:.4f} ms "
+                  f"({rec['library_device']:.4f} of device time), kernel 7 + "
+                  f"add {rec['k7']:.4f} ms ({rec['k7_device']:.4f} of device "
+                  f"time)", flush=True)
 
     box_err, emitted, bucket, window = check_small_path(dev)
     print(f"small path (yolov3-tiny-64, 2 x 64x128, 3 chunks of K=2) card "
@@ -3017,13 +3155,18 @@ def main() -> int:
           f"{MIN_COS_REID_INT8}); kernel vs plain route on the card max "
           f"|err| {twin:.3g}", flush=True)
 
+    mark("small paths")
     setup = main_path_setup(dev)
     launches = run_main_path(dev, setup)
+    mark("main path")
     # the K=1 path's counts; the chunked path's counts of K1-K3 stay in
     # ``launches`` (both paths launched every kernel they list)
     k1_launches = run_k1_path(dev, setup)
+    mark("K=1 path")
     int8_launches = run_int8_embed_paths(dev, setup)
+    mark("int8 embed paths")
     chain_launches = run_resblock_paths(dev, setup)
+    mark("chain paths")
     del setup
     probe_rec, probe_launches, probe_io, probe_ops = run_probe_path(dev)
     # kernel 6's paths are the chunked and the K=1 step under
@@ -3034,10 +3177,13 @@ def main() -> int:
     chunk_crops = int8_launches["crops_per_chunk"]
     conv8_chunk = check_conv_int8(rng, dev, chunk_crops)
     conv_int8_lines(conv8_chunk, chunk_crops)
+    mark("probe, kernel 8 at the chunk's crops")
     launches["jv_cascade"] = run_jv_ops(dev)
     with tempfile.TemporaryDirectory() as tmp_dir:
         launches["jv_two_stage"] = run_facades(dev, tmp_dir)
+        mark("JV ops, facades")
         run_multistream(dev, tmp_dir)
+    mark("multistream")
     src = "yolo_deepsort_tpu_torch/csrc/"
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
@@ -3068,8 +3214,10 @@ def main() -> int:
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")
+    spent = ", ".join(f"{name} {t1 - t0:.0f}" for (_, t0), (name, t1)
+                      in zip(marks, marks[1:]))
     print(f"smoke: all phases passed in {time.perf_counter() - t_start:.0f} "
-          f"s", flush=True)
+          f"s ({spent})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

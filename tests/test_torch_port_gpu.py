@@ -15,6 +15,7 @@ from yolo_deepsort_tpu_torch.ops import (
     assignment_kernel,
     conv_int8_kernel,
     conv_kernel,
+    conv_plan,
     crops_kernel,
     letterbox_kernel,
     resblock_kernel,
@@ -642,3 +643,181 @@ def test_matmul_probe_floor_division_of_negative_sums(cuda_device):
     got = int8_probe.matmul_probe(x, w)
     assert got[:, 0].tolist() == [-1, -1, 0]
     assert torch.equal(got, int8_probe.matmul_probe_plain(x, w))
+
+
+# ---- the shared wgmma ring of kernels 7 and 8 (csrc/conv_mainloop.cuh) ----
+
+ALL_TILES = list(conv_plan.TILES)
+
+
+def _forced_plan(bm, bn, split, stages, depth, elem_bytes):
+    """A plan the kernels take for this depth: the split cut down to the
+    depth steps, the ring to what fits."""
+    steps = conv_plan.depth_steps(depth, elem_bytes)
+    return conv_plan.ConvPlan(
+        bm, bn, min(stages, conv_plan.max_stages(bm, bn)), min(split, steps))
+
+
+def _k7_case(seed, n, hi, ci, co, k, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, hi, hi, ci), np.float32))
+    w = rng.standard_normal((k, k, ci, co), np.float32) / np.sqrt(k * k * ci)
+    ws = (np.abs(w).reshape(-1, co).max(0) / 127).astype(np.float32)
+    xs = np.float32(np.abs(x.numpy()).max() / 127)
+    return dict(
+        x=x, b=torch.from_numpy(rng.standard_normal((co,), np.float32)).to(
+            dev),
+        w=torch.from_numpy(w.astype(np.float32)).to(dev, torch.bfloat16),
+        wq=torch.from_numpy(np.clip(np.rint(w / ws), -127, 127).astype(
+            np.int8)).to(dev),
+        scale=torch.from_numpy(xs * ws).to(dev), xinv=np.float32(1.0 / xs))
+
+
+def _k7_check(c, dev, mode, kw, plan):
+    """Kernel 7 under ``plan`` against its plain version, tolerances as
+    ``test_conv_kernel_vs_plain``."""
+    if mode == "bf16":
+        xd = c["x"].to(dev, torch.bfloat16)
+        got = conv_kernel.conv_bf16_cuda(xd, c["w"], c["b"], plan=plan, **kw)
+        want = conv_kernel.conv_plain_bf16(xd, c["w"], c["b"], **kw)
+        torch.cuda.synchronize()
+        assert bf16_ulps(got.float(), want.float()) <= 2, plan
+    else:
+        xd = c["x"].to(dev, torch.bfloat16 if mode == "int8"
+                       else torch.float32)
+        args = (xd, c["wq"], c["b"], c["scale"], c["xinv"])
+        got = conv_kernel.conv_int8_cuda(*args, plan=plan, **kw)
+        want = conv_kernel.conv_plain_int8(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+    assert bool(want.float().abs().max() > 0)
+
+
+@pytest.mark.parametrize("shape", [
+    # n, hi, ci, co, k, stride
+    (1, 13, 8, 136, 3, 1),    # a depth step spans taps (Ci = 8)
+    (3, 7, 24, 255, 3, 1),    # rows off every tile, Co off by one
+    (5, 6, 72, 136, 3, 2),    # a step ends inside a tap, stride 2
+    (3, 2, 72, 64, 3, 2),     # stride 2 on a 2x2 map: one output pixel
+    (5, 9, 16, 255, 1, 1),    # depth shorter than the ring
+])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_f32_input"])
+def test_conv_ring_edges(cuda_device, shape, mode):
+    """What a ring and flat depth steps can break in kernel 7: rows that are
+    a multiple of no tile, Ci of 8 / 24 / 72 (steps that span or end inside
+    taps; in the int8 modes a 16-byte piece spans two taps), a depth shorter
+    than the ring, Co of 136 and 255, stride 2 on a 2x2 map; under the
+    planner's plan and under every tile with the depth split."""
+    n, hi, ci, co, k, stride = shape
+    c = _k7_case(hi + ci + co, n, hi, ci, co, k, cuda_device)
+    kw = dict(stride=stride, pad=(k - 1) // 2, act="leaky")
+    es = 2 if mode == "bf16" else 1
+    _k7_check(c, cuda_device, mode, kw, None)
+    for bm, bn in ALL_TILES:
+        for split in (1, 2):
+            _k7_check(c, cuda_device, mode, kw,
+                      _forced_plan(bm, bn, split, 3, k * k * ci, es))
+
+
+@pytest.mark.parametrize("tile", ALL_TILES)
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_conv_every_forced_plan(cuda_device, tile, split, mode):
+    """Kernel 7 at one 3x3 shape with several tiles each way, under every
+    tile, split and two ring depths: equal to the plain version under the
+    unchanged tolerances."""
+    n, hi, ci, co, k = 3, 13, 256, 320, 3
+    c = _k7_case(7, n, hi, ci, co, k, cuda_device)
+    kw = dict(stride=1, pad=1, act="leaky")
+    for stages in (2, 8):
+        _k7_check(c, cuda_device, mode, kw, _forced_plan(
+            *tile, split, stages, k * k * ci, 2 if mode == "bf16" else 1))
+
+
+@pytest.mark.parametrize("tile", ALL_TILES)
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_conv_int8_every_forced_plan(cuda_device, tile, split):
+    """Kernel 8 under every tile, split and two ring depths, at shapes whose
+    rows and columns are multiples of no tile, Ci = 16 and 48 (a depth step
+    ends inside a stage), a depth shorter than the ring and stride 2 on a 2x2
+    map: int8 codes and the f32 output equal to the plain version's."""
+    for n, hi, wi, ci, co, k, stride, out_int8, residual in [
+            (5, 6, 10, 48, 144, 3, 1, True, True),
+            (3, 8, 4, 16, 80, 3, 1, False, True),
+            (1, 8, 4, 16, 32, 1, 1, True, False),
+            (3, 2, 2, 48, 272, 3, 2, True, False),
+            (5, 2, 2, 64, 128, 1, 2, True, False)]:
+        args = _int8_conv_case(11, n, hi, wi, ci, co, k, cuda_device,
+                               residual, stride)
+        kw = dict(stride=stride, pad=(k - 1) // 2, relu=True,
+                  out_int8=out_int8)
+        want = conv_int8_kernel.conv_int8_plain(*args, **kw)
+        assert bool(want.float().abs().max() > 0)
+        for stages in (2, 8):
+            plan = _forced_plan(*tile, split, stages, k * k * ci, 1)
+            got = conv_int8_kernel.conv_int8_cuda(*args, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plan, n, hi, wi, ci, co, k)
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128)])
+def test_conv_ring_blocks_walk_several_tiles(cuda_device, tile):
+    """The tiles two blocks to an SM take: with more tiles than the card holds
+    blocks at once, a block walks several, ring and barrier phases running on
+    from one tile into the next. Both kernels at shapes of hundreds of tiles
+    (odd numbers of depth steps, so the ring wraps at another place in every
+    tile), shallow and deep rings: equal to the plain versions."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n, hi, ci, co, k = 8, 52, 40, 136, 3
+    assert -(-n * hi * hi // 64) > 2 * sms  # more tiles than blocks
+    c = _k7_case(9, n, hi, ci, co, k, cuda_device)
+    kw = dict(stride=1, pad=1, act="leaky")
+    for stages in (2, 8):
+        for mode in ("bf16", "int8"):
+            _k7_check(c, cuda_device, mode, kw, _forced_plan(
+                *tile, 1, stages, k * k * ci, 2 if mode == "bf16" else 1))
+    args = _int8_conv_case(13, 96, 32, 16, 48, 128, 3, cuda_device, True, 1)
+    want = conv_int8_kernel.conv_int8_plain(*args)
+    for stages in (2, 3, 8):
+        plan = _forced_plan(*tile, 1, stages, 9 * 48, 1)
+        got = conv_int8_kernel.conv_int8_cuda(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+def test_conv_ring_two_streams_back_to_back(cuda_device):
+    """Barrier state is per launch: the same conv launched many times on two
+    streams at once, both kernels, gives the same result every time."""
+    c = _k7_case(3, 8, 13, 512, 256, 3, cuda_device)
+    xd = c["x"].to(cuda_device, torch.bfloat16)
+    args8 = _int8_conv_case(5, 40, 8, 4, 256, 256, 3, cuda_device, True, 1)
+    want7 = conv_kernel.conv_plain_bf16(xd, c["w"], c["b"])
+    want8 = conv_int8_kernel.conv_int8_plain(*args8)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for rep in range(6):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append((conv_kernel.conv_bf16(xd, c["w"], c["b"]),
+                             conv_int8_kernel.conv_int8(*args8)))
+    torch.cuda.synchronize()
+    for got7, got8 in outs:
+        assert bf16_ulps(got7.float(), want7.float()) <= 2
+        assert torch.equal(got8, want8)
+
+
+def test_conv_plan_of_the_card(cuda_device):
+    """The wrappers plan for the card's own SM count, and a plan the kernels
+    do not take is refused before any launch."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert conv_plan.plan_for(cuda_device, 1352, 1024, 4608, 2) \
+        == conv_plan.plan_conv_tiles(1352, 1024, 4608, 2, sms)
+    c = _k7_case(3, 1, 4, 16, 16, 1, cuda_device)
+    xd = c["x"].to(cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="conv plan"):
+        conv_kernel.conv_bf16_cuda(xd, c["w"], c["b"], pad=0,
+                                   plan=conv_plan.ConvPlan(96, 128, 4, 1))
+    with pytest.raises(ValueError, match="conv plan"):
+        conv_kernel.conv_bf16_cuda(xd, c["w"], c["b"], pad=0,
+                                   plan=conv_plan.ConvPlan(64, 64, 4, 2))

@@ -1,0 +1,115 @@
+// Kernel 7's epilogue and the launchers of its three modes, shared by conv.cu
+// (the C entry) and conv_mode_*.cu. Each mode instantiates the main loop of
+// conv_mainloop.cuh at four tiles; a translation unit per mode and tile
+// height lets the build compile them side by side.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "conv_mainloop.cuh"
+
+namespace conv_backbone {
+
+enum Act { ACT_LINEAR = 0, ACT_LEAKY = 1, ACT_MISH = 2 };
+
+__device__ __forceinline__ float activate(float y, int act) {
+    if (act == ACT_LEAKY) return y > 0.0f ? y : 0.1f * y;
+    if (act == ACT_MISH) {
+        float sp = fmaxf(y, 0.0f) + log1pf(expf(-fabsf(y)));  // softplus
+        return y * tanhf(sp);
+    }
+    return y;
+}
+
+// A: float sums (bf16 mode) or int sums (the int8 modes, which scale)
+template <typename A>
+struct BackboneEpilogue {  // the name tells kernel 7 in a profile
+    using Acc = A;
+    static constexpr int NV = 8;
+    const float* bias;
+    const float* scale;
+    __nv_bfloat16* out;
+    int co, act;
+
+    struct Cols {
+        float bias[8], scale[8];
+    };
+    struct Pre {};  // nothing to fetch per row
+
+    __device__ __forceinline__ Cols load_cols(int col) const {
+        Cols c;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const bool ok = col + e < co;  // Co = 255: the last column
+            c.bias[e] = ok ? __ldg(bias + col + e) : 0.0f;
+            if constexpr (conv_ring::IsInt<A>::value)
+                c.scale[e] = ok ? __ldg(scale + col + e) : 0.0f;
+            else
+                c.scale[e] = 1.0f;
+        }
+        return c;
+    }
+
+    __device__ __forceinline__ Pre prefetch(int, int) const { return Pre{}; }
+
+    __device__ __forceinline__ void store(int m, int col, const A (&v)[8],
+                                          const Cols& c, const Pre&) const {
+        unsigned short h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            float y = (float)v[e];
+            if constexpr (conv_ring::IsInt<A>::value) y = y * c.scale[e];
+            y = activate(y + c.bias[e], act);
+            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+        }
+        __nv_bfloat16* dst = out + (long long)m * co + col;
+        if ((co % 8) == 0) {
+            uint4 u;
+            u.x = h[0] | ((unsigned int)h[1] << 16);
+            u.y = h[2] | ((unsigned int)h[3] << 16);
+            u.z = h[4] | ((unsigned int)h[5] << 16);
+            u.w = h[6] | ((unsigned int)h[7] << 16);
+            *reinterpret_cast<uint4*>(dst) = u;
+        } else {
+            unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                if (col + e < co) d16[e] = h[e];
+        }
+    }
+};
+
+
+// One per mode and BM (64 or 128 rows a tile), each defined in a translation
+// unit of its own: conv_mode_*.cu, compiled once per CONV_RING_BM.
+template <int BM>
+cudaError_t launch_bf16(const void* x, const void* w,
+                        const conv_ring::Geom& g, int bn,
+                        const BackboneEpilogue<float>& epi,
+                        cudaStream_t stream);
+template <int BM>
+cudaError_t launch_quant_bf16(const void* x, const void* w,
+                              const conv_ring::Geom& g, int bn,
+                              const BackboneEpilogue<int>& epi,
+                              cudaStream_t stream);
+template <int BM>
+cudaError_t launch_quant_f32(const void* x, const void* w,
+                             const conv_ring::Geom& g, int bn,
+                             const BackboneEpilogue<int>& epi,
+                             cudaStream_t stream);
+#define CONV_BACKBONE_LAUNCH(NAME, ACC, BM)                                 \
+    template <>                                                             \
+    cudaError_t NAME<BM>(const void*, const void*, const conv_ring::Geom&,  \
+                         int, const BackboneEpilogue<ACC>&, cudaStream_t);
+CONV_BACKBONE_LAUNCH(launch_bf16, float, 64)
+CONV_BACKBONE_LAUNCH(launch_bf16, float, 128)
+CONV_BACKBONE_LAUNCH(launch_quant_bf16, int, 64)
+CONV_BACKBONE_LAUNCH(launch_quant_bf16, int, 128)
+CONV_BACKBONE_LAUNCH(launch_quant_f32, int, 64)
+CONV_BACKBONE_LAUNCH(launch_quant_f32, int, 128)
+#undef CONV_BACKBONE_LAUNCH
+
+}  // namespace conv_backbone

@@ -7,6 +7,10 @@ into ONE shared library with a plain C interface:
          -Xcompiler -fPIC --fmad=false -c <file>.cu      (per file, all at once)
     nvcc -shared -o libydt_kernels_<hash>.so *.o
 
+A source that names ``CONV_RING_BM`` (the conv kernels' instantiations of
+their shared main loop, the slowest files to compile) is compiled once per
+tile height, ``-DCONV_RING_BM=64`` and ``=128``, side by side.
+
 The library lands in ``yolo_deepsort_tpu_torch/build/`` (git-ignored) under
 a name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the cached build. Nothing here links
@@ -60,11 +64,11 @@ SIGNATURES = {
     # c_real, stream
     "ydt_jv_two_stage": [_P] * 8 + [_I, _I, _I, _I, _P],
     # x, w, bias, scale, xinv, out, n, hi, wi, ci, ho, wo, co, k, stride,
-    # pad, act, mode, stream
-    "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 12 + [_P],
+    # pad, act, mode, ldw, bm, bn, stages, split, stream
+    "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 17 + [_P],
     # x, w, scale, bias, res, res_scale, oinv, out, n, hi, wi, ci, ho, wo,
-    # co, k, stride, pad, relu, out_int8, stream
-    "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 12 + [_P],
+    # co, k, stride, pad, relu, out_int8, ldw, bm, bn, stages, split, stream
+    "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 17 + [_P],
     # x, out, tmp, w1, w2, b1, b2, s1, s2, xinv, n, h, w, ci, cm, nblk, act,
     # th, csplit, int8_mode, stream
     "ydt_resblock_chain": [_P] * 10 + [_I] * 10 + [_P],
@@ -94,8 +98,25 @@ def nvcc_path() -> str:
         "yolo_deepsort_tpu_torch cannot be built on this machine")
 
 
+ROW_TILES = (64, 128)  # values of CONV_RING_BM
+
+
 def sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def compile_units():
+    """(source, object name, extra flags) of every nvcc -c the build runs."""
+    units = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        if b"CONV_RING_BM" in src.read_bytes():
+            units += [(src, f"{src.stem}_{bm}.o", [f"-DCONV_RING_BM={bm}"])
+                      for bm in ROW_TILES]
+        else:
+            units.append((src, src.stem + ".o", []))
+    return units
 
 
 def source_hash() -> str:
@@ -103,7 +124,7 @@ def source_hash() -> str:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(repr((ARCH_FLAGS, BASE_FLAGS)).encode())
+    h.update(repr((ARCH_FLAGS, BASE_FLAGS, ROW_TILES)).encode())
     return h.hexdigest()[:16]
 
 
@@ -134,11 +155,11 @@ def build() -> Path:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        units = [src for src in sources() if src.suffix == ".cu"]
-        objs = [str(Path(tmp) / (src.stem + ".o")) for src in units]
-        _run_all([[nvcc] + ARCH_FLAGS + BASE_FLAGS
+        units = compile_units()
+        objs = [str(Path(tmp) / obj) for _, obj, _ in units]
+        _run_all([[nvcc] + ARCH_FLAGS + BASE_FLAGS + flags
                   + ["-I", str(CSRC), "-c", str(src), "-o", obj]
-                  for src, obj in zip(units, objs)])
+                  for (src, _, flags), obj in zip(units, objs)])
         tmp_so = Path(tmp) / out.name
         _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp_so)]
                   + objs])

@@ -314,7 +314,11 @@ def _resident_stages(qparams: Dict, tq: torch.Tensor,
 
     def run(xq, qp, stride, pad, relu, out_int8, residual=None,
             res_scale=None):
-        return iconv(xq, qp["wq"], qp["scale"], qp["b"], qp["oinv"],
+        # the kernel reads the package's packed weights, the plain version
+        # the HWIO ones
+        wq = qp.get("wq_packed", qp["wq"]) \
+            if iconv is conv_int8 and xq.is_cuda else qp["wq"]
+        return iconv(xq, wq, qp["scale"], qp["b"], qp["oinv"],
                      residual, res_scale, stride=stride, pad=pad, relu=relu,
                      out_int8=out_int8)
 

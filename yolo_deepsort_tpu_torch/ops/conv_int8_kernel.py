@@ -14,15 +14,24 @@ that keeps activations int8 between convs:
 each step rounded to f32, ties to even, no fused multiply-add. Bound on the
 H100 by operations at the 3x3 layers (290-2300 per byte moved) and by bytes
 at the 1x1 shortcuts. The design is an implicit GEMM -- rows N*Ho*Wo,
-columns Co, depth k*k*Ci walked tap by tap in 64-channel steps -- with the
-halo, stride 2 and the padding handled by index and mask in the tile load
-(no padded copy, no parity planes, no pre-decimated input), one launch per
-conv; see the note at the top of the .cu file.
+columns Co, depth k*k*Ci flat over taps and channels in 128-byte steps --
+with the halo, stride 2 and the padding handled by index and zero fill in
+the gather (no padded copy, no parity planes, no pre-decimated input), one
+launch per conv. The main loop is ``csrc/conv_mainloop.cuh``, shared with
+kernel 7: a multi-stage ring of swizzled tiles in shared memory filled by
+asynchronous copies, ``wgmma`` m64nNk32 on what has arrived, ``mbarrier``s in
+place of block-wide barriers; see the notes at the top of both files. The
+tile plan of a shape comes from ``ops/conv_plan.py`` ``plan_conv_tiles``.
 
 Layouts are the reference's: ``xq`` (N, Hi, Wi, Ci) int8 NHWC, ``wq`` (k, k,
-Ci, Co) int8 HWIO, whose contiguous memory is the tap-major (k*k*Ci, Co)
-matrix the kernel reads; ``scale`` and ``b`` (Co,) f32; ``oinv`` and
-``res_scale`` host floats; ``residual`` (N, Ho, Wo, Co) int8.
+Ci, Co) int8 HWIO; ``scale`` and ``b`` (Co,) f32; ``oinv`` and ``res_scale``
+host floats; ``residual`` (N, Ho, Wo, Co) int8. The kernel reads the weights
+K-major, (Co, k*k*Ci): integer ``wgmma`` takes no other layout. The embed's
+package holds each conv's packed form (``conv_plan.pack_conv_weights``, plain
+torch, once per layer, outside every timed loop) and passes the
+``PackedWeights`` wherever ``wq`` goes, the plain version included; raw HWIO
+weights are packed on the fly through a small cache
+(``conv_plan.packed_weights``).
 
 ``conv_int8_plain`` is the plain PyTorch version: the codes convolved in
 float64 (exact: PyTorch has no int8 conv, and the sums pass 2^24), cast to
@@ -41,21 +50,24 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from .conv_plan import (ConvPlan, as_hwio, kernel_weights, weight_geometry,
+                        weight_tensor)
 
 launches = 0  # kernel launches; only the launch below adds to it
 
 
 def _geometry(xq, wq, stride: int, pad: int):
-    if xq.dim() != 4 or wq.dim() != 4:
-        raise ValueError(f"conv_int8: expected NHWC xq and HWIO wq, got "
-                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+    if xq.dim() != 4:
+        raise ValueError(f"conv_int8: expected NHWC xq, got "
+                         f"{tuple(xq.shape)}")
+    wdtype = weight_tensor(wq).dtype  # HWIO or PackedWeights
+    if xq.dtype != torch.int8 or wdtype != torch.int8:
         raise ValueError(f"conv_int8: expected int8 xq and wq, got "
-                         f"{xq.dtype} and {wq.dtype}")
+                         f"{xq.dtype} and {wdtype}")
     n, hi, wi, ci = xq.shape
-    k, k2, wci, co = wq.shape
+    k, k2, wci, co = weight_geometry(wq)
     if k != k2 or k not in (1, 3) or wci != ci:
-        raise ValueError(f"conv_int8: wq {tuple(wq.shape)} does not fit xq "
+        raise ValueError(f"conv_int8: wq {(k, k2, wci, co)} does not fit xq "
                          f"{tuple(xq.shape)} (k must be 1 or 3)")
     if pad != (k - 1) // 2 or stride not in (1, 2):
         raise ValueError(f"conv_int8: k={k} needs pad {(k - 1) // 2} and "
@@ -91,7 +103,8 @@ def conv_int8_plain(xq, wq, scale, b, oinv, residual=None, res_scale=None,
     ``_xla_conv_int8_resident``): (N, Ho, Wo, Co) int8, or f32 with
     ``out_int8=False`` (``oinv`` is ignored then)."""
     _geometry(xq, wq, stride, pad)
-    y = int_conv_nhwc(xq, wq, stride, pad).float() * scale.float() + b.float()
+    y = int_conv_nhwc(xq, as_hwio(wq), stride, pad).float() * scale.float() \
+        + b.float()
     if residual is not None:
         y = y + residual.float() * _scalar(res_scale)
     if relu:
@@ -104,13 +117,20 @@ def conv_int8_plain(xq, wq, scale, b, oinv, residual=None, res_scale=None,
 
 def conv_int8_cuda(xq, wq, scale, b, oinv, residual=None, res_scale=None,
                    *, stride: int = 1, pad: int = 1, relu: bool = True,
-                   out_int8: bool = True) -> torch.Tensor:
-    """Launch the kernel: contiguous int8 NHWC ``xq`` and HWIO ``wq`` on the
-    card, Ci and Co multiples of 16 (16-byte gathers of activation rows,
-    16-byte stores of output rows); anything else raises."""
+                   out_int8: bool = True,
+                   plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """Launch the kernel: contiguous int8 NHWC ``xq`` and int8 weights (HWIO
+    or packed) on the card, Ci and Co multiples of 16 (16-byte gathers of
+    activation rows, 16-byte stores of output rows); anything else raises.
+    ``plan`` forces a tile plan in place of the planner's."""
     n, hi, wi, ci, ho, wo, co, k = _geometry(xq, wq, stride, pad)
-    tensors = (xq, wq, scale, b) + (() if residual is None else (residual,))
+    tensors = (xq, scale, b) + (() if residual is None else (residual,))
     build.require_cuda("conv_int8", *tensors)
+    build.require_cuda("conv_int8", weight_tensor(wq),
+                       contiguous=False)  # packing takes any layout
+    lib = build.load()  # raises before anything asks the card
+    packed, plan = kernel_weights(wq, torch.int8, plan, xq.device,
+                                  n * ho * wo)
     if ci % 16 or co % 16:
         raise ValueError(f"conv_int8 kernel: Ci and Co must be multiples of "
                          f"16, got {ci} and {co}")
@@ -130,13 +150,14 @@ def conv_int8_cuda(xq, wq, scale, b, oinv, residual=None, res_scale=None,
             raise ValueError("conv_int8 kernel: residual without res_scale")
     out = torch.empty((n, ho, wo, co), device=xq.device,
                       dtype=torch.int8 if out_int8 else torch.float32)
-    lib = build.load()
     err = lib.ydt_conv_int8(
-        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+        xq.data_ptr(), packed.data.data_ptr(), scale.data_ptr(),
+        b.data_ptr(),
         None if residual is None else residual.data_ptr(),
         _scalar(0.0 if res_scale is None else res_scale), _scalar(oinv),
         out.data_ptr(), n, hi, wi, ci, ho, wo, co, k, stride, pad,
-        int(bool(relu)), int(bool(out_int8)),
+        int(bool(relu)), int(bool(out_int8)), packed.data.shape[1], plan.bm,
+        plan.bn, plan.stages, plan.split,
         torch.cuda.current_stream(xq.device).cuda_stream)
     build.check_launch("conv_int8", err)
     global launches

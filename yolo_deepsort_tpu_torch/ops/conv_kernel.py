@@ -5,18 +5,28 @@ Replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_conv.py``
 (``_conv_kernel`` via ``conv_mxu_bf16`` / ``conv_mxu_int8``), with its routing
 policy (``backbone_conv_eligible``, ``make_backbone_conv_impl``,
 ``load_conv_whitelist``). Bound on the H100 by operations (hundreds to
-thousands per byte moved at the backbone's shapes). The design is an implicit
-GEMM -- rows N*Ho*Wo, columns Co, depth k*k*Ci walked tap by tap -- one
-output tile per block, tiles gathered into shared memory with the padding,
-the ragged edges and stride 2 handled by index and mask, the products on the
-tensor cores through ``wmma``, bias and activation fused into the bf16 NHWC
-store (see the note at the top of the .cu file).
+thousands per byte moved at the backbone's 3x3 shapes; by bytes at the 1x1
+ones). The design is an implicit GEMM -- rows N*Ho*Wo, columns Co, depth
+k*k*Ci flat over taps and channels -- one output tile per block (or per
+cluster of blocks that share its depth), with the padding, the ragged edges
+and stride 2 handled by index and zero fill in the gather. The main loop is
+``csrc/conv_mainloop.cuh``, shared with kernel 8: producer warps keep a
+multi-stage ring of swizzled tiles in shared memory full with asynchronous
+copies, consumer warpgroups run ``wgmma`` on what has arrived, ``mbarrier``s
+hand stages back and forth, and no block-wide barrier sits in the loop. Bias
+and activation are fused into the bf16 NHWC store (see the notes at the top
+of both files). The tile plan of a shape comes from
+``ops/conv_plan.py`` ``plan_conv_tiles``.
 
 Layouts are the reference's: ``x`` (N, Hi, Wi, Ci) NHWC, ``w`` (k, k, Ci, Co)
-HWIO, whose contiguous memory is the tap-major (k*k*Ci, Co) matrix the
-kernel reads; ``b`` (Co,) f32; int8 mode adds ``scale`` (Co,) f32 =
-xscale * wscale and the host scalar ``xinv`` = 1 / xscale. The result is
-bf16 NHWC.
+HWIO; ``b`` (Co,) f32; int8 mode adds ``scale`` (Co,) f32 = xscale * wscale
+and the host scalar ``xinv`` = 1 / xscale. The result is bf16 NHWC. The
+kernel reads the weights K-major, (Co, k*k*Ci): ``wgmma`` takes no other
+layout for int8. The route packs each layer's weights once
+(``conv_plan.pack_conv_weights``, plain torch, outside every timed loop) and
+passes the ``PackedWeights`` wherever ``w`` goes, the plain versions
+included; raw HWIO weights are packed on the fly through a small cache
+(``conv_plan.packed_weights``).
 
 ``conv_plain_bf16`` and ``conv_plain_int8`` are the plain PyTorch versions:
 the same values (bf16-rounded operands, or int8 codes quantized with
@@ -40,6 +50,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels import build
+from .conv_plan import (ConvPlan, as_hwio, kernel_weights,
+                        pack_conv_weights, weight_geometry, weight_tensor)
 
 launches = 0  # kernel launches; only the launch below adds to it
 
@@ -57,13 +69,12 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def _geometry(x, w, stride: int, pad: int):
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"conv: expected NHWC x and HWIO w, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dim() != 4:
+        raise ValueError(f"conv: expected NHWC x, got {tuple(x.shape)}")
     n, hi, wi, ci = x.shape
-    k, k2, wci, co = w.shape
+    k, k2, wci, co = weight_geometry(w)
     if k != k2 or k not in (1, 3) or wci != ci:
-        raise ValueError(f"conv: w {tuple(w.shape)} does not fit x "
+        raise ValueError(f"conv: w {(k, k2, wci, co)} does not fit x "
                          f"{tuple(x.shape)} (k must be 1 or 3)")
     if pad != (k - 1) // 2 or stride not in (1, 2):
         raise ValueError(f"conv: k={k} needs pad {(k - 1) // 2} and stride 1 "
@@ -88,8 +99,8 @@ def conv_plain_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
     """Plain version of the bf16 mode: operands rounded to bf16, products
     and sums in f32, + bias, activation, rounded to bf16."""
     _geometry(x, w, stride, pad)
-    y = _conv_nhwc(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float(),
-                   stride, pad)
+    y = _conv_nhwc(x.to(torch.bfloat16).float(),
+                   as_hwio(w).to(torch.bfloat16).float(), stride, pad)
     y = apply_act(y + b.float(), act)
     return y.to(torch.bfloat16).contiguous()
 
@@ -111,17 +122,23 @@ def conv_plain_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
     int32 sums instead."""
     _geometry(x, wq, stride, pad)
     xq = quantize_activations(x, xinv).double()
-    acc = _conv_nhwc(xq, wq.double(), stride, pad).to(torch.int32)
+    acc = _conv_nhwc(xq, as_hwio(wq).double(), stride, pad).to(torch.int32)
     if return_acc:
         return acc.contiguous()
     y = acc.float() * scale.float() + b.float()
     return apply_act(y, act).to(torch.bfloat16).contiguous()
 
 
-def _launch(x, w, b, scale, xinv, stride, pad, act, mode):
+def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
     n, hi, wi, ci, ho, wo, co, k = _geometry(x, w, stride, pad)
-    tensors = (x, w, b) if scale is None else (x, w, b, scale)
+    tensors = (x, b) + (() if scale is None else (scale,))
     build.require_cuda("conv", *tensors)
+    build.require_cuda("conv", weight_tensor(w),
+                       contiguous=False)  # packing takes any layout
+    lib = build.load()  # raises before anything asks the card
+    packed, plan = kernel_weights(
+        w, torch.bfloat16 if mode == 0 else torch.int8, plan, x.device,
+        n * ho * wo, quantizing=mode != 0)
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
     if ci % 8:
@@ -133,12 +150,12 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode):
                               or tuple(scale.shape) != (co,)):
         raise ValueError("conv kernel: scale must be (Co,) float32")
     out = torch.empty((n, ho, wo, co), dtype=torch.bfloat16, device=x.device)
-    lib = build.load()
     err = lib.ydt_conv(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        x.data_ptr(), packed.data.data_ptr(), b.data_ptr(),
         None if scale is None else scale.data_ptr(), float(xinv),
         out.data_ptr(), n, hi, wi, ci, ho, wo, co, k, stride, pad,
-        _ACT_CODES[act], mode,
+        _ACT_CODES[act], mode, packed.data.shape[1], plan.bm, plan.bn,
+        plan.stages, plan.split,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("conv", err)
     global launches
@@ -146,25 +163,28 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode):
     return out
 
 
-def conv_bf16_cuda(x, w, b, *, stride=1, pad=1, act="leaky"):
-    """Launch the kernel in bf16 mode: contiguous bf16 NHWC ``x`` and HWIO
-    ``w`` on the card (a ``torch.cat`` result must be contiguous in
-    channels_last; anything else raises)."""
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"conv kernel (bf16): expected bfloat16 x and w, "
-                         f"got {x.dtype} and {w.dtype}")
-    return _launch(x, w, b, None, 0.0, stride, pad, act, 0)
+def conv_bf16_cuda(x, w, b, *, stride=1, pad=1, act="leaky",
+                   plan: Optional[ConvPlan] = None):
+    """Launch the kernel in bf16 mode: contiguous bf16 NHWC ``x`` and bf16
+    weights (HWIO or packed) on the card (a ``torch.cat`` result must be
+    contiguous in channels_last; anything else raises). ``plan`` forces a
+    tile plan in place of the planner's."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"conv kernel (bf16): expected bfloat16 x, got "
+                         f"{x.dtype}")
+    return _launch(x, w, b, None, 0.0, stride, pad, act, 0, plan)
 
 
-def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky"):
-    """Launch the kernel in int8 mode: ``x`` bf16 or f32 (quantized in the
-    tile load), ``wq`` int8 HWIO, ``xinv`` a host scalar."""
-    if wq.dtype != torch.int8 or x.dtype not in (torch.bfloat16,
-                                                 torch.float32):
-        raise ValueError(f"conv kernel (int8): expected int8 wq and bfloat16 "
-                         f"or float32 x, got {wq.dtype} and {x.dtype}")
+def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky",
+                   plan: Optional[ConvPlan] = None):
+    """Launch the kernel in int8 mode: ``x`` bf16 or f32 (quantized on the
+    way into shared memory), ``wq`` int8 (HWIO or packed), ``xinv`` a host
+    scalar. ``plan`` forces a tile plan in place of the planner's."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv kernel (int8): expected bfloat16 or float32 "
+                         f"x, got {x.dtype}")
     mode = 1 if x.dtype == torch.bfloat16 else 2
-    return _launch(x, wq, b, scale, xinv, stride, pad, act, mode)
+    return _launch(x, wq, b, scale, xinv, stride, pad, act, mode, plan)
 
 
 def conv_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
@@ -192,11 +212,11 @@ def int8_package_to_torch(pkg: Dict[int, Dict],
                           device=None) -> Dict[int, Dict]:
     """The numpy package of ``models/quantize_darknet.py`` (either
     package's) as the tensors the kernel reads, on ``device`` (the CUDA
-    card unless another is named): ``wq`` int8 HWIO contiguous (its memory
-    is the tap-major (k*k*Ci, Co) matrix), ``scale`` and ``b`` f32, ``xinv``
-    kept as a host float (the kernel takes it by value). The conv routes
-    accept either form; converting up front keeps the first routed call
-    free of uploads."""
+    card unless another is named): ``wq`` int8 HWIO contiguous, on a CUDA
+    device also ``wq_packed`` (the K-major form the kernel reads), ``scale``
+    and ``b`` f32, ``xinv`` kept as a host float (the kernel takes it by
+    value). The conv routes accept either form; converting up front keeps
+    the first routed call free of uploads and of packing."""
     device = resolve_device(device)
 
     def tensor(v, np_dtype):
@@ -205,15 +225,18 @@ def int8_package_to_torch(pkg: Dict[int, Dict],
         return torch.from_numpy(np.ascontiguousarray(
             np.asarray(v, np_dtype))).to(device)
 
-    return {
-        int(idx): {
+    def layer(qp):
+        out = {
             "wq": tensor(qp["wq"], np.int8),
             "scale": tensor(qp["scale"], np.float32),
             "b": tensor(qp["b"], np.float32),
             "xinv": float(np.float32(qp["xinv"])),
         }
-        for idx, qp in pkg.items()
-    }
+        if device.type == "cuda":
+            out["wq_packed"] = pack_conv_weights(out["wq"])
+        return out
+
+    return {int(idx): layer(qp) for idx, qp in pkg.items()}
 
 
 def backbone_conv_eligible(hi: int, wi: int, ci: int, co: int, k: int,
@@ -241,11 +264,13 @@ def make_backbone_conv_impl(*, max_hw: int = 64,
     route to those module indices.
 
     The hook receives the module's weights as an HWIO view. Each routed
-    layer's weights are packed once, on the layer's first call -- contiguous
-    HWIO in bf16, or the package's int8 tensors on the device -- and kept:
-    the route serves one detector whose inference weights are frozen; load
-    new weights, build a new route."""
-    packed: Dict[int, tuple] = {}   # layer -> (w bf16 HWIO, b f32)
+    layer's weights are packed once, on the layer's first call -- bf16, or
+    the package's int8 tensors on the device; on a CUDA device in the
+    kernel's K-major form (``pack_conv_weights``), on the CPU as contiguous
+    HWIO for the plain version -- and kept: the route serves one detector
+    whose inference weights are frozen; load new weights, build a new
+    route."""
+    packed: Dict[int, tuple] = {}   # layer -> (w bf16, b f32)
     int8_dev: Dict[int, Dict] = {}
 
     def impl(x, w, b, stride, pad, act, layer_idx):
@@ -263,11 +288,14 @@ def make_backbone_conv_impl(*, max_hw: int = 64,
                 int8_dev[layer_idx] = int8_package_to_torch(
                     {layer_idx: int8_pkg[layer_idx]}, x.device)[layer_idx]
             qp = int8_dev[layer_idx]
-            return conv_int8(x, qp["wq"], qp["b"], qp["scale"], qp["xinv"],
-                             stride=stride, pad=pad, act=act)
+            return conv_int8(x, qp.get("wq_packed", qp["wq"]), qp["b"],
+                             qp["scale"], qp["xinv"], stride=stride, pad=pad,
+                             act=act)
         if layer_idx not in packed:
-            packed[layer_idx] = (w.detach().to(torch.bfloat16).contiguous(),
-                                 b.detach().float().contiguous())
+            wp = w.detach().to(torch.bfloat16).contiguous()
+            packed[layer_idx] = (
+                pack_conv_weights(wp) if wp.is_cuda else wp,
+                b.detach().float().contiguous())
         wp, bp = packed[layer_idx]
         return conv_bf16(x.to(torch.bfloat16), wp, bp, stride=stride,
                          pad=pad, act=act)

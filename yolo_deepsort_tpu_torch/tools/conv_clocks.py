@@ -1,0 +1,217 @@
+"""Time the two implicit-GEMM conv kernels on two clocks, in this checkout or
+in another one.
+
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --out clocks.json
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --root DIR --out ...
+
+Kernel 7 at the 15 eligible conv shapes of yolov3-416 at batch 8 plus the mish
+shape (bf16 mode, and int8 mode with bf16 activations), kernel 8 at the nine
+shape classes of one int8-resident ReID embed in every epilogue its layers
+use, at 320 and at 512 crops; each through the package's public wrapper
+(``conv_bf16``, ``conv_int8``; ``conv_int8_kernel.conv_int8``) with HWIO
+weights. Two clocks, both CUDA events around 50 calls:
+
+* ``called_ms``: the calls made from Python back to back. Where a kernel is
+  shorter than its wrapper's time on the host, this is the host's time.
+* ``device_ms``: the same calls captured into one CUDA graph and replayed
+  (the median of three replays): the card's time with the host out of the
+  way.
+
+The sums printed are those of the serving routes: the K=1 step's 19 routed
+backbone layers (nine in bf16 mode, ten in int8 mode) and the 15 convs of
+one embed. ``--root`` imports the package from another checkout -- an earlier
+commit unpacked beside this one -- so that two designs are timed on one card,
+one after the other, by one script; the script calls only what the wrappers
+have taken since they were added. Run it as a file, as above (with ``-m``
+Python would import this checkout's package before ``--root`` is read). Needs
+the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPS = 50
+BATCH = 8
+
+# (map, Ci, Co, k, stride, act): the eligible conv shapes of yolov3-416, the
+# mish shape last; beside each the routed layers of the K=1 step that have it
+# (bf16 mode, int8 mode)
+K7_CLASSES = (
+    ((52, 256, 128, 1, 1, "leaky"), 0, 0),
+    ((52, 128, 256, 3, 1, "leaky"), 0, 0),
+    ((52, 256, 512, 3, 2, "leaky"), 1, 0),
+    ((26, 512, 256, 1, 1, "leaky"), 0, 0),
+    ((26, 256, 512, 3, 1, "leaky"), 0, 0),
+    ((26, 512, 1024, 3, 2, "leaky"), 0, 0),
+    ((13, 1024, 512, 1, 1, "leaky"), 0, 7),
+    ((13, 512, 1024, 3, 1, "leaky"), 7, 0),
+    ((13, 1024, 255, 1, 1, "linear"), 0, 0),
+    ((13, 512, 256, 1, 1, "leaky"), 0, 1),
+    ((26, 768, 256, 1, 1, "leaky"), 0, 0),
+    ((26, 512, 255, 1, 1, "linear"), 0, 1),
+    ((26, 256, 128, 1, 1, "leaky"), 0, 1),
+    ((52, 384, 128, 1, 1, "leaky"), 1, 0),
+    ((52, 256, 255, 1, 1, "linear"), 0, 0),
+    ((26, 256, 512, 3, 1, "mish"), 0, 0),
+)
+# (k, stride, h, w, Ci, Co) and the class's layers as (relu, int8 out,
+# residual) -> how many layers of one embed
+K8_CLASSES = (
+    ((3, 2, 64, 32, 64, 128), {(True, True, False): 1}),
+    ((1, 2, 64, 32, 64, 128), {(False, True, False): 1}),
+    ((3, 1, 32, 16, 128, 128), {(True, True, True): 2,
+                                (True, True, False): 1}),
+    ((3, 2, 32, 16, 128, 256), {(True, True, False): 1}),
+    ((1, 2, 32, 16, 128, 256), {(False, True, False): 1}),
+    ((3, 1, 16, 8, 256, 256), {(True, True, True): 2,
+                               (True, True, False): 1}),
+    ((3, 2, 16, 8, 256, 512), {(True, True, False): 1}),
+    ((1, 2, 16, 8, 256, 512), {(False, True, False): 1}),
+    ((3, 1, 8, 4, 512, 512), {(True, True, True): 1, (True, True, False): 1,
+                              (True, False, True): 1}),
+)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else ""
+
+
+def both_clocks(torch, fn):
+    """(called_ms, device_ms) of fn()."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    called = start.elapsed_time(end) / REPS
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(REPS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / REPS)
+    del graph
+    return called, sorted(times)[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="the checkout whose package is timed (default: "
+                         "this one)")
+    ap.add_argument("--crops", type=int, nargs="*", default=[320, 512])
+    ap.add_argument("--out", default=None, help="write the JSON record here")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve() if args.root else \
+        Path(__file__).resolve().parents[2]
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import conv_int8_kernel, conv_kernel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_clocks: needs the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out = {"root": str(root), "card": card_line(), "reps": REPS,
+           "k7": [], "k8": {}}
+    routed = {"called_ms": 0.0, "device_ms": 0.0}
+    for (hi, ci, co, k, stride, act), n_bf16, n_int8 in K7_CLASSES:
+        x = torch.from_numpy(rng.standard_normal(
+            (BATCH, hi, hi, ci), np.float32)).to(dev, torch.bfloat16)
+        w = (rng.standard_normal((k, k, ci, co), np.float32)
+             / np.sqrt(k * k * ci)).astype(np.float32)
+        wscale = (np.abs(w).reshape(-1, co).max(0) / 127.0).astype(np.float32)
+        wq = torch.from_numpy(np.clip(np.rint(w / wscale), -127, 127).astype(
+            np.int8)).to(dev)
+        xscale = np.float32(float(x.float().abs().max()) / 127.0)
+        scale = torch.from_numpy(xscale * wscale).to(dev)
+        xinv = np.float32(1.0 / xscale)
+        wb = torch.from_numpy(w).to(dev, torch.bfloat16)
+        b = torch.from_numpy(rng.standard_normal((co,), np.float32)).to(dev)
+        kw = dict(stride=stride, pad=(k - 1) // 2, act=act)
+        modes = (
+            ("bf16", n_bf16, lambda: conv_kernel.conv_bf16(x, wb, b, **kw)),
+            ("int8", n_int8, lambda: conv_kernel.conv_int8(
+                x, wq, b, scale, xinv, **kw)))
+        for mode, n_routed, fn in modes:
+            called, device = both_clocks(torch, fn)
+            out["k7"].append({"shape": [hi, ci, co, k, stride, act],
+                              "mode": mode, "routed_layers": n_routed,
+                              "called_ms": called, "device_ms": device})
+            routed["called_ms"] += n_routed * called
+            routed["device_ms"] += n_routed * device
+            print(f"k7 {k}x{k} s{stride} {hi} {ci}->{co} {act} {mode}: "
+                  f"called {called:.4f} ms, device {device:.4f} ms",
+                  flush=True)
+    out["k7_routed_19_layers"] = routed
+    print(f"k7, the K=1 step's 19 routed layers: called "
+          f"{routed['called_ms']:.6f} ms, device {routed['device_ms']:.6f} ms",
+          flush=True)
+    for crops in args.crops:
+        layers = []
+        embed = {"called_ms": 0.0, "device_ms": 0.0}
+        for (k, stride, h, w_, ci, co), epilogues in K8_CLASSES:
+            ho, wo = h // stride, w_ // stride
+            xq = torch.from_numpy(rng.integers(
+                -127, 128, (crops, h, w_, ci)).astype(np.int8)).to(dev)
+            wq = torch.from_numpy(rng.integers(
+                -127, 128, (k, k, ci, co)).astype(np.int8)).to(dev)
+            scale = torch.full((co,), 1e-4, device=dev)
+            b = torch.zeros((co,), device=dev)
+            res = torch.from_numpy(rng.integers(
+                -127, 128, (crops, ho, wo, co)).astype(np.int8)).to(dev)
+            for (relu, out_int8, has_res), count in epilogues.items():
+                def fn():
+                    return conv_int8_kernel.conv_int8(
+                        xq, wq, scale, b, 20.0, res if has_res else None,
+                        0.03 if has_res else None, stride=stride,
+                        pad=(k - 1) // 2, relu=relu, out_int8=out_int8)
+                called, device = both_clocks(torch, fn)
+                layers.append({"shape": [k, stride, h, w_, ci, co],
+                               "relu": relu, "out_int8": out_int8,
+                               "residual": has_res, "layers": count,
+                               "called_ms": called, "device_ms": device})
+                embed["called_ms"] += count * called
+                embed["device_ms"] += count * device
+                print(f"k8 N={crops} {k}x{k} s{stride} {h}x{w_} {ci}->{co} "
+                      f"relu={relu} int8={out_int8} residual={has_res}: "
+                      f"called {called:.4f} ms, device {device:.4f} ms",
+                      flush=True)
+        out["k8"][str(crops)] = {"per_epilogue": layers,
+                                 "embed_15_layers": embed}
+        print(f"k8, one embed of {crops} crops (15 layers): called "
+              f"{embed['called_ms']:.6f} ms, device "
+              f"{embed['device_ms']:.6f} ms", flush=True)
+    print(out["card"])
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -32,6 +32,7 @@ from .models.darknet import Darknet, NetworkPlan, conv_layer_shapes
 from .device import resolve_device
 from .models.quantize import is_torch_package
 from .models.reid import OriginalReIDNet, ReIDNet
+from .ops.conv_plan import pack_conv_weights
 from .ops.conv_kernel import (  # noqa: F401  (re-exported)
     int8_package_to_torch as conv_int8_package_to_torch,
 )
@@ -178,8 +179,9 @@ def reid_int8_package_to_torch(pkg: Dict, device=None,
     biases; ``in_scale`` as a 0-dim f32 tensor (the first quantize DIVIDES
     by it on the device; a host scalar would be turned into a multiply by
     its reciprocal on a CUDA tensor, which rounds differently); every int8
-    conv's ``wq`` HWIO contiguous -- its memory is the tap-major (k*k*Ci,
-    Co) matrix kernel 8 reads -- with ``scale`` and ``b`` f32; ``oinv`` and
+    conv's ``wq`` HWIO contiguous, on a CUDA device also ``wq_packed`` (the
+    K-major rows kernel 8 reads, ``ops/conv_plan.py`` ``pack_conv_weights``:
+    packed here, once), with ``scale`` and ``b`` f32; ``oinv`` and
     ``res_scale`` stay host floats (the kernel takes them by value).
     Per layer: ``wq``, ``scale`` = xscale * wscale, ``b``, and ``xscale`` as
     a 0-dim tensor."""
@@ -223,8 +225,11 @@ def reid_int8_package_to_torch(pkg: Dict, device=None,
         return {"w": f32(w).to(front_dtype), "b": f32(p["b"])}
 
     def resident(qp):
-        return {"wq": wq_of(qp), "scale": f32(qp["scale"]),
-                "b": f32(qp["b"]), "oinv": host(qp["oinv"])}
+        out = {"wq": wq_of(qp), "scale": f32(qp["scale"]),
+               "b": f32(qp["b"]), "oinv": host(qp["oinv"])}
+        if device.type == "cuda":
+            out["wq_packed"] = pack_conv_weights(out["wq"])
+        return out
 
     front = pkg["front"]
     return {
