@@ -39,18 +39,20 @@ which ends the run with a non-zero exit code when it fails:
                    batch 8 and at batch 32 (the K=1 and the chunked step's):
                    int8 mode exactly equal, bf16 mode every element inside
                    rtol = atol = 3e-2 and every block alone within 4 bf16
-                   ulps; timed beside the same blocks layer by layer through
-                   the library and through kernel 7; ``check_resblock``
+                   ulps; timed (weights packed once, as the route holds
+                   them) beside the same blocks layer by layer through the
+                   library and through kernel 7; ``check_resblock``
      matmul_probe  kernel 10 at (32768, 256) x (256, 256), inside the probe
                    tool's own run (path 4e): int8 exactly equal (floor
-                   division), bf16 within 1 bf16 ulp
+                   division), bf16 within 1 bf16 ulp; timed on both clocks
+                   beside ``torch.matmul`` / ``torch._int_mm``
    The kernel times (``ms``, and ``library_ms`` beside them) are CUDA-event
    means of repeated calls from Python on the same inputs (the tracker and
    the JV solvers: the kernel alone, with the whole wrapper beside it). The
    two conv kernels at their small shapes take the card less time than
-   their wrappers take the host, so they, their library yardstick and
-   kernel 9's yardsticks are also timed with the host out of the way, the
-   same calls replayed from a CUDA graph: ``device_ms``,
+   their wrappers take the host, so they, their library yardstick, kernels
+   9 and 10 and their yardsticks are also timed with the host out of the
+   way, the same calls replayed from a CUDA graph: ``device_ms``,
    ``library_device_ms``, ``k7_device_ms``. Each kernel's line also gives its roofline bound
    (``roofline``: bytes in and out over 3.35 TB/s, or operations over the
    card's peak for their type; for the crops the bytes in are the frame
@@ -95,8 +97,10 @@ which ends the run with a non-zero exit code when it fails:
    the K=1 step with ``use_resblock=True`` and ``use_resblock="int8"`` (the
    package of the 40 chain convs calibrated on the card from two frames) on
    the main path's model and frames: per chunk and per step K9 3 launches
-   (one per routed chain, what ``plan_chain_schedule`` promises), K1, K2, K3
-   as before, one readback and no other synchronizing call; the routed
+   (one per routed chain, what ``plan_chain_schedule`` promises) and 40
+   kernels behind them, two per block of the model's chains, as the C entry
+   counts its launches (``device_kernels``), K1, K2, K3 as before,
+   one readback and no other synchronizing call; the routed
    detector's decoded output against the unrouted one; frames/s and p50/p99
    beside the unrouted run's in alternated blocks; emitted rows beside the
    unrouted run's, the number that differ printed.
@@ -1590,14 +1594,14 @@ def check_resblock(rng, dev):
     tiles). int8 mode with a leaky activation exactly equal; everything else
     with every element inside rtol = atol = CHAIN_TOL, and in bf16 mode
     every block of the chain alone, fed the plain chain's state, within
-    CHAIN_BLOCK_ULPS. Times per class, mode and batch: the kernel (CUDA
-    events), the plain version, the bound (the chain's operations over the
-    bf16 / int8 peak against x read once, out written once and the weights),
-    and two yardsticks the route never calls: the same blocks layer by layer
-    through ``F.conv2d`` + activation + add (the library), and through
-    kernel 7 + add, each called from Python back to back like the kernel
-    (``cuda_ms``) and as device time (``cuda_graph_ms``). Returns {(h, ci,
-    cm, nblk, act): {...}}."""
+    CHAIN_BLOCK_ULPS. Times per class, mode and batch: the kernel with its
+    weights packed once, as the route calls it, called from Python back to
+    back (``cuda_ms``) and as device time (``cuda_graph_ms``), the plain
+    version, the bound (the chain's operations over the bf16 / int8 peak
+    against x read once, out written once and the weights), and two
+    yardsticks the route never calls: the same blocks layer by layer through
+    ``F.conv2d`` + activation + add (the library), and through kernel 7 +
+    add, on both clocks as well. Returns {(h, ci, cm, nblk, act): {...}}."""
     import torch
     import torch.nn.functional as F
 
@@ -1660,9 +1664,19 @@ def check_resblock(rng, dev):
                     ("int8", RK.resblock_chain_int8,
                      RK.resblock_chain_plain_int8)):
                 args = case[mode]
+                # weights packed once, as the route holds them: the object
+                # held to the plain version is the one timed
+                packed = RK.pack_chain_args(args)
                 tag = f"resblock {mode} N={n} {h}x{h} {ci}/{cm} x{nblk} {act}"
-                got = fn(*args, act=act)
+                calls, kernels = RK.launches, RK.device_kernels
+                got = fn(*packed, act=act)
                 torch.cuda.synchronize()
+                calls = RK.launches - calls
+                kernels = RK.device_kernels - kernels
+                if calls != 1 or kernels != 2 * nblk:
+                    raise AssertionError(
+                        f"{tag}: {calls} calls of the C entry launching "
+                        f"{kernels} kernels, expected 1 and two per block")
                 if got.shape != args[0].shape or got.dtype != torch.bfloat16:
                     raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
                 want = plain(*args, act=act)
@@ -1682,7 +1696,8 @@ def check_resblock(rng, dev):
                 rec = dict(
                     err=err, ulps=ulps,
                     rms=float(want.float().pow(2).mean().sqrt()),
-                    ms=cuda_ms(lambda: fn(*args, act=act), 10),
+                    ms=cuda_ms(lambda: fn(*packed, act=act), 10),
+                    device=cuda_graph_ms(lambda: fn(*packed, act=act), 5),
                     plain=cuda_ms(lambda: plain(*args, act=act), 2),
                     # the yardsticks are 16-40 launches each: called from
                     # Python like the kernel, and replayed from a graph as
@@ -1692,18 +1707,20 @@ def check_resblock(rng, dev):
                     library_device=cuda_graph_ms(
                         library(*case["bf16"], act), 5),
                     k7_device=cuda_graph_ms(through_k7(case, mode, act), 5),
-                    bound=roofline(io, ops, mode),
-                    launches=len(sched.per_launch), tile=sched.tile,
-                    co_chunk=sched.co_chunk, smem=sched.smem_bytes)
+                    bound=roofline(io, ops, mode), launches=calls,
+                    kernel_launches=kernels,
+                    plans=[list(sched.conv1), list(sched.conv2)])
                 del got, want
                 if mode == "bf16":
                     # every block alone, on the plain chain's state
                     state, worst = args[0], 0.0
                     for b in range(nblk):
-                        one = tuple(a[b:b + 1] for a in args[1:])
-                        w_b = plain(state, *one, act=act)
-                        worst = max(worst, RK.chain_block_ulps(
-                            fn(state, *one, act=act), w_b, state))
+                        w_b = plain(state, *RK.block_args(args[1:], b),
+                                    act=act)
+                        got_b = fn(state, *RK.block_args(packed[1:], b),
+                                   act=act)
+                        worst = max(worst,
+                                    RK.chain_block_ulps(got_b, w_b, state))
                         state = w_b
                     rec["block_ulps"] = worst
                     if not worst <= RK.CHAIN_BLOCK_ULPS:
@@ -1716,24 +1733,32 @@ def check_resblock(rng, dev):
     return out
 
 
-def resblock_kernel_entry(per_class, launches, launches_k1):
+def resblock_kernel_entry(per_class, launches, launches_k1,
+                          kernels_per_step):
     """K9's entry of the ``kernels`` line: its times are those of the three
     routed chains of one yolov3-416 forward in bf16 mode at batch STREAMS
-    (the K=1 step's), summed; ``library_ms`` is the layer-by-layer
-    ``F.conv2d`` + activation + add yardstick of the same blocks (there is no
-    single PyTorch call for a chain), ``k7_ms`` the same blocks through
-    kernel 7, ``library_device_ms`` and ``k7_device_ms`` the two yardsticks
-    as device time; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both
-    at K_FRAMES * STREAMS (the chunked step's); ``per_class`` every class."""
+    (the K=1 step's), summed: ``ms`` called from Python, ``device_ms`` as
+    device time; ``library_ms`` is the layer-by-layer ``F.conv2d`` +
+    activation + add yardstick of the same blocks (there is no single
+    PyTorch call for a chain), ``k7_ms`` the same blocks through kernel 7,
+    ``library_device_ms`` and ``k7_device_ms`` the two yardsticks as device
+    time; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both at
+    K_FRAMES * STREAMS (the chunked step's); ``per_class`` every class.
+    ``launches`` counts calls of the C entry (one per chain),
+    ``device_kernels_per_forward`` the kernels those calls launched per K=1
+    step of the chain route (one forward), as the C entry counts them
+    (``resblock_kernel.device_kernels``); ``launches_per_chain`` and
+    ``kernels_per_chain`` per class are counted around the checked call."""
     def totals(mode, n):
-        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, k7_ms=0.0,
-                   library_device_ms=0.0, k7_device_ms=0.0)
+        tot = dict(ms=0.0, device_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   k7_ms=0.0, library_device_ms=0.0, k7_device_ms=0.0)
         plain, by = 0.0, {"operations": 0.0, "bytes": 0.0}
         for (h, ci, cm, nblk, act), r in per_class.items():
             if act != "leaky":
                 continue
             rec = r[(mode, n)]
             tot["ms"] += rec["ms"]
+            tot["device_ms"] += rec["device"]
             tot["bound_ms"] += rec["bound"][0]
             tot["library_ms"] += rec["library"]
             tot["k7_ms"] += rec["k7"]
@@ -1751,14 +1776,15 @@ def resblock_kernel_entry(per_class, launches, launches_k1):
         for (mode, n), rec in r.items():
             classes.append({
                 "shape": [n, h, ci, cm, nblk, act], "mode": mode,
-                "ms": rec["ms"], "plain_ms": rec["plain"],
+                "ms": rec["ms"], "device_ms": rec["device"],
+                "plain_ms": rec["plain"],
                 "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
                 "library_ms": rec["library"], "k7_ms": rec["k7"],
                 "library_device_ms": rec["library_device"],
                 "k7_device_ms": rec["k7_device"],
                 "launches_per_chain": rec["launches"],
-                "tile": list(rec["tile"]), "co_chunk": rec["co_chunk"],
-                "smem_bytes": rec["smem"], "max_abs_err": rec["err"],
+                "kernels_per_chain": rec["kernel_launches"],
+                "plans_1x1_3x3": rec["plans"], "max_abs_err": rec["err"],
                 "out_rms": rec["rms"], "bf16_ulps": rec["ulps"],
                 "one_block_ulps": rec.get("block_ulps")})
     return {
@@ -1766,10 +1792,12 @@ def resblock_kernel_entry(per_class, launches, launches_k1):
         "source": "yolo_deepsort_tpu_torch/csrc/resblock.cu",
         "replaces": "yolo_deepsort_tpu/ops/pallas_resblock.py:80",
         "launches": launches, "launches_k1_path": launches_k1,
+        "device_kernels_per_forward": kernels_per_step["bf16"],
         "max_abs_err": max(rec["err"] for r in per_class.values()
                            for (mode, _), rec in r.items() if mode == "bf16"),
         **totals("bf16", STREAMS),
-        "int8": totals("int8", STREAMS),
+        "int8": {**totals("int8", STREAMS),
+                 "device_kernels_per_forward": kernels_per_step["int8"]},
         "at_chunk_batch": {"n": n_chunk, "bf16": totals("bf16", n_chunk),
                            "int8": totals("int8", n_chunk)},
         "per_class": classes,
@@ -1976,8 +2004,8 @@ def run_resblock_paths(dev, setup):
             scale = want.abs().amax((0, 1)).clamp(min=1.0)
             for name, route in routes.items():
                 promised[(name, n)] = sum(
-                    len(resblock_kernel.plan_chain_schedule(
-                        n, h, h, ci, cm, nblk, name == "int8").per_launch)
+                    resblock_kernel.plan_chain_schedule(
+                        n, h, h, ci, cm, nblk, name == "int8") is not None
                     for h, ci, cm, nblk, _ in RESBLOCK_CLASSES)
                 impl = _make_block_impl(plan, route["use_resblock"],
                                         route.get("backbone_int8_pkg"))
@@ -2001,6 +2029,9 @@ def run_resblock_paths(dev, setup):
         raise AssertionError(f"planner promises {promised} launches per "
                              "forward, expected one per chain")
     n_chains = len(RESBLOCK_CLASSES)
+    # the kernels behind those calls: two per block of the model's chains,
+    # held against what the C entry reports it launched
+    n_kernels = 2 * sum(c[3] for c in RESBLOCK_CLASSES)
 
     counters = {"letterbox": letterbox_kernel, "crops": crops_kernel,
                 "tracker": tracker_kernel, "resblock": resblock_kernel}
@@ -2008,9 +2039,11 @@ def run_resblock_paths(dev, setup):
     def reset_counters():
         for m in counters.values():
             m.launches = 0
+        resblock_kernel.device_kernels = 0
 
     def counts():
-        return {name: m.launches for name, m in counters.items()}
+        return {**{name: m.launches for name, m in counters.items()},
+                "resblock_kernels": resblock_kernel.device_kernels}
 
     # chunked path
     kw = dict(buckets=(16, 24, 32, 36, 40, 48),
@@ -2051,7 +2084,8 @@ def run_resblock_paths(dev, setup):
     for name in routes:
         want_counts = {"letterbox": RESBLOCK_CHUNKS, "crops": RESBLOCK_CHUNKS,
                        "tracker": K_FRAMES * RESBLOCK_CHUNKS,
-                       "resblock": n_chains * RESBLOCK_CHUNKS}
+                       "resblock": n_chains * RESBLOCK_CHUNKS,
+                       "resblock_kernels": n_kernels * RESBLOCK_CHUNKS}
         if chunk_counts[name] != want_counts:
             raise AssertionError(f"chain route ({name}), chunked: launches "
                                  f"over {RESBLOCK_CHUNKS} chunks "
@@ -2090,7 +2124,8 @@ def run_resblock_paths(dev, setup):
     print(f"chain route, chunked (yolov3-416 bf16, {STREAMS} x {FRAME_H}p, "
           f"K={K_FRAMES}, {K_FRAMES * STREAMS} frames per forward): launches "
           f"per chunk K9 {n_chains} (the planner's promise: one per chain, "
-          f"chains at 52x52, 26x26, 13x13), K1 1, K2 1, K3 {K_FRAMES}; 1 "
+          f"chains at 52x52, 26x26, 13x13; {n_kernels} kernels behind "
+          f"them, two per block), K1 1, K2 1, K3 {K_FRAMES}; 1 "
           f"readback per chunk and no other sync; decoded output against "
           f"the unrouted detector at {STREAMS} / {K_FRAMES * STREAMS} "
           f"frames, max |err| over the column's scale (each <= "
@@ -2135,7 +2170,9 @@ def run_resblock_paths(dev, setup):
                        "crops": RESBLOCK_K1_STEPS,
                        "tracker": RESBLOCK_K1_STEPS,
                        "resblock": (0 if name == "off" else
-                                    n_chains * RESBLOCK_K1_STEPS)}
+                                    n_chains * RESBLOCK_K1_STEPS),
+                       "resblock_kernels": (0 if name == "off" else
+                                            n_kernels * RESBLOCK_K1_STEPS)}
         if k1_counts[name] != want_counts:
             raise AssertionError(f"chain route ({name}), K=1: launches over "
                                  f"{RESBLOCK_K1_STEPS} steps "
@@ -2161,7 +2198,8 @@ def run_resblock_paths(dev, setup):
 
     print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
           f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
-          f"step K9 {n_chains}, K1 1, K2 1, K3 1; 1 readback per step and "
+          f"step K9 {n_chains} ({n_kernels} kernels), K1 1, K2 1, K3 1; 1 "
+          f"readback per step and "
           f"no other sync; p50 / p99 ms per step: off {pct(ms['off'], 50):.4f}"
           f" / {pct(ms['off'], 99):.4f}, bf16 chains "
           f"{pct(ms['bf16'], 50):.4f} / {pct(ms['bf16'], 99):.4f}, int8 "
@@ -2174,7 +2212,10 @@ def run_resblock_paths(dev, setup):
     return {"resblock": chunk_counts["bf16"]["resblock"]
             + chunk_counts["int8"]["resblock"],
             "resblock_k1": k1_counts["bf16"]["resblock"]
-            + k1_counts["int8"]["resblock"]}
+            + k1_counts["int8"]["resblock"],
+            "resblock_kernels_per_step": {
+                name: k1_counts[name]["resblock_kernels"] // RESBLOCK_K1_STEPS
+                for name in routes}}
 
 
 def run_probe_path(dev):
@@ -2197,7 +2238,8 @@ def run_probe_path(dev):
 
 def probe_kernel_entry(rec, launches, io, ops):
     """K10's entry of the ``kernels`` line: the bf16 product's numbers, the
-    int8 product's under ``int8``."""
+    int8 product's under ``int8``; ``ms`` called from Python, ``device_ms``
+    replayed from a CUDA graph (the library's likewise)."""
     b_bf16 = roofline(io["bf16"], ops, "bf16")
     b_int8 = roofline(io["int8"], ops, "int8")
     return {
@@ -2207,14 +2249,19 @@ def probe_kernel_entry(rec, launches, io, ops):
         "launches": launches,
         "max_abs_err": rec["kernel_bf16_max_abs_err"],
         "ms": rec["kernel_bf16_ms"], "plain_ms": rec["plain_bf16_ms"],
+        "device_ms": rec["kernel_bf16_device_ms"],
         "bound_ms": b_bf16[0], "bound_by": b_bf16[1],
         "library_ms": rec["library_bf16_ms"],
-        "bf16_ulps": rec["kernel_bf16_ulps"],
+        "library_device_ms": rec["library_bf16_device_ms"],
+        "bf16_ulps": rec["kernel_bf16_ulps"], "plan": rec["plan_bf16"],
         "int8": {"ms": rec["kernel_int8_ms"],
+                 "device_ms": rec["kernel_int8_device_ms"],
                  "plain_ms": rec["plain_int8_ms"], "bound_ms": b_int8[0],
                  "bound_by": b_int8[1],
                  "library_ms": rec["library_int8_ms"],
-                 "max_abs_err": rec["kernel_int8_max_abs_err"]},
+                 "library_device_ms": rec["library_int8_device_ms"],
+                 "max_abs_err": rec["kernel_int8_max_abs_err"],
+                 "plan": rec["plan_int8"]},
         "shape": [rec["m"], rec["k"], rec["n"]],
     }
 
@@ -2902,6 +2949,7 @@ def profile_resblock(dev, repeats: int = 5):
         for n, batch in ((STREAMS, frames[0]), (k * s, flat)):
             xs = letterbox_batch_fused(batch, det_cfg.img_size,
                                        torch.bfloat16)
+            n_ops = {}
             for name, route in routes.items():
                 impl = _make_block_impl(plan, route.get("use_resblock"),
                                         route.get("backbone_int8_pkg"))
@@ -2910,15 +2958,18 @@ def profile_resblock(dev, repeats: int = 5):
                 _, host_ms = _timed(run, repeats)
                 per_kernel = _device_kernels(run)
                 dev_ms = sum(us for _, us in per_kernel.values()) / 1e3
+                # the routed backbone runs no kernel 7: every launch of the
+                # conv kernels' main loop there is one of kernel 9's
                 k9_ms = sum(us for op, (_, us) in per_kernel.items()
-                            if "chain_kernel" in op) / 1e3
+                            if "conv_ring_kernel" in op) / 1e3
                 k9_n = sum(c for op, (c, _) in per_kernel.items()
-                           if "chain_kernel" in op)
+                           if "conv_ring_kernel" in op)
+                n_ops[name] = sum(c for c, _ in per_kernel.values())
                 print(f"profile: backbone + decode, {n} frames, chain route "
                       f"{name}: {host_ms:.4f} ms by host clock, device time "
-                      f"{dev_ms:.4f} ms over "
-                      f"{sum(c for c, _ in per_kernel.values())} device "
-                      f"ops; kernel 9 {k9_ms:.4f} ms in {k9_n} launches, "
+                      f"{dev_ms:.4f} ms over {n_ops[name]} device ops "
+                      f"(unrouted: {n_ops['off']}); kernel 9 {k9_ms:.4f} ms "
+                      f"in {k9_n} kernels, "
                       f"share of the backbone's device time "
                       f"{k9_ms / dev_ms:.4f}", flush=True)
                 top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
@@ -3122,10 +3173,11 @@ def main() -> int:
                        else "")
                     + f", plain {rec['plain']:.4f} ms; ")
             print(f"kernel resblock {mode} N={n} {h}x{h} {ci}/{cm} x{nblk} "
-                  f"{act}: {held}kernel {rec['ms']:.4f} ms in "
-                  f"{rec['launches']} launch (strips of {rec['tile'][0]} "
-                  f"rows, {rec['co_chunk']} output columns per item, "
-                  f"{rec['smem']} bytes of shared memory), bound "
+                  f"{act}: {held}kernel {rec['ms']:.4f} ms called, "
+                  f"{rec['device']:.4f} ms of device time, in "
+                  f"{rec['launches']} call of {rec['kernel_launches']} "
+                  f"kernels (plans (BM, BN, stages, split) 1x1 "
+                  f"{rec['plans'][0]}, 3x3 {rec['plans'][1]}), bound "
                   f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); layer by "
                   f"layer: library conv2d+act+add {rec['library']:.4f} ms "
                   f"({rec['library_device']:.4f} of device time), kernel 7 + "
@@ -3206,8 +3258,9 @@ def main() -> int:
     kernels.append(conv_int8_kernel_entry(
         conv8, int8_launches["conv_int8"], int8_launches["conv_int8_k1"],
         chunk_crops, conv8_chunk))
-    kernels.append(resblock_kernel_entry(chains, chain_launches["resblock"],
-                                         chain_launches["resblock_k1"]))
+    kernels.append(resblock_kernel_entry(
+        chains, chain_launches["resblock"], chain_launches["resblock_k1"],
+        chain_launches["resblock_kernels_per_step"]))
     kernels.append(probe_kernel_entry(probe_rec, probe_launches, probe_io,
                                       probe_ops))
     for entry in kernels:

@@ -514,11 +514,11 @@ def test_resblock_chain_kernel_vs_plain(cuda_device, shape, mode):
     n, h, ci, cm, nblk, act = shape
     bf16, int8 = _chain_case(h + ci + nblk, n, h, ci, cm, nblk, cuda_device,
                              act)
-    if n == 32:
-        sched = resblock_kernel.plan_chain_schedule(n, h, h, ci, cm, nblk,
-                                                    mode == "int8")
-        assert sched.co_chunk > 128, "several column tiles per work item"
+    sched = resblock_kernel.plan_chain_schedule(n, h, h, ci, cm, nblk,
+                                                mode == "int8")
+    assert sched.kernel_launches == 2 * nblk, "two kernels per block"
     before = resblock_kernel.launches
+    before_kernels = resblock_kernel.device_kernels
     if mode == "bf16":
         got = resblock_kernel.resblock_chain_bf16(*bf16, act=act)
         want = resblock_kernel.resblock_chain_plain_bf16(*bf16, act=act)
@@ -527,6 +527,7 @@ def test_resblock_chain_kernel_vs_plain(cuda_device, shape, mode):
         want = resblock_kernel.resblock_chain_plain_int8(*int8, act=act)
     torch.cuda.synchronize()
     assert resblock_kernel.launches == before + 1, "one launch per chain"
+    assert resblock_kernel.device_kernels == before_kernels + 2 * nblk
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert bool(want.float().abs().max() > 0)
     if mode == "int8" and act == "leaky":
@@ -556,6 +557,54 @@ def test_resblock_one_block_within_four_ulps_of_its_operands(cuda_device, n,
             resblock_kernel.CHAIN_BLOCK_ULPS, b
         assert resblock_kernel.chain_outside_tol(got, want) == 0, b
         state = want
+
+
+@pytest.mark.parametrize("nblk", [2, 3])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_resblock_chain_of_even_and_odd_length(cuda_device, nblk, mode):
+    """The chain state goes through two buffers in turn (the output and one
+    scratch buffer, the last block writing the output), whatever the
+    chain's parity: the kernel with packed weights equals its plain version
+    (int8 exactly, bf16 inside CHAIN_TOL), the raw weights give the same
+    bits as the packed ones, and the input is left as it was."""
+    bf16, int8 = _chain_case(40 + nblk, 2, 26, 256, 128, nblk, cuda_device)
+    args = bf16 if mode == "bf16" else int8
+    fn = (resblock_kernel.resblock_chain_bf16 if mode == "bf16"
+          else resblock_kernel.resblock_chain_int8)
+    plain = (resblock_kernel.resblock_chain_plain_bf16 if mode == "bf16"
+             else resblock_kernel.resblock_chain_plain_int8)
+    x0 = args[0].clone()
+    got = fn(*resblock_kernel.pack_chain_args(args))
+    raw = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(args[0], x0), "the chain's input is not written"
+    assert torch.equal(got, raw)
+    if mode == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert resblock_kernel.chain_outside_tol(got, want) == 0
+    # every block, one at a time, is the chain's own first block
+    state = args[0]
+    for b in range(nblk):
+        one = tuple(a[b:b + 1] for a in args[1:])
+        state = fn(state, *one)
+    torch.cuda.synchronize()
+    assert torch.equal(state, got), "a chain is its blocks one by one"
+
+
+def test_resblock_int8_refuses_xinv_on_the_card(cuda_device):
+    """``xinv`` is handed to the kernels by value: a CUDA tensor would have
+    to be read back (a synchronizing copy), so the kernel path refuses it
+    and says why."""
+    _, int8 = _chain_case(7, 2, 13, 128, 128, 2, cuda_device)
+    *args, xinv = int8
+    before = resblock_kernel.launches
+    with pytest.raises(ValueError, match="host memory"):
+        resblock_kernel.resblock_chain_int8(*args, xinv.to(cuda_device))
+    assert resblock_kernel.launches == before
+    resblock_kernel.resblock_chain_int8(*args, xinv.numpy())
+    assert resblock_kernel.launches == before + 1
 
 
 def test_resblock_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -643,6 +692,31 @@ def test_matmul_probe_floor_division_of_negative_sums(cuda_device):
     got = int8_probe.matmul_probe(x, w)
     assert got[:, 0].tolist() == [-1, -1, 0]
     assert torch.equal(got, int8_probe.matmul_probe_plain(x, w))
+
+
+@pytest.mark.parametrize("tile", list(int8_probe.PROBE_TILES))
+def test_matmul_probe_every_tile_vs_plain(cuda_device, tile):
+    """Every tile kernel 10 instantiates, as the plan sweep forces it, with
+    a split of the depth where the steps allow: int8 exactly equal, bf16
+    within 1 bf16 ulp."""
+    m, k, n = 4100, 512, 256
+    xb, wb, xi, wi = int8_probe.probe_operands(m, k, n, cuda_device)
+    for x, w, es in ((xb, wb, 2), (xi, wi, 1)):
+        wp = int8_probe.pack_probe_weight(w)
+        steps = conv_plan.depth_steps(k, es)
+        for split in (1, 2):
+            plan = conv_plan.ConvPlan(*tile, min(3, steps // split), split)
+            got = int8_probe.matmul_probe_cuda(x, wp, plan=plan)
+            want = int8_probe.matmul_probe_plain(x, w)
+            torch.cuda.synchronize()
+            if es == 1:
+                assert torch.equal(got, want), plan
+            else:
+                assert int8_probe.bf16_ulps(got, want) <= 1, plan
+    with pytest.raises(ValueError, match="not one of"):
+        int8_probe.matmul_probe_cuda(
+            xb, int8_probe.pack_probe_weight(wb),
+            plan=conv_plan.ConvPlan(128, 256, 3, 1))
 
 
 # ---- the shared wgmma ring of kernels 7 and 8 (csrc/conv_mainloop.cuh) ----

@@ -92,3 +92,43 @@ def test_probe_refuses_and_needs_the_card():
             P.run_probe(64, 32, 128)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             P.run_probe(64, 32, 128, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_probe_packed_weight_gives_the_same_plain_product(dtype):
+    """The tool packs its fixed (K, N) weight once to the K-major (N, ldw)
+    rows the kernel reads (``pack_probe_weight``: ``pack_conv_weights`` of
+    the (1, 1, K, N) view); the plain product from the packed form is the
+    raw form's, bit for bit."""
+    xb, wb, xi, wi = _operands()
+    x, w = (xb, wb) if dtype == "bf16" else (xi, wi)
+    p = P.pack_probe_weight(w)
+    assert (p.k, p.ci, p.co) == (1, K, N)
+    assert p.data.shape == (N, K) and p.data.dtype == w.dtype
+    assert torch.equal(p.data, w.t())
+    before = P.launches
+    assert torch.equal(P.matmul_probe(x, p), P.matmul_probe(x, w))
+    assert P.launches == before
+    with pytest.raises(ValueError, match=r"\(K, N\) weights"):
+        P.pack_probe_weight(w[None])
+
+
+def test_probe_plan_takes_the_tiles_the_kernel_instantiates():
+    """Kernel 10 takes the conv planner's plan for a 1x1 conv of M pixels,
+    N output channels and depth K (no plan table of its own): at every
+    shape a tile among the three ``csrc/matmul_probe.cu`` instantiates. The
+    plan sweep times it at the probe's default shape."""
+    from yolo_deepsort_tpu_torch.ops import conv_plan as CP
+    from yolo_deepsort_tpu_torch.tools import conv_plan_sweep as S
+
+    assert S.PROBE_CLASSES == ((32768, 256, 256),)
+    for es, depth_steps in ((2, 4), (1, 2)):
+        plan = CP.plan_conv_tiles(32768, 256, 256, es)
+        assert (plan.bm, plan.bn) in P.PROBE_TILES
+        assert CP.check_plan(plan, 256, es) == plan
+        assert CP.depth_steps(256, es) == depth_steps
+    for m, k, n in ((32768, 256, 256), (1000, 64, 128), (3, 32, 128),
+                    (512, 256, 256), (100000, 512, 1024)):
+        for es in (1, 2):
+            plan = CP.plan_conv_tiles(m, n, k, es)
+            assert (plan.bm, plan.bn) in P.PROBE_TILES, (m, k, n, es, plan)

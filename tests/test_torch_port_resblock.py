@@ -47,7 +47,10 @@ from yolo_deepsort_tpu.parallel import streams as JS
 from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
 from yolo_deepsort_tpu_torch.models.darknet import Darknet, build_network
 from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+from yolo_deepsort_tpu_torch.ops import conv_kernel as CV
+from yolo_deepsort_tpu_torch.ops import conv_plan as CP
 from yolo_deepsort_tpu_torch.ops import resblock_kernel as TR
+from yolo_deepsort_tpu_torch.ops.conv_plan_table import TUNED_132_SMS
 from yolo_deepsort_tpu_torch.parallel import streams as TS
 from yolo_deepsort_tpu_torch.weights import darknet_from_raw, reid_from_params
 
@@ -135,6 +138,126 @@ def test_chain_plain_int8_matches_jax_kernel(nblk, act):
     assert float((got == twin).mean()) > 0.99
 
 
+def _int8_chain_args(nblk):
+    """The W8A8 operands of ``test_chain_plain_int8_matches_jax_kernel``."""
+    rng = np.random.default_rng(11 + nblk)
+    n, h, w, ci, cm = 2, 13, 13, 256, 128
+    x, w1, b1, w2, b2 = _chain_case(rng, n, h, w, ci, cm, nblk)
+    abses = _calib_absmax(x, w1, b1, w2, b2, "leaky")
+    q1 = [_quant_layer(rng, w1[b], abses[b][0]) for b in range(nblk)]
+    q2 = [_quant_layer(rng, w2[b], abses[b][1]) for b in range(nblk)]
+    w1q = np.stack([q[0].reshape(ci, cm) for q in q1])
+    w2q = np.stack([q[0] for q in q2])
+    s1 = np.stack([q[2] * q[1] for q in q1]).astype(np.float32)
+    s2 = np.stack([q[2] * q[1] for q in q2]).astype(np.float32)
+    xinv = np.stack([[np.float32(1.0 / a[2]), np.float32(1.0 / b[2])]
+                     for a, b in zip(q1, q2)]).astype(np.float32)
+    return x, w1q, b1, w2q, b2, s1, s2, xinv
+
+
+def _codes_at_the_store(x, w1q, b1, w2q, b2, s1, s2, xinv, act):
+    """The kernel's int8 block as it runs: the 1x1 conv's epilogue rounds
+    act(f32(acc) * s1 + b1) to bf16 and STORES the codes clip(rint(m *
+    xinv2), -127, 127); the 3x3 conv reads those codes as they are (no
+    quantize on its way in), then act(f32(acc) * s2 + b2) to bf16 and the
+    shortcut add in bf16."""
+    out = x.to(torch.bfloat16)
+    for b in range(w1q.shape[0]):
+        acc1 = CV.conv_plain_int8(out, w1q[b][None, None], b1[b], s1[b],
+                                  float(xinv[b, 0]), pad=0, return_acc=True)
+        m = CV.apply_act(acc1.float() * s1[b] + b1[b], act).to(
+            torch.bfloat16)
+        codes = torch.round(m.float() * float(np.float32(xinv[b, 1]))).clamp(
+            -127, 127).to(torch.int8)
+        acc2 = CV._conv_nhwc(codes.double(), w2q[b].double(), 1, 1).to(
+            torch.int32)
+        y = CV.apply_act(acc2.float() * s2[b] + b2[b], act).to(
+            torch.bfloat16)
+        out = y + out
+    return out.contiguous()
+
+
+@pytest.mark.parametrize("nblk,act", [(1, "leaky"), (2, "leaky"),
+                                      (2, "mish")])
+def test_codes_written_at_the_1x1_store_equal_the_plain_int8_chain(nblk,
+                                                                   act):
+    """Writing ``mid`` as int8 codes in the 1x1 conv's epilogue (the
+    kernel's design) gives the plain version's bits exactly -- mish too,
+    since both sides here run the same math library -- and, against the JAX
+    kernel (stores rounded as on the device), the tolerance of
+    ``test_chain_plain_int8_matches_jax_kernel``."""
+    x, w1q, b1, w2q, b2, s1, s2, xinv = _int8_chain_args(nblk)
+    args = (_t(np.asarray(x, np.float32), torch.bfloat16), _t(w1q), _t(b1),
+            _t(w2q), _t(b2), _t(s1), _t(s2))
+    got = _codes_at_the_store(*args, xinv, act)
+    plain = TR.resblock_chain_plain_int8(*args, xinv, act=act)
+    assert torch.equal(got, plain)
+    jargs = (x, jnp.asarray(w1q), jnp.asarray(b1), jnp.asarray(w2q),
+             jnp.asarray(b2), jnp.asarray(s1), jnp.asarray(s2),
+             jnp.asarray(xinv))
+    want = np.asarray(JR.resblock_chain_int8.lower(
+        *jargs, act=act, interpret=True).compile(
+            compiler_options={"xla_allow_excess_precision": False})(*jargs),
+        np.float32)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+    share = float((got == want).mean())
+    assert share == 1.0 if act == "leaky" else share > 0.99
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_packed_chain_weights_give_the_same_plain_chain(mode):
+    """``pack_chain_weights``: each block's two convs as K-major rows
+    (``pack_conv_weights`` per block, stacked in one ``PackedWeights``);
+    unpacking gives the stacked weights back, the plain versions give the
+    same bits from either form, and so does every block cut out of either
+    form (``block_args``)."""
+    case = TR.seeded_chain_case(np.random.default_rng(3), "cpu", 2, 8, 128,
+                                128, 3)
+    args = case[mode]
+    packed = TR.pack_chain_args(args)
+    for raw, p, k in ((args[1], packed[1], 1), (args[3], packed[3], 3)):
+        assert isinstance(p, CP.PackedWeights) and p.k == k
+        assert p.data.shape[:2] == (3, p.co) and p.data.is_contiguous()
+        assert torch.equal(TR.unpack_chain_weights(p), raw)
+        assert torch.equal(p.data[1], CP.pack_conv_weights(
+            raw[1][None, None] if k == 1 else raw[1]).data)
+        assert TR.pack_chain_weights(p) is p
+    plain = (TR.resblock_chain_plain_bf16 if mode == "bf16"
+             else TR.resblock_chain_plain_int8)
+    assert torch.equal(plain(*packed), plain(*args))
+    state = args[0]
+    for b in range(3):
+        one_packed = TR.block_args(packed[1:], b)
+        assert one_packed[0].data.shape[0] == 1
+        want = plain(state, *TR.block_args(args[1:], b))
+        assert torch.equal(plain(state, *one_packed), want)
+        state = want
+    assert torch.equal(state, plain(*args)), "a chain is its blocks"
+    if mode == "int8":
+        assert args[-1].device.type == "cpu", "xinv stays in host memory"
+
+
+def test_int8_kernel_path_refuses_xinv_off_the_host(monkeypatch):
+    """The kernels take ``xinv`` by value: the kernel path wants the table
+    in host memory and refuses one on a device (here the meta device, past
+    the device checks and the build; on the card a CUDA tensor,
+    ``tests/test_torch_port_gpu.py``) before it launches anything."""
+    from yolo_deepsort_tpu_torch.kernels import build
+
+    case = TR.seeded_chain_case(np.random.default_rng(4), "cpu", 1, 4, 128,
+                                128, 2)
+    *args, xinv = case["int8"]
+    monkeypatch.setattr(build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(build, "load", lambda: None)
+    before = TR.launches
+    with pytest.raises(ValueError, match="host memory"):
+        TR.resblock_chain_cuda(*args, xinv.to("meta"))
+    assert TR.launches == before
+    assert TR._host_xinv(xinv).dtype == np.float32
+    np.testing.assert_array_equal(TR._host_xinv(case["xinv"]), case["xinv"])
+
+
 def _with_net(defs):
     """Module definitions (no [net] section) -> both packages' plans."""
     net = {"type": "net", "width": "64", "height": "64", "channels": "3"}
@@ -205,28 +328,76 @@ def test_find_residual_spans_does_not_merge_spans_of_different_cm():
                                           (13, 1024, 512, 4)])
 def test_plan_chain_schedule_fits_shared_memory(n, int8_mode, h, ci, cm,
                                                 nblk):
-    """The three chain classes of yolov3-416: a schedule within the 227 KB
-    of shared memory a thread block can use, every block in one launch."""
+    """The three chain classes of yolov3-416: each block is two launches of
+    the conv kernels' main loop, each layer under the conv planner's plan
+    for its shape (1x1: m pixels, Cm columns, depth Ci, quantizing in int8
+    mode; 3x3: Ci columns, depth 9 Cm), within the 227 KB of shared memory
+    a thread block can use. At batch 8 the bf16 layers and the int8 1x1
+    conv are classes the planner's table holds (kernel 7's timed shapes)."""
     sched = TR.plan_chain_schedule(n, h, h, ci, cm, nblk, int8_mode)
     assert sched is not None
-    th, w = sched.tile
-    assert 1 <= th <= h and w == h
-    assert sched.smem_bytes <= 227 * 1024 == TR.SMEM_PER_BLOCK
-    assert sum(sched.per_launch) == nblk and len(sched.per_launch) == 1
-    assert ci % sched.co_chunk == 0 and sched.co_chunk % 128 == 0
-    # enough work items to give every SM one, or no column split
-    items = n * -(-h // th) * (ci // sched.co_chunk)
-    assert items >= 100 or sched.co_chunk == 128
+    assert sched.kernel_launches == 2 * nblk
+    m, es = n * h * h, 1 if int8_mode else 2
+    assert sched.conv1 == CP.plan_conv_tiles(m, cm, ci, es,
+                                             quantizing=int8_mode)
+    assert sched.conv2 == CP.plan_conv_tiles(m, ci, 9 * cm, es)
+    for plan, depth in ((sched.conv1, ci), (sched.conv2, 9 * cm)):
+        assert CP.check_plan(plan, depth, es) == plan
+        assert CP.plan_smem_bytes(plan.bm, plan.bn, plan.stages) <= \
+            227 * 1024 == TR.SMEM_PER_BLOCK
+    if n == 8:
+        assert (m, cm, ci, es, int8_mode) in TUNED_132_SMS
+        if not int8_mode:
+            assert (m, ci, 9 * cm, es, False) in TUNED_132_SMS
 
 
 def test_plan_chain_schedule_refuses():
-    # absurd geometry: no strip fits -> None (the chain runs layer by layer)
-    assert TR.plan_chain_schedule(1, 512, 512, 2048, 1024, 1, False) is None
-    # channels that do not fill the kernel's 128-wide tiles
+    # a state past the main loop's 32-bit offsets -> None (the chain runs
+    # layer by layer)
+    assert TR.plan_chain_schedule(64, 512, 512, 2048, 1024, 1, False) is None
+    assert TR.plan_chain_schedule(1, 512, 512, 2048, 1024, 1, False) \
+        is not None
+    # channels that do not fill the 128-wide tiles the route asks for
     assert TR.plan_chain_schedule(8, 13, 13, 192, 128, 2, False) is None
-    # a budget below one row's strip
+    assert TR.plan_chain_schedule(8, 52, 52, 128, 64, 2, True) is None
+    # a budget below a two-stage ring of the planned tiles
     assert TR.plan_chain_schedule(8, 52, 52, 256, 128, 8, False,
                                   budget=48 * 1024) is None
+    # a budget that holds a shallower ring: the ring is cut to it
+    small = TR.plan_chain_schedule(8, 52, 52, 256, 128, 8, False,
+                                   budget=160 * 1024)
+    full = TR.plan_chain_schedule(8, 52, 52, 256, 128, 8, False)
+    for got, want in zip(small[:2], full[:2]):
+        assert got._replace(stages=want.stages) == want
+        assert 2 <= got.stages <= want.stages
+        assert CP.plan_smem_bytes(got.bm, got.bn, got.stages) <= 160 * 1024
+    # an empty chain or map
+    assert TR.plan_chain_schedule(8, 13, 13, 256, 128, 0, False) is None
+    assert TR.plan_chain_schedule(0, 13, 13, 256, 128, 2, False) is None
+
+
+def test_plan_chain_schedule_declines_what_the_route_declined():
+    """Over the chains the served models give the route (maps up to 64 at
+    inputs 128-640, batch 1-64, both modes): the schedule is None exactly
+    where Ci or Cm is not a multiple of 128 -- the inputs the route declined
+    before the chain ran on the conv kernels' main loop (the shared-memory
+    budget of a strip never refused a map of 64 or less)."""
+    classes = ((8, 256, 128), (16, 512, 256), (32, 1024, 512),
+               (8, 128, 128), (16, 256, 256), (32, 512, 512), (8, 128, 64))
+    seen = 0
+    for n in (1, 2, 3, 8, 16, 32, 64):
+        for img in range(128, 641, 32):
+            for div, ci, cm in classes:
+                h = img // div
+                if h > 64:
+                    continue
+                for int8_mode in (False, True):
+                    sched = TR.plan_chain_schedule(n, h, h, ci, cm, 8,
+                                                   int8_mode)
+                    assert (sched is None) == bool(ci % 128 or cm % 128), (
+                        n, h, ci, cm, int8_mode)
+                    seen += 1
+    assert seen > 1000
 
 
 def _toy_detector(plan_params):

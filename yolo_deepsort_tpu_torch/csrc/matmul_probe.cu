@@ -1,5 +1,5 @@
-// Kernel 10: the tiled matrix product of the int8 capability probe,
-// (M, K) x (K, N) on the tensor cores:
+// Kernel 10: the matrix product of the int8 capability probe, (M, K) x
+// (K, N) on the tensor cores:
 //
 //   bf16: bf16 x bf16 -> f32 sums -> bf16
 //   int8: int8 x int8 -> int32 sums -> clip(floor(acc / (8 K)), -127, 127)
@@ -7,225 +7,187 @@
 //         Python's and jnp's `//` on negative sums, not C's truncation)
 //
 // Replaces the TPU kernel tools/int8_probe.py pl_kernel, whose grid walks
-// 512-row tiles of M with K and N whole in VMEM. Here a block owns a
-// 128 x 128 output tile and walks K in steps of 32: the A and B tiles go
-// through registers into one shared-memory buffer (two barriers per step)
-// while the tensor cores work on the previous step, eight warps of 32 rows x
-// 64 columns keep their accumulators in registers. At the probe's shape,
-// (32768, 256) x (256, 256), the product does 128 operations per byte moved:
-// bound by bytes on the H100 in both modes (the bf16 ridge is at 295). It
-// is a probe of the tensor cores through wmma, the route the port's conv
-// kernels take; it is not a tuned GEMM.
+// 512-row tiles of M with K and N whole in VMEM. Here the product is a 1x1
+// conv of the main loop the conv kernels share (conv_mainloop.cuh): rows M
+// (as M images of one pixel), depth K, columns N, the weights packed once to
+// K-major (N, ldw) rows by the caller (integer wgmma reads both operands
+// K-major only; the TPU kernel, too, holds its w resident across the
+// probe's calls). A producer warpgroup streams the A and B tiles into a
+// ring of shared-memory stages with cp.async, consumer warpgroups run wgmma
+// (m64nNk16 bf16 or m64nNk32 s8) on the stages that have landed, and the
+// tile plan (BM x BN, stages, split) comes from Python
+// (ops/conv_plan.py plan_conv_tiles). This file adds only the epilogue: a
+// thread keeps 8 (bf16) or 16 (int8) consecutive columns of a row and
+// stores them as one 16-byte vector.
+//
+// At the probe's shape, (32768, 256) x (256, 256), the product does 128
+// operations per byte moved: bound by bytes on the H100 in both types (the
+// bf16 ridge is at 295).
+//
+// The build compiles this file once per tile height (CONV_RING_BM = 64 and
+// 128). The planner's rule, which decides every shape of the probe (none is
+// in its table), gives 64 x 64, 64 x 128 or 128 x 128 tiles, never
+// 128 x 256: only those three are instantiated, each in both types. The C
+// entry is compiled with the 64-row half.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "conv_mainloop.cuh"
 
-namespace {
+namespace probe {
 
-constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-constexpr int KP = BK / 16, NP = BN / 16;
+template <typename A>
+struct ProbeEpilogue;
 
-template <typename T>
-struct Elem;
 template <>
-struct Elem<__nv_bfloat16> {
-    static constexpr int LDP = 24;  // panel row pitch in elements (48 bytes)
+struct ProbeEpilogue<float> {  // bf16 out
     using Acc = float;
+    static constexpr int NV = 8;
+    __nv_bfloat16* out;
+    int n;
+
+    struct Cols {};
+    struct Pre {};
+    __device__ __forceinline__ Cols load_cols(int) const { return Cols{}; }
+    __device__ __forceinline__ Pre prefetch(int, int) const { return Pre{}; }
+
+    __device__ __forceinline__ void store(int m, int col, const float (&v)[8],
+                                          const Cols&, const Pre&) const {
+        unsigned int h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(v[e]));
+        *reinterpret_cast<uint4*>(out + (long long)m * n + col) = make_uint4(
+            h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+            h[6] | (h[7] << 16));
+    }
 };
+
 template <>
-struct Elem<signed char> {
-    static constexpr int LDP = 32;  // 32 bytes
+struct ProbeEpilogue<int> {  // int8 out
     using Acc = int;
+    static constexpr int NV = 16;
+    signed char* out;
+    int n;
+    conv_ring::FastDiv by_div;  // by 8 K, a multiply and a shift
+
+    struct Cols {};
+    struct Pre {};
+    __device__ __forceinline__ Cols load_cols(int) const { return Cols{}; }
+    __device__ __forceinline__ Pre prefetch(int, int) const { return Pre{}; }
+
+    __device__ __forceinline__ void store(int m, int col, const int (&v)[16],
+                                          const Cols&, const Pre&) const {
+        unsigned int q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+            // floor(a / d) = -ceil(-a / d) = -((d - 1 - a) / d) for a < 0;
+            // both dividends lie in [0, 2^31) (checked at the entry)
+            const int a = v[e];
+            int f = a >= 0 ? by_div.div(a)
+                           : -by_div.div((int)by_div.d - 1 - a);
+            f = f < -127 ? -127 : (f > 127 ? 127 : f);
+            q[e >> 2] |= (unsigned int)(unsigned char)(signed char)f
+                         << (8 * (e & 3));
+        }
+        *reinterpret_cast<uint4*>(out + (long long)m * n + col) =
+            make_uint4(q[0], q[1], q[2], q[3]);
+    }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              T* __restrict__ out, int m_total, int k_total, int n_total) {
-    using Acc = typename Elem<T>::Acc;
-    constexpr int LDP = Elem<T>::LDP;
-    constexpr bool INT8 = sizeof(T) == 1;
-    constexpr int VE = 16 / (int)sizeof(T);  // elements per 16-byte vector
-    constexpr int B_GPR = BN / VE;
-    constexpr int B_IT = BK * B_GPR / THREADS;
+// One per type and tile height, defined below for CONV_RING_BM.
+template <int BM, typename A>
+cudaError_t run(const void* x, const void* w, const conv_ring::Geom& g,
+                int bn, const ProbeEpilogue<A>& epi, cudaStream_t stream);
+template <>
+cudaError_t run<64, float>(const void*, const void*, const conv_ring::Geom&,
+                           int, const ProbeEpilogue<float>&, cudaStream_t);
+template <>
+cudaError_t run<64, int>(const void*, const void*, const conv_ring::Geom&,
+                         int, const ProbeEpilogue<int>&, cudaStream_t);
+template <>
+cudaError_t run<128, float>(const void*, const void*, const conv_ring::Geom&,
+                            int, const ProbeEpilogue<float>&, cudaStream_t);
+template <>
+cudaError_t run<128, int>(const void*, const void*, const conv_ring::Geom&,
+                          int, const ProbeEpilogue<int>&, cudaStream_t);
 
-    __shared__ __align__(128) unsigned char a_raw[KP * BM * LDP * sizeof(T)];
-    __shared__ __align__(128) unsigned char b_raw[NP * BK * LDP * sizeof(T)];
-    __shared__ __align__(128) Acc c_s[8 * 256];
-    T* a_s = reinterpret_cast<T*>(a_raw);
-    T* b_s = reinterpret_cast<T*>(b_raw);
-
-    const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-    const int wm = warp & 3, wn = warp >> 2;
-    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-    const int iters = k_total / BK;
-
-    // a thread gathers 8 depth elements of two rows per step
-    const int a_grp = t & 3;
-    bool a_ok[2];
-    const T* a_ptr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int m = m0 + (t >> 2) + i * 64;
-        a_ok[i] = m < m_total;
-        a_ptr[i] = x + (long long)(a_ok[i] ? m : 0) * k_total + a_grp * 8;
-    }
-
-    uint4 a_reg[2];
-    uint4 b_reg[B_IT];
-
-    auto load_tiles = [&](int it) {
-        const int k0 = it * BK;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            a_reg[i] = make_uint4(0u, 0u, 0u, 0u);
-            if (a_ok[i]) {
-                if constexpr (INT8) {
-                    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-                        a_ptr[i] + k0));
-                    a_reg[i].x = v.x;
-                    a_reg[i].y = v.y;
-                } else {
-                    a_reg[i] = __ldg(reinterpret_cast<const uint4*>(
-                        a_ptr[i] + k0));
-                }
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < B_IT; ++i) {
-            const int idx = t + i * THREADS;
-            const int kk = idx / B_GPR, gg = idx - kk * B_GPR;
-            b_reg[i] = __ldg(reinterpret_cast<const uint4*>(
-                w + (long long)(k0 + kk) * n_total + n0 + gg * VE));
-        }
-    };
-
-    auto store_tiles = [&]() {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int r = (t >> 2) + i * 64;
-            T* p = a_s + ((a_grp >> 1) * BM + r) * LDP + (a_grp & 1) * 8;
-            if constexpr (INT8)
-                *reinterpret_cast<uint2*>(p) = make_uint2(a_reg[i].x,
-                                                          a_reg[i].y);
-            else
-                *reinterpret_cast<uint4*>(p) = a_reg[i];
-        }
-#pragma unroll
-        for (int i = 0; i < B_IT; ++i) {
-            const int idx = t + i * THREADS;
-            const int kk = idx / B_GPR, gg = idx - kk * B_GPR;
-            const int np = (gg * VE) >> 4, off = (gg * VE) & 15;
-            *reinterpret_cast<uint4*>(b_s + (np * BK + kk) * LDP + off) =
-                b_reg[i];
-        }
-    };
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], (Acc)0);
-
-    load_tiles(0);
-    for (int it = 0; it < iters; ++it) {
-        __syncthreads();  // the previous step's fragments have been read
-        store_tiles();
-        __syncthreads();
-        if (it + 1 < iters) load_tiles(it + 1);
-#pragma unroll
-        for (int kp = 0; kp < KP; ++kp) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-                af[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(
-                    af[i], a_s + (kp * BM + wm * 32 + i * 16) * LDP, LDP);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>
-                    bf;
-                wmma::load_matrix_sync(
-                    bf, b_s + ((wn * 4 + j) * BK + kp * 16) * LDP, LDP);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
-            }
-        }
-    }
-
-    // epilogue through a per-warp scratch tile: a lane handles 8 consecutive
-    // columns of one row
-    Acc* cw = c_s + warp * 256;
-    const int er = lane >> 1, ec = (lane & 1) * 8;
-    const int div = 8 * k_total;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            wmma::store_matrix_sync(cw, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int m = m0 + wm * 32 + i * 16 + er;
-            const int col = n0 + wn * 64 + j * 16 + ec;
-            if (m < m_total) {
-                T* dst = out + (long long)m * n_total + col;
-                if constexpr (INT8) {
-                    unsigned int q[8];
-#pragma unroll
-                    for (int e = 0; e < 8; ++e) {
-                        const int a = cw[er * 16 + ec + e];
-                        int f = a / div;  // truncates toward zero
-                        if (a % div != 0 && a < 0) --f;  // floor (div > 0)
-                        f = f < -127 ? -127 : (f > 127 ? 127 : f);
-                        q[e] = (unsigned int)(unsigned char)(signed char)f;
-                    }
-                    uint2 v;
-                    v.x = q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24);
-                    v.y = q[4] | (q[5] << 8) | (q[6] << 16) | (q[7] << 24);
-                    *reinterpret_cast<uint2*>(dst) = v;
-                } else {
-                    unsigned int h[8];
-#pragma unroll
-                    for (int e = 0; e < 8; ++e)
-                        h[e] = __bfloat16_as_ushort(
-                            __float2bfloat16_rn(cw[er * 16 + ec + e]));
-                    uint4 v;
-                    v.x = h[0] | (h[1] << 16);
-                    v.y = h[2] | (h[3] << 16);
-                    v.z = h[4] | (h[5] << 16);
-                    v.w = h[6] | (h[7] << 16);
-                    *reinterpret_cast<uint4*>(dst) = v;
-                }
-            }
-            __syncwarp();
-        }
-    }
+template <int AMODE, typename A>
+cudaError_t launch(const void* x, const void* w, const conv_ring::Geom& g,
+                   int bn, const ProbeEpilogue<A>& epi, cudaStream_t stream) {
+    if (g.stages < 2 || g.stages > 16 || g.split < 1 || g.split > 8
+        || g.split > g.steps)
+        return cudaErrorInvalidValue;
+    using Epi = ProbeEpilogue<A>;
+#if CONV_RING_BM == 64
+    if (bn == 64)
+        return conv_ring::launch_tile<AMODE, 64, 64, Epi>(x, w, g, epi,
+                                                          stream);
+    if (bn == 128)
+        return conv_ring::launch_tile<AMODE, 64, 128, Epi>(x, w, g, epi,
+                                                           stream);
+#else
+    if (bn == 128)
+        return conv_ring::launch_tile<AMODE, 128, 128, Epi>(x, w, g, epi,
+                                                            stream);
+#endif
+    return cudaErrorInvalidValue;
 }
 
-}  // namespace
+template <>
+cudaError_t run<CONV_RING_BM, float>(const void* x, const void* w,
+        const conv_ring::Geom& g, int bn, const ProbeEpilogue<float>& epi,
+        cudaStream_t stream) {
+    return launch<conv_ring::A_ASYNC_BF16>(x, w, g, bn, epi, stream);
+}
 
-// x (M, K), w (K, N), out (M, N), all bf16 (int8_mode 0) or all int8
-// (int8_mode 1), row-major. K must be a multiple of 32 and N of 128.
+template <>
+cudaError_t run<CONV_RING_BM, int>(const void* x, const void* w,
+        const conv_ring::Geom& g, int bn, const ProbeEpilogue<int>& epi,
+        cudaStream_t stream) {
+    return launch<conv_ring::A_ASYNC_S8>(x, w, g, bn, epi, stream);
+}
+
+}  // namespace probe
+
+#if CONV_RING_BM == 64
+// x (M, K) row-major; w (N, ldw), the (K, N) weights packed K-major (row j
+// holds column j of w, zero up to the pitch ldw); out (M, N); all bf16
+// (int8_mode 0) or all int8 (int8_mode 1). bm, bn, stages, split: the tile
+// plan, with (bm, bn) one of 64 x 64, 64 x 128, 128 x 128. K and N must be
+// multiples of 16, every pointer 16-byte aligned, M * K below 2^31 and
+// 16392 K below 2^31 (|sum| <= 128^2 K, plus 8 K for the floor).
 extern "C" int ydt_matmul_probe(const void* x, const void* w, void* out,
-                                int m, int k, int n, int int8_mode,
+                                int m, int k, int n, int ldw, int int8_mode,
+                                int bm, int bn, int stages, int split,
                                 void* stream) {
-    if (m <= 0 || k <= 0 || n <= 0 || (k % BK) != 0 || (n % BN) != 0)
+    const int es = int8_mode ? 1 : 2;
+    const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)w | (uintptr_t)out;
+    if (m <= 0 || k <= 0 || n <= 0 || (k % 16) != 0 || (n % 16) != 0
+        || (ptrs & 15) != 0 || ldw < k || (ldw * es) % 16 != 0
+        || (long long)m * k >= (1ll << 31) || 16392ll * k >= (1ll << 31)
+        || (bm != 64 && bm != 128))
         return (int)cudaErrorInvalidValue;
+    const conv_ring::Geom g = conv_ring::make_geom(
+        m, 1, 1, k, 1, 1, n, 1, 1, 0, ldw, stages, split, 0.0f, es);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    dim3 grid((m + BM - 1) / BM, n / BN);
-    if (int8_mode)
-        matmul_kernel<signed char><<<grid, THREADS, 0, st>>>(
-            static_cast<const signed char*>(x),
-            static_cast<const signed char*>(w),
-            static_cast<signed char*>(out), m, k, n);
-    else
-        matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(w),
-            static_cast<__nv_bfloat16*>(out), m, k, n);
-    return (int)cudaGetLastError();
+    const bool tall = bm == 128;
+    cudaError_t err;
+    if (int8_mode) {
+        conv_ring::FastDiv by_div;
+        by_div.init((uint32_t)(8 * k));
+        const probe::ProbeEpilogue<int> epi{static_cast<signed char*>(out),
+                                            n, by_div};
+        err = tall ? probe::run<128, int>(x, w, g, bn, epi, st)
+                   : probe::run<64, int>(x, w, g, bn, epi, st);
+    } else {
+        const probe::ProbeEpilogue<float> epi{
+            static_cast<__nv_bfloat16*>(out), n};
+        err = tall ? probe::run<128, float>(x, w, g, bn, epi, st)
+                   : probe::run<64, float>(x, w, g, bn, epi, st);
+    }
+    return (int)err;
 }
+#endif

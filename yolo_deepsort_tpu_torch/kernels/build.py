@@ -7,8 +7,8 @@ into ONE shared library with a plain C interface:
          -Xcompiler -fPIC --fmad=false -c <file>.cu      (per file, all at once)
     nvcc -shared -o libydt_kernels_<hash>.so *.o
 
-A source that names ``CONV_RING_BM`` (the conv kernels' instantiations of
-their shared main loop, the slowest files to compile) is compiled once per
+A source that names ``CONV_RING_BM`` (the instantiations of the main loop
+that kernels 7-10 share, the slowest files to compile) is compiled once per
 tile height, ``-DCONV_RING_BM=64`` and ``=128``, side by side.
 
 The library lands in ``yolo_deepsort_tpu_torch/build/`` (git-ignored) under
@@ -69,11 +69,12 @@ SIGNATURES = {
     # x, w, scale, bias, res, res_scale, oinv, out, n, hi, wi, ci, ho, wo,
     # co, k, stride, pad, relu, out_int8, ldw, bm, bn, stages, split, stream
     "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 17 + [_P],
-    # x, out, tmp, w1, w2, b1, b2, s1, s2, xinv, n, h, w, ci, cm, nblk, act,
-    # th, csplit, int8_mode, stream
-    "ydt_resblock_chain": [_P] * 10 + [_I] * 10 + [_P],
-    # x, w, out, m, k, n, int8_mode, stream
-    "ydt_matmul_probe": [_P] * 3 + [_I] * 4 + [_P],
+    # x, out, tmp, mid, w1, w2, b1, b2, s1, s2, xinv (host), n, h, w, ci,
+    # cm, nblk, act, ldw1, ldw2, bm1, bn1, stages1, split1, bm2, bn2,
+    # stages2, split2, int8_mode, launched (host int, out), stream
+    "ydt_resblock_chain": [_P] * 11 + [_I] * 18 + [_P, _P],
+    # x, w, out, m, k, n, ldw, int8_mode, bm, bn, stages, split, stream
+    "ydt_matmul_probe": [_P] * 3 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Kernel 9: fused chains of darknet residual blocks (CUDA
-``csrc/resblock.cu``), in bf16 and in W8A8 int8.
+"""Kernel 9: chains of darknet residual blocks (CUDA ``csrc/resblock.cu``),
+in bf16 and in W8A8 int8.
 
 Replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_resblock.py``
 (``_chain_kernel`` via ``resblock_chain_bf16`` / ``resblock_chain_int8``),
@@ -10,19 +10,26 @@ with its span discovery (``find_residual_spans``), its planner
     x -> conv1x1 (Ci -> Cm) + b1 -> act -> conv3x3 (Cm -> Ci, pad 1) + b2
       -> act -> + x
 
-whose intermediate ``mid`` never leaves the chip and whose input is read
-once per block. Bound on the H100 by operations. The TPU kernel keeps whole
-frames in VMEM; an SM has 227 KB of shared memory, so the design here is a
-strip of full-width rows per thread block, ``mid`` for the strip and its
-halo in shared memory, the chain state between blocks in two device buffers
-used in turn, and ONE cooperative launch per chain with a grid-wide barrier
-between blocks (see the note at the top of the .cu file).
+The TPU kernel keeps whole frames and ``mid`` in VMEM; an SM has 227 KB of
+shared memory, so here each block is two launches of the implicit-GEMM main
+loop that kernels 7 and 8 share (``csrc/conv_mainloop.cuh``), both from ONE
+C entry per chain on the caller's stream: the 1x1 conv writes ``mid`` to
+device memory (it stays in the L2 cache), the 3x3 conv's epilogue adds the
+shortcut. In W8A8 mode the 1x1 conv's epilogue writes ``mid`` as the int8
+codes the 3x3 conv reads. The chain state lives in two device buffers used
+in turn. Each layer's tile plan is ``ops/conv_plan.py``
+``plan_conv_tiles``' for its shape (``plan_chain_schedule``).
 
 Layouts are the reference's: ``x`` (N, H, W, Ci) bf16 NHWC; ``w1``
-(B, Ci, Cm) and ``w2`` (B, 3, 3, Cm, Ci) HWIO per block, bf16 or int8; ``b1``
-(B, Cm), ``b2`` (B, Ci) f32; int8 mode adds ``scale1`` (B, Cm), ``scale2``
-(B, Ci) f32 = xscale * wscale per channel and ``xinv`` (B, 2) f32 =
-[1 / xscale1, 1 / xscale2]. The result is bf16 NHWC.
+(B, Ci, Cm) and ``w2`` (B, 3, 3, Cm, Ci) HWIO per block, bf16 or int8, or
+both packed once to the K-major rows the kernel reads (``pack_chain_weights``:
+the route packs when it first meets a chain, the public wrappers pack per
+call); ``b1`` (B, Cm), ``b2`` (B, Ci) f32; int8 mode adds ``scale1``
+(B, Cm), ``scale2`` (B, Ci) f32 = xscale * wscale per channel and ``xinv``
+(B, 2) f32 = [1 / xscale1, 1 / xscale2], which the kernel path takes from
+HOST memory (a CPU tensor or a numpy array; the kernels take it by value, and
+reading it back from the card would synchronize the stream). The result is
+bf16 NHWC.
 
 ``resblock_chain_plain_bf16`` / ``resblock_chain_plain_int8`` are the plain
 PyTorch versions, the kernel's arithmetic op for op: bf16 operands, f32
@@ -30,15 +37,17 @@ sums, + bias, activation in f32, rounded to bf16 (``mid``), the same for the
 3x3 conv, then the shortcut add in bf16. int8: the chain state stays bf16,
 conv1 quantizes its input ``clip(rint(f32(x) * xinv1), -127, 127)``, int32
 sums, ``f32(acc) * s1 + b1``, activation, bf16, and ``mid`` is quantized
-once with ``xinv2``. int32 sums are exact, so the kernel's int8 mode with a
-leaky activation is held exactly equal; its bf16 mode sums in another order
-(one block within 2 bf16 ulps, a chain to rtol = atol = 3e-2). The wrappers
-take the plain version for CPU tensors only; a CUDA tensor launches the
-kernel or raises.
+once with ``xinv2`` (the kernel does that in the 1x1 conv's epilogue: the
+same codes). int32 sums are exact, so the kernel's int8 mode with a leaky
+activation is held exactly equal; its bf16 mode sums in another order (one
+block within 4 bf16 ulps, a chain to rtol = atol = 3e-2). The wrappers take
+the plain version for CPU tensors only; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -52,13 +61,24 @@ from .conv_kernel import (
     conv_plain_int8,
     int8_package_to_torch,
 )
+from .conv_plan import (
+    H100_SM_COUNT,
+    SMEM_PER_BLOCK,
+    ConvPlan,
+    PackedWeights,
+    _sm_count,
+    max_stages,
+    pack_conv_weights,
+    plan_conv_tiles,
+    plan_smem_bytes,
+    unpack_conv_weights,
+)
 
-launches = 0  # kernel launches; only the launch below adds to it
+launches = 0  # calls of the C entry, one per chain; only the launch adds
+device_kernels = 0  # kernels those calls launched, as the C entry counts
 
-# what the planner budgets against (H100 SXM)
-SM_COUNT = 132
-SMEM_PER_BLOCK = 232448  # bytes of shared memory one thread block can use
-_TILE = 128  # rows and columns of the kernel's GEMM tiles
+_CHANNELS = 128  # Ci and Cm must be multiples of this (the route's rule)
+_MAX_ELEMS = 2 ** 31  # the main loop's gather offsets are 32-bit
 
 # What the kernel's bf16 mode is held to against its plain version, on the
 # operands of ``seeded_chain_case`` (chain state of order 1). A whole chain:
@@ -75,92 +95,136 @@ CHAIN_ULP_FLOOR = 2.0 ** -3
 
 
 class ChainSchedule(NamedTuple):
-    """How one chain runs: ``tile`` (rows per strip, map width), ``co_chunk``
-    (output channels of the 3x3 conv per work item; Ci when the columns are
-    not split), ``per_launch`` (blocks per kernel launch, summing to the
-    chain's length) and the shared memory one thread block takes."""
+    """How one chain runs: the tile plans of its 1x1 conv (``conv1``, Ci ->
+    Cm, quantizing in int8 mode) and of its 3x3 conv (``conv2``, Cm -> Ci),
+    the same for every block, and the kernels one call launches
+    (``kernel_launches``, two per block)."""
 
-    tile: Tuple[int, int]
-    co_chunk: int
-    per_launch: Tuple[int, ...]
-    smem_bytes: int
-
-
-def _stage_bytes(int8_mode: bool) -> int:
-    """Operand staging and epilogue scratch of ``csrc/resblock.cu``."""
-    elem, ldp = (1, 32) if int8_mode else (2, 24)
-    a = 2 * _TILE * ldp * elem
-    b = (_TILE // 16) * 32 * ldp * elem
-    return a + b + 8 * 256 * 4
+    conv1: ConvPlan
+    conv2: ConvPlan
+    kernel_launches: int
 
 
-def _strip_geometry(th: int, w: int, cm: int, int8_mode: bool):
-    """(1x1 GEMM passes, 3x3 GEMM passes, shared-memory bytes) of a strip of
-    ``th`` rows: ``mid`` holds (th + 2) * (w + 2) padded positions (more
-    where the last tile's taps read past them), Cm channels each in 2 bytes
-    (int8 panels are half used, so both modes take the same room)."""
-    wp = w + 2
-    m1, m2 = (th + 2) * wp, th * wp
-    passes1 = -(-m1 // _TILE)
-    passes2 = -(-m2 // _TILE)
-    npos = -(-max(m1, passes2 * _TILE + 2 * wp + 2) // 16) * 16
-    return passes1, passes2, _stage_bytes(int8_mode) + npos * cm * 2
+def _fit_budget(plan: ConvPlan, budget: int) -> Optional[ConvPlan]:
+    """The plan with its ring cut to ``budget`` bytes of shared memory, or
+    None when not even two stages fit."""
+    stages = min(plan.stages, max_stages(plan.bm, plan.bn))
+    while stages > 2 and plan_smem_bytes(plan.bm, plan.bn, stages) > budget:
+        stages -= 1
+    if plan_smem_bytes(plan.bm, plan.bn, stages) > budget:
+        return None
+    return plan._replace(stages=stages)
 
 
-@functools.lru_cache(maxsize=None)
 def plan_chain_schedule(n: int, h: int, w: int, ci: int, cm: int, nblk: int,
                         int8_mode: bool,
                         budget: Optional[int] = None
                         ) -> Optional[ChainSchedule]:
-    """Pick the strip height, the split of the 3x3 conv's output columns and
-    the blocks per launch for a chain at (n, h, w, ci, cm), or None when no
-    strip fits ``budget`` bytes of shared memory (227 KB unless given) or the
-    channels do not fill the kernel's 128-wide tiles; the caller then runs
-    the chain layer by layer.
+    """The schedule of a chain at (n, h, w, ci, cm) of ``nblk`` blocks, or
+    None when the kernel does not take it; the caller then runs the chain
+    layer by layer. None when a size is below 1, when Ci or Cm is not a
+    multiple of 128 (the route's rule: every chain of the served models
+    fills its tiles), when the state's elements, n * h * w * max(Ci, Cm),
+    pass the main loop's 32-bit offsets, or when a layer's tile does not fit
+    ``budget`` bytes of shared memory (227 KB unless given) with even a
+    two-stage ring.
 
-    A work item is (frame, strip, column group). Its cost is counted in
-    128 x 128 x 32 tensor-core steps: the 1x1 conv over the strip and its
-    halo (recomputed per column group), the 3x3 conv over the strip's own
-    columns. Items run one per SM, so the estimate is waves of 132 items
-    times the item's cost; the smallest wins, ties go to the taller strip
-    and the fewer groups. The chain state lives in device memory, so nothing
-    forces a split: every block of the chain runs in one launch."""
-    if budget is None:
-        budget = SMEM_PER_BLOCK
-    if min(n, h, w, nblk) < 1 or ci % _TILE or cm % _TILE or ci < _TILE \
-            or cm < _TILE:
+    Each block is two launches of the shared main loop, so each layer takes
+    ``plan_conv_tiles``' plan for its shape: the 1x1 conv as m = n * h * w
+    pixels, Cm columns, depth Ci (quantizing
+    in int8 mode: the producers quantize the bf16 state); the 3x3 conv as m
+    pixels, Ci columns, depth 9 * Cm (int8 codes by cp.async in int8 mode:
+    nothing to quantize). At yolov3-416 and batch 8 those shapes are kernel
+    7's timed classes. The plans are those of the card the planner's table
+    was timed on (132 SMs); the kernel path plans for its own card."""
+    return _schedule(n, h, w, ci, cm, nblk, int8_mode,
+                     SMEM_PER_BLOCK if budget is None else budget,
+                     H100_SM_COUNT)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(n, h, w, ci, cm, nblk, int8_mode, budget, sm_count):
+    if min(n, h, w, nblk) < 1 or ci % _CHANNELS or cm % _CHANNELS \
+            or ci < _CHANNELS or cm < _CHANNELS \
+            or n * h * w * max(ci, cm) >= _MAX_ELEMS:
         return None
-    col_tiles = ci // _TILE
-    best = None
-    for th in range(1, h + 1):
-        passes1, passes2, smem = _strip_geometry(th, w, cm, int8_mode)
-        if smem > budget:
-            break  # taller strips only take more
-        strips = -(-h // th)
-        for csplit in (s for s in (1, 2, 4, 8, 16) if col_tiles % s == 0):
-            items = n * strips * csplit
-            cost = (passes1 * (cm // _TILE) * (ci // 32)
-                    + passes2 * (col_tiles // csplit) * (9 * cm // 32))
-            key = (-(-items // SM_COUNT) * cost, -th, csplit)
-            if best is None or key < best[0]:
-                best = (key, th, csplit, smem)
-    if best is None:
+    m, es = n * h * w, 1 if int8_mode else 2
+    conv1 = _fit_budget(plan_conv_tiles(m, cm, ci, es, sm_count,
+                                        quantizing=int8_mode), budget)
+    conv2 = _fit_budget(plan_conv_tiles(m, ci, 9 * cm, es, sm_count),
+                        budget)
+    if conv1 is None or conv2 is None:
         return None
-    _, th, csplit, smem = best
-    return ChainSchedule((th, w), ci // csplit, (nblk,), smem)
+    return ChainSchedule(conv1, conv2, 2 * nblk)
+
+
+def pack_chain_weights(w) -> PackedWeights:
+    """Stacked weights, (B, Ci, Cm) for the 1x1 convs or (B, 3, 3, Cm, Ci)
+    for the 3x3 convs, bf16 or int8, packed per block: ``PackedWeights``
+    whose ``data`` (B, Co, ldw) stacks block b's ``pack_conv_weights`` rows
+    (the same K-major format with a block axis in front); a pack is returned
+    as it is. Plain torch; the route runs it once per chain."""
+    if isinstance(w, PackedWeights):
+        return w
+    if w.dim() == 3:
+        hwio = w[:, None, None]
+    elif w.dim() == 5:
+        hwio = w
+    else:
+        raise ValueError(f"pack_chain_weights: expected (B, Ci, Cm) or (B, "
+                         f"3, 3, Cm, Ci) weights, got {tuple(w.shape)}")
+    packs = [pack_conv_weights(hwio[b]) for b in range(hwio.shape[0])]
+    return packs[0]._replace(data=torch.stack([p.data for p in packs]))
+
+
+def unpack_chain_weights(p) -> torch.Tensor:
+    """The stacked weights a pack came from ((B, Ci, Cm) or (B, 3, 3, Cm,
+    Ci)), each block by ``unpack_conv_weights``; raw weights as they are."""
+    if not isinstance(p, PackedWeights):
+        return p
+    w = torch.stack([unpack_conv_weights(p._replace(data=d)) for d in p.data])
+    return w[:, 0, 0] if p.k == 1 else w
+
+
+def pack_chain_args(args):
+    """``resblock_chain_*`` arguments with ``w1`` and ``w2`` packed."""
+    x, w1, b1, w2, *rest = args
+    return (x, pack_chain_weights(w1), b1, pack_chain_weights(w2), *rest)
+
+
+def block_args(args, b: int):
+    """The ``resblock_chain_*`` arguments after ``x`` (weights raw or
+    packed, biases, scales, ``xinv``) cut to block ``b`` alone."""
+    return tuple(a._replace(data=a.data[b:b + 1])
+                 if isinstance(a, PackedWeights) else a[b:b + 1]
+                 for a in args)
+
+
+def _chain_geometry(w, k: int):
+    """(nblk, k, in, out) of raw or packed weights of a ``k`` x ``k`` conv
+    ((B, Ci, Cm) raw for k = 1, (B, 3, 3, Cm, Ci) for k = 3); None for a
+    shape that is neither."""
+    if isinstance(w, PackedWeights):
+        return ((w.data.shape[0], w.k, w.ci, w.co)
+                if w.data.dim() == 3 and w.k == k else None)
+    if k == 1:
+        return (w.shape[0], 1, w.shape[1], w.shape[2]) if w.dim() == 3 \
+            else None
+    return ((w.shape[0], w.shape[1], w.shape[3], w.shape[4])
+            if w.dim() == 5 and w.shape[1] == w.shape[2] else None)
 
 
 def _check_chain(x, w1, b1, w2, b2, scale1, scale2, xinv):
-    if x.dim() != 4 or w1.dim() != 3 or w2.dim() != 5:
+    g1, g2 = _chain_geometry(w1, 1), _chain_geometry(w2, 3)
+    if x.dim() != 4 or g1 is None or g2 is None:
         raise ValueError(f"resblock chain: expected x (N, H, W, Ci), w1 (B, "
                          f"Ci, Cm), w2 (B, 3, 3, Cm, Ci), got "
-                         f"{tuple(x.shape)}, {tuple(w1.shape)}, "
-                         f"{tuple(w2.shape)}")
+                         f"{tuple(x.shape)}, {g1}, {g2}")
     n, h, w, ci = x.shape
-    nblk, wci, cm = w1.shape
-    if wci != ci or tuple(w2.shape) != (nblk, 3, 3, cm, ci):
-        raise ValueError(f"resblock chain: w1 {tuple(w1.shape)} / w2 "
-                         f"{tuple(w2.shape)} do not fit x {tuple(x.shape)}")
+    nblk, _, wci, cm = g1
+    if wci != ci or g2 != (nblk, 3, cm, ci):
+        raise ValueError(f"resblock chain: w1 {g1} / w2 {g2} (B, k, in, out) "
+                         f"do not fit x {tuple(x.shape)}")
     if tuple(b1.shape) != (nblk, cm) or tuple(b2.shape) != (nblk, ci):
         raise ValueError("resblock chain: b1 must be (B, Cm), b2 (B, Ci)")
     if scale1 is not None and (
@@ -172,10 +236,27 @@ def _check_chain(x, w1, b1, w2, b2, scale1, scale2, xinv):
     return n, h, w, ci, cm, nblk
 
 
+def _host_xinv(xinv) -> np.ndarray:
+    """The (B, 2) ``xinv`` table as contiguous float32 in host memory, from
+    a CPU tensor or an array. A CUDA tensor raises: the kernels take the
+    values by value, and reading them back would synchronize the stream."""
+    if isinstance(xinv, torch.Tensor):
+        if xinv.device.type != "cpu":
+            raise ValueError(
+                "resblock chain kernel: xinv must lie in host memory (a CPU "
+                "tensor or a numpy array), got a tensor on "
+                f"{xinv.device}: the kernels take its values by value, and "
+                "reading them back from the card would synchronize the "
+                "stream")
+        xinv = xinv.detach().numpy()
+    return np.ascontiguousarray(np.asarray(xinv, np.float32))
+
+
 def resblock_chain_plain_bf16(x, w1, b1, w2, b2, *,
                               act: str = "leaky") -> torch.Tensor:
     """Plain version of the bf16 mode (see the module docstring)."""
     *_, nblk = _check_chain(x, w1, b1, w2, b2, None, None, None)
+    w1, w2 = unpack_chain_weights(w1), unpack_chain_weights(w2)
     out = x.to(torch.bfloat16)
     for b in range(nblk):
         mid = conv_plain_bf16(out, w1[b][None, None], b1[b], stride=1, pad=0,
@@ -189,9 +270,12 @@ def resblock_chain_plain_int8(x, w1q, b1, w2q, b2, scale1, scale2, xinv, *,
                               act: str = "leaky") -> torch.Tensor:
     """Plain version of the int8 mode (see the module docstring): each conv
     is ``conv_plain_int8`` (the codes convolved in float64: the sums pass
-    2^24), ``mid`` stays bf16 between them and is quantized by the second."""
+    2^24), ``mid`` stays bf16 between them and is quantized by the second.
+    ``xinv`` a tensor (read back here) or an array."""
     *_, nblk = _check_chain(x, w1q, b1, w2q, b2, scale1, scale2, xinv)
-    xi = xinv.detach().cpu().tolist()
+    w1q, w2q = unpack_chain_weights(w1q), unpack_chain_weights(w2q)
+    xi = (xinv.detach().cpu().tolist() if isinstance(xinv, torch.Tensor)
+          else np.asarray(xinv, np.float32).tolist())
     out = x.to(torch.bfloat16)
     for b in range(nblk):
         mid = conv_plain_int8(out, w1q[b][None, None], b1[b], scale1[b],
@@ -205,58 +289,71 @@ def resblock_chain_plain_int8(x, w1q, b1, w2q, b2, scale1, scale2, xinv, *,
 def resblock_chain_cuda(x, w1, b1, w2, b2, scale1=None, scale2=None,
                         xinv=None, *, act: str = "leaky") -> torch.Tensor:
     """Launch the kernel: contiguous tensors on the card, ``x`` bf16, the
-    weights bf16 (no scales) or int8 (with ``scale1``, ``scale2``,
-    ``xinv``), everything else f32. Ci and Cm must be multiples of 128 and a
-    strip must fit shared memory (``plan_chain_schedule``); anything else
-    raises."""
+    weights bf16 (no scales) or int8 (with ``scale1``, ``scale2``, ``xinv``
+    in host memory), raw (packed here, per call) or packed
+    (``pack_chain_weights``), the biases and scales f32. Ci and Cm must be
+    multiples of 128 (``plan_chain_schedule``); anything else raises."""
     n, h, w, ci, cm, nblk = _check_chain(x, w1, b1, w2, b2, scale1, scale2,
                                          xinv)
     int8_mode = scale1 is not None
-    f32 = (b1, b2) + ((scale1, scale2, xinv) if int8_mode else ())
-    build.require_cuda("resblock chain", x, w1, w2, *f32)
+    f32 = (b1, b2) + ((scale1, scale2) if int8_mode else ())
+    build.require_cuda("resblock chain", x, *f32)
+    build.require_cuda(
+        "resblock chain", *(p.data if isinstance(p, PackedWeights) else p
+                             for p in (w1, w2)), contiguous=False)
+    lib = build.load()  # raises before anything asks the card
+    xinv_h = _host_xinv(xinv) if int8_mode else None
+    w1p, w2p = pack_chain_weights(w1), pack_chain_weights(w2)
     wdt = torch.int8 if int8_mode else torch.bfloat16
-    if x.dtype != torch.bfloat16 or w1.dtype != wdt or w2.dtype != wdt:
+    if x.dtype != torch.bfloat16 or w1p.data.dtype != wdt \
+            or w2p.data.dtype != wdt:
         raise ValueError(f"resblock chain kernel: expected bfloat16 x and "
-                         f"{wdt} weights, got {x.dtype}, {w1.dtype}, "
-                         f"{w2.dtype}")
+                         f"{wdt} weights, got {x.dtype}, {w1p.data.dtype}, "
+                         f"{w2p.data.dtype}")
+    if not (w1p.data.is_contiguous() and w2p.data.is_contiguous()):
+        raise ValueError("resblock chain kernel: expected contiguous packed "
+                         "weights")
     if any(t.dtype != torch.float32 for t in f32):
-        raise ValueError("resblock chain kernel: biases, scales and xinv "
-                         "must be float32")
+        raise ValueError("resblock chain kernel: biases and scales must be "
+                         "float32")
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    sched = plan_chain_schedule(n, h, w, ci, cm, nblk, int8_mode)
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    sched = _schedule(n, h, w, ci, cm, nblk, int8_mode, SMEM_PER_BLOCK,
+                      _sm_count(index))
     if sched is None:
         raise ValueError(f"resblock chain kernel: no schedule for x "
                          f"{tuple(x.shape)} with Cm {cm} (Ci and Cm must be "
-                         f"multiples of 128 and a strip must fit shared "
-                         f"memory)")
-    if sched.per_launch != (nblk,):
-        raise AssertionError(f"resblock chain kernel: the schedule splits "
-                             f"the chain {sched.per_launch}; the launch "
-                             f"below runs it whole")
-    th, csplit = sched.tile[0], ci // sched.co_chunk
-    lib = build.load()
+                         f"multiples of 128 and the state below 2^31 "
+                         f"elements)")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if nblk > 1 else None
+    mid = torch.empty((n, h, w, cm), dtype=wdt, device=x.device)
+    p1, p2 = sched.conv1, sched.conv2
+    launched = ctypes.c_int(0)
     err = lib.ydt_resblock_chain(
         x.data_ptr(), out.data_ptr(),
-        None if tmp is None else tmp.data_ptr(),
-        w1.data_ptr(), w2.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-        scale1.data_ptr() if int8_mode else None,
+        None if tmp is None else tmp.data_ptr(), mid.data_ptr(),
+        w1p.data.data_ptr(), w2p.data.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), scale1.data_ptr() if int8_mode else None,
         scale2.data_ptr() if int8_mode else None,
-        xinv.data_ptr() if int8_mode else None,
-        n, h, w, ci, cm, nblk, _ACT_CODES[act], th, csplit, int(int8_mode),
+        xinv_h.ctypes.data if int8_mode else None,
+        n, h, w, ci, cm, nblk, _ACT_CODES[act], w1p.data.shape[2],
+        w2p.data.shape[2], p1.bm, p1.bn, p1.stages, p1.split, p2.bm, p2.bn,
+        p2.stages, p2.split, int(int8_mode), ctypes.addressof(launched),
         stream)
     build.check_launch("resblock chain", err)
-    global launches
+    global launches, device_kernels
     launches += 1
+    device_kernels += launched.value
     return out
 
 
 def resblock_chain_bf16(x, w1, b1, w2, b2, *,
                         act: str = "leaky") -> torch.Tensor:
-    """B fused residual blocks, bf16 products and f32 sums; bf16 NHWC. The
+    """B residual blocks, bf16 products and f32 sums; bf16 NHWC. The
     kernel for CUDA tensors, ``resblock_chain_plain_bf16`` for CPU
     tensors."""
     if x.device.type == "cpu":
@@ -266,9 +363,9 @@ def resblock_chain_bf16(x, w1, b1, w2, b2, *,
 
 def resblock_chain_int8(x, w1q, b1, w2q, b2, scale1, scale2, xinv, *,
                         act: str = "leaky") -> torch.Tensor:
-    """W8A8 fused residual blocks (bf16 chain state, ``mid`` quantized
-    once). The kernel for CUDA tensors, ``resblock_chain_plain_int8`` for
-    CPU tensors."""
+    """W8A8 residual blocks (bf16 chain state, ``mid`` quantized once). The
+    kernel for CUDA tensors (``xinv`` in host memory),
+    ``resblock_chain_plain_int8`` for CPU tensors."""
     if x.device.type == "cpu":
         return resblock_chain_plain_int8(x, w1q, b1, w2q, b2, scale1, scale2,
                                          xinv, act=act)
@@ -355,18 +452,20 @@ def make_resblock_impl(plan, *, int8_pkg=None, max_hw: int = 64,
     At module index i, ``impl(x, convs, i)`` returns ``(out, consumed)``
     when i starts a fusable chain whose geometry the kernel takes (maps up
     to ``max_hw``, Ci and Cm at least ``min_ci`` and multiples of 128, a
-    strip that fits shared memory), else None and the chain runs layer by
-    layer. ``x`` is the NHWC view of the module's input, ``convs`` the
+    schedule from ``plan_chain_schedule``), else None and the chain runs
+    layer by layer. ``x`` is the NHWC view of the module's input, ``convs`` the
     detector's conv layers by module index. ``int8_pkg`` (the package of
     ``models/quantize_darknet.py``) switches a chain to W8A8 when it holds
     BOTH convs of every block of the chain. ``chain_whitelist`` restricts
     the route to chains whose start index is listed.
 
-    A chain's stacked weights are packed once, on the chain's first call --
-    bf16 (B, Ci, Cm) and (B, 3, 3, Cm, Ci), or the package's int8 tensors
-    and its (B, 2) ``xinv`` table on the device -- and kept: the route
-    serves one detector whose inference weights are frozen; load new
-    weights, build a new route."""
+    A chain's weights are packed once, on the chain's first call -- bf16
+    from the detector's convs, or the package's int8 tensors, each block's
+    two convs packed K-major (``pack_chain_weights``; on the CPU, where the
+    plain version runs, they stay HWIO) -- with the package's (B, 2)
+    ``xinv`` table kept in host memory, and kept: the route serves one
+    detector whose inference weights are frozen; load new weights, build a
+    new route."""
     chains = {c[0]: c for c in find_residual_spans(plan)}
     if chain_whitelist is not None:
         chains = {s: c for s, c in chains.items() if s in chain_whitelist}
@@ -374,29 +473,37 @@ def make_resblock_impl(plan, *, int8_pkg=None, max_hw: int = 64,
     packed: Dict[int, tuple] = {}
 
     def pack(chain, convs, device, use_int8):
+        def packed_form(w1, b1, w2, *rest):
+            if device.type != "cuda":
+                return (w1, b1, w2, *rest)
+            return (pack_chain_weights(w1), b1, pack_chain_weights(w2),
+                    *rest)
+
         if use_int8:
             layers = {l: int8_pkg[l] for s in chain for l in (s, s + 1)}
             dev = int8_package_to_torch(layers, device)
             first, second = ([dev[s + o] for s in chain] for o in (0, 1))
             ci, cm = first[0]["wq"].shape[2:]
+            # the table stays in host memory: the kernel takes it by value
             xinv = torch.tensor(
                 [[p["xinv"], q["xinv"]] for p, q in zip(first, second)],
-                dtype=torch.float32).to(device)
-            return (torch.stack([p["wq"].reshape(ci, cm) for p in first]),
-                    torch.stack([p["b"] for p in first]),
-                    torch.stack([q["wq"] for q in second]),
-                    torch.stack([q["b"] for q in second]),
-                    torch.stack([p["scale"] for p in first]),
-                    torch.stack([q["scale"] for q in second]), xinv)
+                dtype=torch.float32)
+            return packed_form(
+                torch.stack([p["wq"].reshape(ci, cm) for p in first]),
+                torch.stack([p["b"] for p in first]),
+                torch.stack([q["wq"] for q in second]),
+                torch.stack([q["b"] for q in second]),
+                torch.stack([p["scale"] for p in first]),
+                torch.stack([q["scale"] for q in second]), xinv)
         first, second = ([convs[str(s + o)] for s in chain] for o in (0, 1))
         # OIHW -> (Ci, Cm) and HWIO
-        return (torch.stack([c.weight.detach()[:, :, 0, 0].t()
-                             for c in first]).to(torch.bfloat16).contiguous(),
-                torch.stack([c.bias.detach().float() for c in first]),
-                torch.stack([c.weight.detach().permute(2, 3, 1, 0)
-                             for c in second]).to(torch.bfloat16)
-                .contiguous(),
-                torch.stack([c.bias.detach().float() for c in second]))
+        return packed_form(
+            torch.stack([c.weight.detach()[:, :, 0, 0].t()
+                         for c in first]).to(torch.bfloat16).contiguous(),
+            torch.stack([c.bias.detach().float() for c in first]),
+            torch.stack([c.weight.detach().permute(2, 3, 1, 0)
+                         for c in second]).to(torch.bfloat16).contiguous(),
+            torch.stack([c.bias.detach().float() for c in second]))
 
     def impl(x, convs, i):
         chain = chains.get(i)
@@ -438,8 +545,9 @@ def seeded_chain_case(rng, device, n: int, h: int, ci: int, cm: int,
     an elementwise bound says little). ``bf16``: (x, w1, b1, w2, b2);
     ``int8``: the W8A8 arguments of ``resblock_chain_int8`` (absmax weight
     scales per output channel; activation scales from the absmax of each
-    conv's input along a pass of the plain bf16 version over two frames);
-    ``xinv``: the (B, 2) table as a numpy array."""
+    conv's input along a pass of the plain bf16 version over two frames;
+    their (B, 2) ``xinv`` table a CPU tensor, as the kernel takes it);
+    ``xinv``: the table as a numpy array."""
     x = torch.from_numpy(rng.standard_normal((n, h, h, ci), np.float32)).to(
         device, torch.bfloat16)
     w1 = rng.standard_normal((nblk, ci, cm), np.float32) / np.sqrt(ci)
@@ -473,7 +581,7 @@ def seeded_chain_case(rng, device, n: int, h: int, ci: int, cm: int,
                   device),
               torch.from_numpy((xs[:, 1:] * ws2).astype(np.float32)).to(
                   device),
-              torch.from_numpy(xinv).to(device)),
+              torch.from_numpy(xinv)),
         xinv=xinv)
 
 

@@ -1,15 +1,23 @@
-"""Time the two implicit-GEMM conv kernels on two clocks, in this checkout or
-in another one.
+"""Time the kernels on the conv kernels' main loop on two clocks, in this
+checkout or in another one.
 
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --out clocks.json
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --root DIR --out ...
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k9 k10
 
 Kernel 7 at the 15 eligible conv shapes of yolov3-416 at batch 8 plus the mish
 shape (bf16 mode, and int8 mode with bf16 activations), kernel 8 at the nine
 shape classes of one int8-resident ReID embed in every epilogue its layers
 use, at 320 and at 512 crops; each through the package's public wrapper
 (``conv_bf16``, ``conv_int8``; ``conv_int8_kernel.conv_int8``) with HWIO
-weights. Two clocks, both CUDA events around 50 calls:
+weights; kernel 9 at the three chain classes of yolov3-416 the chain route
+takes, both modes, batch 8 and 32 (``resblock_chain_bf16`` /
+``resblock_chain_int8`` on the operands of ``seeded_chain_case``, the
+weights packed once where the checkout's module packs them:
+``pack_chain_args``); kernel 10 at the probe's (32768, 256) x (256, 256),
+both types (``matmul_probe``, the weight packed once where the module
+packs it: ``pack_probe_weight``). Two clocks, both CUDA events around 50
+calls (10 for kernel 9):
 
 * ``called_ms``: the calls made from Python back to back. Where a kernel is
   shorter than its wrapper's time on the host, this is the host's time.
@@ -18,8 +26,8 @@ weights. Two clocks, both CUDA events around 50 calls:
   way.
 
 The sums printed are those of the serving routes: the K=1 step's 19 routed
-backbone layers (nine in bf16 mode, ten in int8 mode) and the 15 convs of
-one embed. ``--root`` imports the package from another checkout -- an earlier
+backbone layers (nine in bf16 mode, ten in int8 mode), the 15 convs of
+one embed and the three chains of one forward. ``--root`` imports the package from another checkout -- an earlier
 commit unpacked beside this one -- so that two designs are timed on one card,
 one after the other, by one script; the script calls only what the wrappers
 have taken since they were added. Run it as a file, as above (with ``-m``
@@ -39,6 +47,12 @@ import numpy as np
 
 REPS = 50
 BATCH = 8
+K9_REPS = 10
+# (map, Ci, Cm, blocks): the chains of yolov3-416 the chain route takes, at
+# the K=1 step's batch and the chunked step's
+K9_CLASSES = ((52, 256, 128, 8), (26, 512, 256, 8), (13, 1024, 512, 4))
+K9_BATCHES = (8, 32)
+PROBE_SHAPE = (32768, 256, 256)
 
 # (map, Ci, Co, k, stride, act): the eligible conv shapes of yolov3-416, the
 # mish shape last; beside each the routed layers of the K=1 step that have it
@@ -86,21 +100,21 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else ""
 
 
-def both_clocks(torch, fn):
+def both_clocks(torch, fn, reps=REPS):
     """(called_ms, device_ms) of fn()."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    called = start.elapsed_time(end) / REPS
+    called = start.elapsed_time(end) / reps
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -110,9 +124,56 @@ def both_clocks(torch, fn):
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / REPS)
+        times.append(start.elapsed_time(end) / reps)
     del graph
     return called, sorted(times)[1]
+
+
+def time_k9(torch, dev, rng):
+    """Kernel 9 per chain class, mode and batch, and the three chains of
+    one forward summed."""
+    from yolo_deepsort_tpu_torch.ops import resblock_kernel as RK
+
+    packed = getattr(RK, "pack_chain_args", lambda args: args)
+    classes, forward = [], {}
+    for n in K9_BATCHES:
+        for h, ci, cm, nblk in K9_CLASSES:
+            case = RK.seeded_chain_case(rng, dev, n, h, ci, cm, nblk)
+            for mode, fn in (("bf16", RK.resblock_chain_bf16),
+                             ("int8", RK.resblock_chain_int8)):
+                args = packed(case[mode])
+                called, device = both_clocks(torch, lambda: fn(*args),
+                                             K9_REPS)
+                classes.append({"shape": [n, h, ci, cm, nblk], "mode": mode,
+                                "called_ms": called, "device_ms": device})
+                tot = forward.setdefault(f"{mode} N={n}", {
+                    "called_ms": 0.0, "device_ms": 0.0})
+                tot["called_ms"] += called
+                tot["device_ms"] += device
+                print(f"k9 {mode} N={n} {h}x{h} {ci}/{cm} x{nblk}: called "
+                      f"{called:.4f} ms, device {device:.4f} ms", flush=True)
+            del case
+    for key, tot in forward.items():
+        print(f"k9, one forward's three chains, {key}: called "
+              f"{tot['called_ms']:.6f} ms, device {tot['device_ms']:.6f} ms",
+              flush=True)
+    return {"per_class": classes, "forward_3_chains": forward}
+
+
+def time_k10(torch, dev):
+    """Kernel 10 at the probe's shape, both types."""
+    from yolo_deepsort_tpu_torch.tools import int8_probe as P
+
+    pack = getattr(P, "pack_probe_weight", lambda w: w)
+    xb, wb, xi, wi = P.probe_operands(*PROBE_SHAPE, dev)
+    out = {}
+    for mode, x, w in (("bf16", xb, wb), ("int8", xi, wi)):
+        wk = pack(w)
+        called, device = both_clocks(torch, lambda: P.matmul_probe(x, wk))
+        out[mode] = {"called_ms": called, "device_ms": device}
+        print(f"k10 {mode} {PROBE_SHAPE}: called {called:.6f} ms, device "
+              f"{device:.6f} ms", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -121,6 +182,8 @@ def main(argv=None) -> int:
                     help="the checkout whose package is timed (default: "
                          "this one)")
     ap.add_argument("--crops", type=int, nargs="*", default=[320, 512])
+    ap.add_argument("--kernels", nargs="*", default=["k7", "k8", "k9", "k10"],
+                    help="which kernels to time (k7 k8 k9 k10)")
     ap.add_argument("--out", default=None, help="write the JSON record here")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve() if args.root else \
@@ -138,7 +201,8 @@ def main(argv=None) -> int:
     out = {"root": str(root), "card": card_line(), "reps": REPS,
            "k7": [], "k8": {}}
     routed = {"called_ms": 0.0, "device_ms": 0.0}
-    for (hi, ci, co, k, stride, act), n_bf16, n_int8 in K7_CLASSES:
+    for (hi, ci, co, k, stride, act), n_bf16, n_int8 in (
+            K7_CLASSES if "k7" in args.kernels else ()):
         x = torch.from_numpy(rng.standard_normal(
             (BATCH, hi, hi, ci), np.float32)).to(dev, torch.bfloat16)
         w = (rng.standard_normal((k, k, ci, co), np.float32)
@@ -166,11 +230,12 @@ def main(argv=None) -> int:
             print(f"k7 {k}x{k} s{stride} {hi} {ci}->{co} {act} {mode}: "
                   f"called {called:.4f} ms, device {device:.4f} ms",
                   flush=True)
-    out["k7_routed_19_layers"] = routed
-    print(f"k7, the K=1 step's 19 routed layers: called "
-          f"{routed['called_ms']:.6f} ms, device {routed['device_ms']:.6f} ms",
-          flush=True)
-    for crops in args.crops:
+    if "k7" in args.kernels:
+        out["k7_routed_19_layers"] = routed
+        print(f"k7, the K=1 step's 19 routed layers: called "
+              f"{routed['called_ms']:.6f} ms, device "
+              f"{routed['device_ms']:.6f} ms", flush=True)
+    for crops in (args.crops if "k8" in args.kernels else ()):
         layers = []
         embed = {"called_ms": 0.0, "device_ms": 0.0}
         for (k, stride, h, w_, ci, co), epilogues in K8_CLASSES:
@@ -205,6 +270,10 @@ def main(argv=None) -> int:
         print(f"k8, one embed of {crops} crops (15 layers): called "
               f"{embed['called_ms']:.6f} ms, device "
               f"{embed['device_ms']:.6f} ms", flush=True)
+    if "k9" in args.kernels:
+        out["k9"] = time_k9(torch, dev, rng)
+    if "k10" in args.kernels:
+        out["k10"] = time_k10(torch, dev)
     print(out["card"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

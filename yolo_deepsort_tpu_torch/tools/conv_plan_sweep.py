@@ -6,7 +6,9 @@
 For every conv shape class the serving paths route -- kernel 7 at the
 eligible shapes of yolov3-416 at batch 8 (bf16 mode and int8 mode with bf16
 activations), kernel 8 at the nine classes of one int8-resident ReID embed of
-320 and of 512 crops -- it times every plan the kernels take (each tile, each
+320 and of 512 crops -- and for kernel 10, the int8 probe's product at its
+default shape (a 1x1 conv of the same main loop, bf16 and int8, the tiles it
+instantiates), it times every plan the kernels take (each tile, each
 split of the depth that divides the steps, the ring as deep as the planner
 makes it) as device time -- the launches replayed from a CUDA graph between
 two events -- and prints, per class, the planner's choice (``ops/conv_plan.py``
@@ -83,6 +85,10 @@ def _ms_eager(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# (m, k, n): kernel 10's (m, k) x (k, n) at the int8 probe's default shape
+PROBE_CLASSES = ((32768, 256, 256),)
+
+
 def candidate_plans(depth: int, elem_bytes: int):
     """Every tile and split, with the ring the planner gives them."""
     steps = CP.depth_steps(depth, elem_bytes)
@@ -132,15 +138,16 @@ def table_source(device_name: str, reps: int, records) -> str:
 
 
 def sweep_one(name, launch, device, m, co, depth, elem_bytes, reps,
-              quantizing=False, only=""):
-    """Time ``launch(plan)`` under every candidate plan; None for a class
-    that ``only`` leaves out."""
+              quantizing=False, only="", tiles=CP.TILES):
+    """Time ``launch(plan)`` under every candidate plan of the ``tiles``
+    the kernel takes; None for a class that ``only`` leaves out."""
     if only not in name:
         return None
     chosen = CP.plan_for(device, m, co, depth, elem_bytes, quantizing)
     times = {}
     for plan in candidate_plans(depth, elem_bytes):
-        if (plan.bn > 64 and plan.bn // 2 >= co) or plan in times:
+        if ((plan.bn > 64 and plan.bn // 2 >= co) or plan in times
+                or (plan.bm, plan.bn) not in tiles):
             continue
         times[plan] = _ms(lambda: launch(plan), reps)
     chosen_ms = _ms(lambda: launch(chosen), reps)
@@ -216,6 +223,17 @@ def main(argv=None) -> int:
                 lambda plan: conv_int8_kernel.conv_int8_cuda(
                     xq, wq, scale, b, 20.0, plan=plan, **kw),
                 device, m, co, k * k * ci, 1, args.reps, only=args.only))
+    from . import int8_probe  # it imports this module's timing helper
+
+    for m, k, co in PROBE_CLASSES:
+        xb, wb, xi, wi = int8_probe.probe_operands(m, k, co, device)
+        for mode, x, w, es in (("bf16", xb, wb, 2), ("int8", xi, wi, 1)):
+            wp = int8_probe.pack_probe_weight(w)
+            records.append(sweep_one(
+                f"k10 probe {m}x{k}x{co} {mode}",
+                lambda plan: int8_probe.matmul_probe_cuda(x, wp, plan=plan),
+                device, m, co, k, es, args.reps, only=args.only,
+                tiles=int8_probe.PROBE_TILES))
     out = {"device": torch.cuda.get_device_name(device), "reps": args.reps,
            "classes": [r for r in records if r is not None]}
     text = json.dumps(out)
