@@ -48,7 +48,11 @@ which ends the run with a non-zero exit code when it fails:
                    beside ``torch.matmul`` / ``torch._int_mm``
    The kernel times (``ms``, and ``library_ms`` beside them) are CUDA-event
    means of repeated calls from Python on the same inputs (the tracker and
-   the JV solvers: the kernel alone, with the whole wrapper beside it). The
+   the JV solvers: the kernel alone, with the whole wrapper beside it, and
+   the kernel alone replayed from a CUDA graph, ``device_ms``; their lines
+   also carry the longest stream's ``rows`` and ``dijkstra_steps``, counted
+   by the plain solver on the same inputs, and ``chain_bound_ms``: (rows +
+   steps) x ``CHAIN_STEP_CYCLES`` at the card's maximum SM clock). The
    two conv kernels at their small shapes take the card less time than
    their wrappers take the host, so they, their library yardstick, kernels
    9 and 10 and their yardsticks are also timed with the host out of the
@@ -225,6 +229,11 @@ TOL_LETTERBOX = 2.0 ** -8  # one bf16 ulp of a value in [0.5, 1): rounding
 TOL_CROPS = 1e-4  # same bf16 rounding points, two taps per axis: exact in
 #                   practice; the bound allows the f32 affine's last bit
 TOL_TRACKER_MEAN = 2e-3  # KF means, absolute px: unrolled Cholesky vs LAPACK
+# K3-K5's chain bound: the least latency, in SM cycles, assumed for one
+# dependent step of a solve (a row's set-up or one Dijkstra step): two warp
+# reductions (redux.sync), one shuffle and one shared-memory load in a
+# chain, ~25 cycles each on Hopper; counted once per row and per step
+CHAIN_STEP_CYCLES = 100
 # small-path detect boxes, absolute px: f32 convs (TF32 off) summed in
 # another order on the card than on the CPU
 TOL_SMALL_BOXES = 1e-3
@@ -448,6 +457,66 @@ def _tracker_scene(rng, s, d, n_frames, feat_dim):
     return frames
 
 
+def _stream_slice(state, si):
+    """Stream ``si`` of a tracker state as a one-stream state; the gallery
+    is copied (the plain step writes it in place)."""
+    fields = {f.name: getattr(state, f.name)[si:si + 1]
+              for f in dataclasses.fields(state)}
+    fields["gallery"] = fields["gallery"].clone()
+    return type(state)(**fields)
+
+
+def longest_stream_work(solves):
+    """(rows, Dijkstra steps) the plain solver did for the stream with the
+    most rows + steps; ``solves`` runs one stream's plain solve each. The
+    kernels' solve for all streams lasts as long as that stream's chain."""
+    from yolo_deepsort_tpu_torch.ops import assignment as A
+
+    best = (0, 0)
+    for run in solves:
+        A.rows_augmented = A.dijkstra_steps = 0
+        run()
+        if A.rows_augmented + A.dijkstra_steps > sum(best):
+            best = (A.rows_augmented, A.dijkstra_steps)
+    return best
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def chain_entry(work, device_ms):
+    """The latency-chain fields of a JV kernel's line: the longest stream's
+    rows and steps, and the chain bound (rows + steps) x the assumed least
+    latency of one dependent step at the card's maximum SM clock."""
+    rows, steps = work
+    mhz = sm_clock_mhz()
+    return {"device_ms": device_ms, "rows": rows, "dijkstra_steps": steps,
+            "chain_bound_ms": (rows + steps) * CHAIN_STEP_CYCLES / mhz / 1e3,
+            "chain_step_cycles": CHAIN_STEP_CYCLES, "sm_clock_mhz": mhz}
+
+
+def _tensors(*xs):
+    """The tensors among xs, tuples opened (a kernel's threshold argument
+    is a tuple holding a tensor or None)."""
+    import torch
+
+    out = []
+    for x in xs:
+        if isinstance(x, tuple):
+            out += _tensors(*x)
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out
+
+
 def check_tracker(rng, dev):
     import torch
 
@@ -463,14 +532,20 @@ def check_tracker(rng, dev):
     scene = _tracker_scene(rng, s, d, 10, cfg.feat_dim)
     st_k = init_tracker_state(cfg, s, dev)
     st_p = init_tracker_state(cfg, s, "cpu")
-    err, k_ms, p_ms, confirmed, packed = 0.0, [], [], 0, None
+    err, k_ms, p_ms, confirmed, packed, work = 0.0, [], [], 0, None, None
     for f, args in enumerate(scene):
+        if f == 5:  # a mid-scene frame: its kernel inputs, timed below
+            work = longest_stream_work([
+                lambda si=si: tracker_step(
+                    cfg, _stream_slice(st_p, si),
+                    *(a[si:si + 1] for a in args), (FRAME_H, FRAME_W))
+                for si in range(s)])
         t0 = time.perf_counter()
         st_p, out_p, emit_p = tracker_step(cfg, st_p, *args,
                                            (FRAME_H, FRAME_W))
         p_ms.append((time.perf_counter() - t0) * 1e3)
         dargs = [a.to(dev) for a in args]
-        if f == 5:  # a mid-scene frame's kernel inputs, timed below
+        if f == 5:
             packed = TK.pack_inputs(cfg, st_k, *dargs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -478,6 +553,9 @@ def check_tracker(rng, dev):
                                                    (FRAME_H, FRAME_W))
         torch.cuda.synchronize()
         k_ms.append((time.perf_counter() - t0) * 1e3)
+        if not TK.last_staged:
+            raise AssertionError("tracker: the serving shape left shared "
+                                 "memory")
         for name in ("state", "hits", "age", "time_since_update", "track_id",
                      "gallery_head", "gallery_count", "next_id"):
             a, b = getattr(st_p, name), getattr(st_k, name).cpu()
@@ -496,14 +574,20 @@ def check_tracker(rng, dev):
     if not err <= TOL_TRACKER_MEAN or confirmed == 0:
         raise AssertionError(f"tracker: mean max |err| {err} > "
                              f"{TOL_TRACKER_MEAN} or no confirmed tracks")
-    # the kernel alone (the launch is pure: same inputs, same outputs);
-    # the whole wrapper step and the plain step by host clock, steady-state
-    # frames only (the first call also builds the gallery)
+    # the kernel alone (the launch is pure: same inputs, same outputs),
+    # called from Python and replayed from a CUDA graph; the whole wrapper
+    # step and the plain step by host clock, steady-state frames only (the
+    # first call also builds the gallery)
     kernel_ms = cuda_ms(lambda: TK.kernel_batched(cfg, *packed), 50)
-    note = f", wrapper step {float(np.median(k_ms[2:])):.4f} ms (host clock)"
-    # in: the packed buffers; out: mean, cov and the int fields again
-    io_bytes = nbytes(*packed) + nbytes(*packed[7:10])
-    return err, kernel_ms, float(np.median(p_ms[2:])), note, io_bytes
+    device_ms = cuda_graph_ms(lambda: TK.kernel_batched(cfg, *packed), 50)
+    note = (f", device {device_ms:.4f} ms, wrapper step "
+            f"{float(np.median(k_ms[2:])):.4f} ms (host clock); longest "
+            f"stream {work[0]} rows, {work[1]} Dijkstra steps")
+    # in: the packed buffers; out: mean, cov, the 7 int planes, next_id
+    io_bytes = nbytes(*packed) + nbytes(*packed[9:11]) + 7 * nbytes(
+        packed[4]) + nbytes(packed[11])
+    return (err, kernel_ms, float(np.median(p_ms[2:])), note, io_bytes,
+            chain_entry(work, device_ms))
 
 
 def _small_setup():
@@ -2384,6 +2468,9 @@ def check_jv_cascade(rng, dev):
     import torch
 
     from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+    from yolo_deepsort_tpu_torch.ops.assignment import (
+        solve_cascade_assignment,
+    )
 
     prob = jv_problem(rng, *JV_SHAPE)[:5]
     on_dev = [v.to(dev) for v in prob]
@@ -2392,19 +2479,31 @@ def check_jv_cascade(rng, dev):
     if not torch.equal(got, want) or int((want >= 0).sum()) == 0:
         raise AssertionError("jv_cascade: kernel assignments differ from "
                              "the plain solver (or nothing matched)")
-    bufs = AK.prep(*on_dev)
+    if not AK.last_staged:
+        raise AssertionError("jv_cascade: JV_SHAPE left shared memory")
+    work = longest_stream_work([
+        lambda i=i: solve_cascade_assignment(
+            *(v[i] for v in prob[:4]), float(prob[4][i]))
+        for i in range(JV_SHAPE[0])])
+    bufs = AK.cascade_inputs(*on_dev)
     kernel_ms = cuda_ms(lambda: AK.cascade_kernel(*bufs), 50)
+    device_ms = cuda_graph_ms(lambda: AK.cascade_kernel(*bufs), 50)
     wrapper_ms = _host_ms(_synced(lambda: AK.cascade_cuda(*on_dev)), 10)
     plain_ms = _host_ms(lambda: AK.solve_cascade_assignment_fused(*prob), 5)
     return 0.0, kernel_ms, plain_ms, (
-        f" (CPU), {int((want >= 0).sum())} matches; whole wrapper "
-        f"{wrapper_ms:.4f} ms (host clock)"), nbytes(*bufs, got)
+        f" (CPU), {int((want >= 0).sum())} matches; device {device_ms:.4f} "
+        f"ms; whole wrapper {wrapper_ms:.4f} ms (host clock); longest "
+        f"stream {work[0]} rows, {work[1]} Dijkstra steps"), nbytes(
+        *_tensors(*bufs), got), chain_entry(work, device_ms)
 
 
 def check_jv_two_stage(rng, dev):
     import torch
 
     from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+    from yolo_deepsort_tpu_torch.ops.assignment import (
+        solve_two_stage_assignment,
+    )
 
     prob = jv_problem(rng, *JV_SHAPE)
     args = prob + [0.7]
@@ -2416,16 +2515,25 @@ def check_jv_two_stage(rng, dev):
             raise AssertionError(f"jv_two_stage: stage {stage} assignments "
                                  "differ from the plain solver (or nothing "
                                  "matched)")
-    bufs = AK.two_stage_prep(*on_dev)
-    c = JV_SHAPE[2]
-    kernel_ms = cuda_ms(lambda: AK.two_stage_kernel(*bufs, c), 50)
+    if not AK.last_staged:
+        raise AssertionError("jv_two_stage: JV_SHAPE left shared memory")
+    work = longest_stream_work([
+        lambda i=i: solve_two_stage_assignment(
+            *(v[i] for v in prob[:4]), float(prob[4][i]), prob[5][i],
+            prob[6][i], 0.7)
+        for i in range(JV_SHAPE[0])])
+    bufs = AK.two_stage_inputs(*on_dev)
+    kernel_ms = cuda_ms(lambda: AK.two_stage_kernel(*bufs), 50)
+    device_ms = cuda_graph_ms(lambda: AK.two_stage_kernel(*bufs), 50)
     wrapper_ms = _host_ms(_synced(lambda: AK.two_stage_cuda(*on_dev)), 10)
     plain_ms = _host_ms(lambda: AK.solve_two_stage_assignment_fused(*args),
                         5)
     return 0.0, kernel_ms, plain_ms, (
         f" (CPU), {int((want[0] >= 0).sum())} + {int((want[1] >= 0).sum())}"
-        f" matches; whole wrapper {wrapper_ms:.4f} ms (host clock)"
-    ), nbytes(*bufs, *got)
+        f" matches; device {device_ms:.4f} ms; whole wrapper "
+        f"{wrapper_ms:.4f} ms (host clock); longest stream {work[0]} rows, "
+        f"{work[1]} Dijkstra steps"), nbytes(*_tensors(*bufs), *got), \
+        chain_entry(work, device_ms)
 
 
 def run_jv_ops(dev):
@@ -3107,12 +3215,17 @@ def main() -> int:
                         ("tracker", check_tracker),
                         ("jv_cascade", check_jv_cascade),
                         ("jv_two_stage", check_jv_two_stage)):
-        err, ms, plain_ms, note, io_bytes = check(rng, dev)
+        err, ms, plain_ms, note, io_bytes, *chain = check(rng, dev)
         # K1, K2 and K6 move bytes (the crops: the box pixels, not the whole
-        # frames); K3-K5 are latency chains of block-wide reductions, far
-        # above their byte bound, which is what is stated
+        # frames); K3-K5 are latency chains, far above their byte bound,
+        # which is what ``bound_ms`` states: their chain bound is beside it
         bound_ms, bound_by = roofline(io_bytes)
-        results[name] = (err, ms, plain_ms, bound_ms, bound_by)
+        results[name] = (err, ms, plain_ms, bound_ms, bound_by,
+                         chain[0] if chain else {})
+        if chain:
+            note += (f"; chain bound {chain[0]['chain_bound_ms']:.6f} ms "
+                     f"({CHAIN_STEP_CYCLES} cycles a row or step at "
+                     f"{chain[0]['sm_clock_mhz']:.0f} MHz)")
         print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms{note}; bound {bound_ms:.6f} ms "
               f"({bound_by}: {io_bytes} in and out), library call: none",
@@ -3252,7 +3365,7 @@ def main() -> int:
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2], "bound_ms": results[name][3],
         "bound_by": results[name][4], "library_ms": None,
-        "launches_k1_path": k1_launches.get(name, 0),
+        "launches_k1_path": k1_launches.get(name, 0), **results[name][5],
     } for name in meta]
     kernels.append(conv_kernel_entry(conv, k1_launches["conv"]))
     kernels.append(conv_int8_kernel_entry(

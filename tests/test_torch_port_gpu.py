@@ -209,6 +209,129 @@ def test_tracker_step_on_cuda_tensors(cuda_device):
     assert int(p_emit.sum()) > 0
 
 
+def _jv_both(dev_kind, prob, maxd_b=0.7):
+    """K4 and K5 on one problem: (cascade, (match_a, match_b))."""
+    cost_a, levels, rows_a, cols, maxd_a, cost_b, rows_b = prob
+    args = [v.to(dev_kind) for v in prob]
+    cascade = assignment_kernel.solve_cascade_assignment_fused(*args[:5])
+    two = assignment_kernel.solve_two_stage_assignment_fused(*args, maxd_b)
+    return cascade.cpu(), tuple(m.cpu() for m in two)
+
+
+def _jv_equal(cuda_device, prob):
+    got_c, got_two = _jv_both(cuda_device, prob)
+    staged = assignment_kernel.last_staged
+    want_c, want_two = _jv_both("cpu", prob)
+    assert torch.equal(got_c, want_c)
+    for g, w in zip(got_two, want_two):
+        assert torch.equal(g, w)
+    return want_c, want_two, staged
+
+
+# (R, C): the runner's columns NC = R + C at the warp and slot edges (32,
+# 33: one slot or two; 128 / 129, 192 / 193, 256 / 257: the last column of
+# the 4-, 6- and 8-slot classes and one over; 512: the last register
+# class, whose cost blocks exceed shared memory) and past them (600: the
+# lane-major shared-memory runner, costs in device memory)
+@pytest.mark.parametrize("rc,staged", [((20, 12), True), ((21, 12), True),
+                                       ((64, 64), True), ((65, 64), True),
+                                       ((128, 64), True), ((129, 64), True),
+                                       ((128, 128), True), ((129, 128), True),
+                                       ((256, 256), False),
+                                       ((400, 200), False)])
+def test_jv_runner_at_slot_edges(cuda_device, rc, staged):
+    prob = jv_problem(np.random.default_rng(sum(rc)), 2, *rc)
+    want_c, want_two, got_staged = _jv_equal(cuda_device, prob)
+    assert got_staged == staged  # the device-memory branch where it must
+    assert (want_c >= 0).any() and (want_two[1] >= 0).any()
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_jv_kernels_exact_ties_at_several_seeds(cuda_device, seed):
+    prob = jv_problem(np.random.default_rng(100 + seed), 8, 128, 64)
+    want_c, want_two, staged = _jv_equal(cuda_device, prob)
+    assert staged and (want_c >= 0).any() and (want_two[0] >= 0).any()
+
+
+@pytest.mark.parametrize("case", ["no_active_row", "rows_all_ineligible",
+                                  "no_column"])
+def test_jv_kernels_single_stream_edges(cuda_device, case):
+    """S = 1 problems: no active row (n_active = 0), rows whose every column
+    is ineligible (they take their dummies: -1), no eligible column."""
+    prob = jv_problem(np.random.default_rng(7), 1, 40, 20)
+    cost_a, levels, rows_a, cols, maxd_a, cost_b, rows_b = prob
+    if case == "no_active_row":
+        rows_a[:] = False
+        rows_b[:] = False
+    elif case == "rows_all_ineligible":
+        cost_a[0, :10] = 1e5
+        cost_b[0, :10] = 1e5
+        rows_a[0, :10] = True
+        rows_b[0, :10] = True
+    else:
+        cols[:] = False
+    want_c, want_two, _ = _jv_equal(cuda_device, prob)
+    if case == "rows_all_ineligible":
+        assert (want_c[0, :10] < 0).all() and (want_two[1][0, :10] < 0).all()
+        assert (want_c >= 0).any()
+    else:
+        assert (want_c < 0).all() and (want_two[1] < 0).all()
+
+
+# (max_tracks, max_dets): NC = T + D at the runner's slot edges; 256 x 256
+# exceeds shared memory, so its (T, D) blocks go through device memory
+@pytest.mark.parametrize("td,staged", [((16, 16), True), ((17, 16), True),
+                                       ((64, 64), True), ((65, 64), True),
+                                       ((128, 64), True), ((129, 64), True),
+                                       ((256, 256), False)])
+def test_tracker_kernel_at_slot_edges(cuda_device, td, staged):
+    t, d = td
+    s, n_obj = 2, min(d, 3 * t // 4)
+    cfg = TrackerConfig(max_dets=d, feat_dim=64, max_tracks=t, nn_budget=3,
+                        max_age=4)
+    k_state = init_tracker_state(cfg, s, cuda_device)
+    p_state = init_tracker_state(cfg, s, "cpu")
+    rng = np.random.default_rng(t + d)
+    confirmed = 0
+    for f, args in enumerate(_scene(rng, s, n_obj, 8, d, 64, 0.2)):
+        p_state, p_out, p_emit = tracker_kernel.tracker_step_fused_batched(
+            cfg, p_state, *args, (240, 320))
+        k_state, k_out, k_emit = tracker_kernel.tracker_step_fused_batched(
+            cfg, k_state, *(a.to(cuda_device) for a in args), (240, 320))
+        assert tracker_kernel.last_staged == staged
+        for name in DISCRETE:
+            assert torch.equal(getattr(p_state, name),
+                               getattr(k_state, name).cpu()), (f, name)
+        assert torch.equal(p_emit, k_emit.cpu()), f
+        assert torch.equal(p_out[..., 4], k_out[..., 4].cpu()), f
+        assert (p_out[..., :4] - k_out[..., :4].cpu()).abs().max() <= 1
+        assert torch.allclose(p_state.mean, k_state.mean.cpu(), rtol=2e-4,
+                              atol=2e-3), f
+        confirmed = int((p_state.state == 2).sum())
+    assert confirmed > 0
+
+
+def test_tracker_kernel_without_detections(cuda_device):
+    """A frame with no valid detection (stage A and B with no eligible
+    column) on a state with confirmed tracks: every track coasts."""
+    cfg = TrackerConfig(max_dets=8, feat_dim=64, max_tracks=16, nn_budget=3)
+    k_state = init_tracker_state(cfg, 1, cuda_device)
+    p_state = init_tracker_state(cfg, 1, "cpu")
+    frames = list(_scene(np.random.default_rng(3), 1, 6, 6, 8, 64, 0.0))
+    empty = [a.clone() for a in frames[-1]]
+    empty[3][:] = False
+    for f, args in enumerate(frames + [empty]):
+        p_state, p_out, p_emit = tracker_kernel.tracker_step_fused_batched(
+            cfg, p_state, *args, (240, 320))
+        k_state, k_out, k_emit = tracker_kernel.tracker_step_fused_batched(
+            cfg, k_state, *(a.to(cuda_device) for a in args), (240, 320))
+        for name in DISCRETE:
+            assert torch.equal(getattr(p_state, name),
+                               getattr(k_state, name).cpu()), (f, name)
+        assert torch.equal(p_emit, k_emit.cpu()), f
+    assert int((p_state.time_since_update == 1).sum()) > 0
+
+
 def bf16_ulps(got, want, floor=2.0 ** -6):
     """max |got - want| in bf16 ulps of max(|want|, floor), in f32."""
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=floor))) - 7)

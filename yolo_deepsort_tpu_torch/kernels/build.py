@@ -54,15 +54,20 @@ SIGNATURES = {
     # frames, boxes, out, b, d, h, w, win_h, win_w, stream
     "ydt_crops": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ydt_crops_interleaved": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # n3, app, det8, mask, order_a, levels_a, order_b, mean, cov, ints,
-    # mean_out, cov_out, ints_out, aug, s, t, d, nc, max_dist,
-    # max_iou_distance, max_age, n_init, stream
-    "ydt_tracker_step": [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
-    # aug, order, levels, n_active, out, s, r, nc, stream
-    "ydt_jv_cascade": [_P] * 5 + [_I, _I, _I, _P],
-    # aug_a, order_a, levels_a, aug_b, order_b, n2, out_a, out_b, s, r, nc,
-    # c_real, stream
-    "ydt_jv_two_stage": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # app, det_tlwh, det_conf, det_mask, state, hits, age, tsu, track_id,
+    # mean, cov, next_id, mean_out, cov_out, ints_out, next_id_out,
+    # scratch, s, t, d, max_dist, max_iou_distance, max_age, n_init,
+    # min_confidence, staged (host int, out), stream
+    "ydt_tracker_step": [_P] * 17 + [_I, _I, _I, _F, _F, _I, _I, _F, _P,
+                                     _P],
+    # cost, levels, row_mask, col_mask, maxd, maxd_stride, maxd_value, out,
+    # s, r, c, staged (host int, out), stream
+    "ydt_jv_cascade": [_P] * 5 + [_I, _F, _P, _I, _I, _I, _P, _P],
+    # cost_a, levels_a, rows_a, cols, maxd_a, stride_a, value_a, cost_b,
+    # rows_b, maxd_b, stride_b, value_b, out_a, out_b, s, r, c, staged
+    # (host int, out), stream
+    "ydt_jv_two_stage": [_P] * 5 + [_I, _F] + [_P] * 3 + [_I, _F]
+    + [_P] * 2 + [_I, _I, _I, _P, _P],
     # x, w, bias, scale, xinv, out, n, hi, wi, ci, ho, wo, co, k, stride,
     # pad, act, mode, ldw, bm, bn, stages, split, stream
     "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 17 + [_P],

@@ -10,8 +10,8 @@ optimal and the result equals the per-level matching cascade.
 
 This is the plain PyTorch solver of the tracker's plain version. It runs
 row by row with host-side control flow (every Dijkstra step reads its
-argmin back), so it belongs on CPU tensors; the fused CUDA tracker kernel
-(``csrc/jv_stage.cuh``) runs the same arithmetic on the card. f32 math and
+argmin back), so it belongs on CPU tensors; the CUDA kernels' warp stage
+runner (``csrc/jv_stage.cuh``) runs the same arithmetic on the card. f32 math and
 lowest-index argmin ties follow the reference exactly.
 """
 
@@ -24,9 +24,17 @@ import torch
 _BIG = 1e9  # "infinite" cost; arithmetic on it stays finite
 _LEVEL_INACTIVE = 2**30
 
+# Work the plain solver did, as the kernels' chain bound counts it: rows
+# augmented and Dijkstra steps (argmin + relax or stop), over every solve
+# since the caller last set them to 0.
+rows_augmented = 0
+dijkstra_steps = 0
+
 
 def _augment_row(aug, row, levels, row_assign, col_owner, owner_level, v):
     """One JV augmentation of ``row`` (in place on the state vectors)."""
+    global rows_augmented, dijkstra_steps
+    rows_augmented += 1
     nc = aug.shape[1]
     big = torch.full((), _BIG, dtype=torch.float32)
     frozen = owner_level < levels[row]
@@ -38,6 +46,7 @@ def _augment_row(aug, row, levels, row_assign, col_owner, owner_level, v):
     pred = torch.full((nc,), row, dtype=torch.int64)
     todo = torch.ones(nc, dtype=torch.bool)
     while True:
+        dijkstra_steps += 1
         dj = torch.where(todo, d, big)
         j_min = int(torch.argmin(dj))  # lowest index on ties
         mu = dj[j_min]

@@ -1,5 +1,5 @@
 """Kernels 4 and 5: the JV assignment solver (CUDA ``csrc/assignment.cu``,
-with the stage runner of ``csrc/jv_stage.cuh``).
+with the warp stage runner of ``csrc/jv_stage.cuh``).
 
 Replaces two TPU kernels of ``yolo_deepsort_tpu/ops/assignment_pallas.py``:
 
@@ -10,15 +10,21 @@ Replaces two TPU kernels of ``yolo_deepsort_tpu/ops/assignment_pallas.py``:
   which the tracker step (``tracking/tracker.py``) calls once per frame for
   all streams.
 
-Bound on the H100 by latency: every augmentation is a chain of block-wide
-min-reductions, so each stream's solve runs in one block with its JV
-vectors in shared memory (see the note at the top of the .cu file).
+Bound on the H100 by latency: a solve is a chain of (rows + Dijkstra
+steps) dependent steps, and almost every row finds a free column in its
+first step, so the fixed cost per row rules. The design gives each stream
+one warp, with the column state in registers, the real cost block staged
+in shared memory and no block-wide barrier inside the row loop (see the
+notes at the top of the .cu files).
 
-As in the reference, the cheap vectorized prep -- eligibility, the ``_BIG``
-real block, the private dummies at ``max_distance + 2e-5``, the
-``_LEVEL_INACTIVE`` levels, the stable level-major argsort and the
-active-row counts -- is framework ops (``prep``), batched over streams on
-the device; it reads nothing back to the host.
+The kernels take the compact problem -- costs (S, R, C), levels, row and
+column masks, thresholds -- and do the reference's prep themselves:
+eligibility, the private dummies at ``max_distance + 2e-5``, the
+``_LEVEL_INACTIVE`` levels, the stable level-major order, the active-row
+counts and the unpadding to real columns. ``prep`` / ``two_stage_prep``
+(the reference's ``_prep``, batched) and ``kernel_prologue`` (that prep in
+the kernels' compact form, with the orders as exact stable ranks) are
+their plain versions. No wrapper builds the augmented (S, R, C + R) tensor.
 
 Both solvers take a cost of shape (S, R, C) or (R, C). They take the plain
 version (``ops/assignment.py``, one stream at a time) for CPU tensors only;
@@ -28,6 +34,7 @@ a per-stream (S,) tensor.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -42,6 +49,9 @@ from .assignment import (
 
 cascade_launches = 0  # K4 launches; only its launch below adds to it
 two_stage_launches = 0  # K5 launches; only its launch below adds to it
+# whether the last launch staged its cost blocks in shared memory (False:
+# the runner read them from device memory)
+last_staged = None
 
 
 def _thresholds(max_distance, s: int, device) -> torch.Tensor:
@@ -53,10 +63,25 @@ def _thresholds(max_distance, s: int, device) -> torch.Tensor:
                       device=device)
 
 
+def stable_rank_order(levels: torch.Tensor) -> torch.Tensor:
+    """(S, N) levels -> (S, N) int32 order with order[rank_i] = i, rank_i =
+    #{k : (level_k, k) < (level_i, i)}: the kernels' stable sort, equal to
+    ``torch.argsort(levels, stable=True)``."""
+    s, n = levels.shape
+    li, lk = levels[:, :, None], levels[:, None, :]
+    idx = torch.arange(n, device=levels.device)
+    k_before_i = idx[None, None, :] < idx[None, :, None]
+    before = (lk < li) | ((lk == li) & k_before_i)
+    rank = before.sum(-1)
+    order = torch.empty((s, n), dtype=torch.int32, device=levels.device)
+    return order.scatter_(1, rank, idx.to(torch.int32).expand(s, n)
+                          .contiguous())
+
+
 def prep(cost, row_levels, row_mask, col_mask, max_distance):
-    """Framework side before the kernel, batched: (S, R, C) costs ->
+    """The reference's ``_prep``, batched and unpadded: (S, R, C) costs ->
     (aug (S, R, C + R) f32, order (S, R) i32, levels (S, R) i32,
-    n_active (S,) i32), as the reference's ``_prep`` without its padding."""
+    n_active (S,) i32)."""
     cost = cost.float()
     s, r, c = cost.shape
     dev = cost.device
@@ -77,18 +102,32 @@ def prep(cost, row_levels, row_mask, col_mask, max_distance):
     return aug, order.contiguous(), levels.contiguous(), n_active
 
 
+def kernel_prologue(cost, row_levels, row_mask, col_mask, max_distance):
+    """Plain version of what the kernels build from the compact problem:
+    (real (S, R, C) f32 -- eligible costs, else ``_BIG`` --, dummy (S,) f32
+    -- the price of each row's own dummy column, every other dummy entry
+    being ``_BIG`` --, levels (S, R) i32, order (S, R) i32 as exact stable
+    ranks, n_active (S,) i32). ``prep`` is this with the dummy block
+    written out."""
+    cost = cost.float()
+    s = cost.shape[0]
+    row_mask, col_mask = row_mask.bool(), col_mask.bool()
+    maxd = _thresholds(max_distance, s, cost.device)
+    eligible = (row_mask[:, :, None] & col_mask[:, None, :]
+                & (cost <= maxd[:, None, None]))
+    real = torch.where(eligible, cost, torch.full_like(cost, _BIG))
+    levels = torch.where(row_mask, row_levels.to(torch.int32),
+                         torch.full_like(row_mask, _LEVEL_INACTIVE,
+                                         dtype=torch.int32))
+    return (real, maxd + 2e-5, levels, stable_rank_order(levels),
+            row_mask.sum(-1, dtype=torch.int32))
+
+
 def _batched(cost, *rows):
     """Add a stream axis to an unbatched (R, C) problem."""
     if cost.dim() == 3:
         return True, cost, rows
     return False, cost[None], tuple(v[None] for v in rows)
-
-
-def _matches(assign, rows, c):
-    """Augmented-column assignment -> real column per row, or -1."""
-    hit = (assign >= 0) & (assign < c) & rows.bool()
-    return torch.where(hit, assign, torch.full_like(assign, -1)).to(
-        torch.int32)
 
 
 def solve_cascade_assignment_fused(cost, row_levels, row_mask, col_mask,
@@ -154,59 +193,114 @@ def _check_problem(name, cost, *vectors):
                              f"{tuple(cost.shape)}")
 
 
-def cascade_kernel(aug, order, levels, n_active) -> torch.Tensor:
-    """Launch K4 on the buffers of ``prep``: -> (S, R) int32 augmented
+def _maxd_arg(max_distance, s: int, device):
+    """A threshold as the C entry takes it: (pointer, stride, value). A
+    float or a one-element CPU tensor goes by value; a CUDA tensor by
+    pointer, stride 0 for one element and 1 for one per stream."""
+    if not isinstance(max_distance, torch.Tensor):
+        return None, 0, float(max_distance)
+    if max_distance.device.type == "cpu" and max_distance.numel() == 1:
+        return None, 0, float(max_distance)
+    t = max_distance.to(device=device, dtype=torch.float32).reshape(-1)
+    if t.numel() not in (1, s):
+        raise ValueError(f"max_distance of {t.numel()} values for {s} "
+                         "streams")
+    return t.contiguous(), int(t.numel() > 1), 0.0
+
+
+def cascade_inputs(cost, row_levels, row_mask, col_mask, max_distance):
+    """The compact buffers ``cascade_kernel`` takes, in its argument order:
+    no op for inputs already in the kernel's types and contiguous."""
+    build.require_cuda("jv_cascade", cost, row_levels, row_mask, col_mask,
+                       contiguous=False)
+    _check_problem("jv_cascade", cost, row_levels, row_mask, col_mask)
+    return (cost.float().contiguous(),
+            row_levels.to(torch.int32).contiguous(),
+            row_mask.bool().contiguous(), col_mask.bool().contiguous(),
+            _maxd_arg(max_distance, cost.shape[0], cost.device))
+
+
+def cascade_kernel(cost, levels, row_mask, col_mask, maxd) -> torch.Tensor:
+    """Launch K4 on the buffers of ``cascade_inputs``: -> (S, R) int32 real
     column per row (-1 unmatched)."""
-    global cascade_launches
-    build.require_cuda("jv_cascade", aug, order, levels, n_active)
-    s, r, nc = aug.shape
-    out = torch.empty((s, r), dtype=torch.int32, device=aug.device)
+    global cascade_launches, last_staged
+    md, stride, value = maxd
+    bufs = (cost, levels, row_mask, col_mask) + ((md,) if md is not None
+                                                 else ())
+    build.require_cuda("jv_cascade", *bufs)
+    s, r, c = cost.shape
+    out = torch.empty((s, r), dtype=torch.int32, device=cost.device)
+    staged = ctypes.c_int(0)
     lib = build.load()
     err = lib.ydt_jv_cascade(
-        aug.data_ptr(), order.data_ptr(), levels.data_ptr(),
-        n_active.data_ptr(), out.data_ptr(), s, r, nc,
-        torch.cuda.current_stream(aug.device).cuda_stream)
+        cost.data_ptr(), levels.data_ptr(), row_mask.data_ptr(),
+        col_mask.data_ptr(), None if md is None else md.data_ptr(), stride,
+        value, out.data_ptr(), s, r, c, ctypes.addressof(staged),
+        torch.cuda.current_stream(cost.device).cuda_stream)
     build.check_launch("jv_cascade", err)
     cascade_launches += 1
+    last_staged = bool(staged.value)
     return out
 
 
 def cascade_cuda(cost, row_levels, row_mask, col_mask, max_distance):
-    build.require_cuda("jv_cascade", cost, row_levels, row_mask, col_mask,
-                       contiguous=False)
-    _check_problem("jv_cascade", cost, row_levels, row_mask, col_mask)
-    aug, order, levels, n_active = prep(cost, row_levels, row_mask, col_mask,
-                                        max_distance)
-    return _matches(cascade_kernel(aug, order, levels, n_active), row_mask,
-                    cost.shape[2])
+    return cascade_kernel(*cascade_inputs(cost, row_levels, row_mask,
+                                          col_mask, max_distance))
 
 
-def two_stage_kernel(aug_a, order_a, levels_a, aug_b, order_b, n2,
-                     c_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K5 on the buffers of ``two_stage_prep``: -> two (S, R) int32
-    augmented-column assignments (-1 unmatched)."""
-    global two_stage_launches
-    bufs = (aug_a, order_a, levels_a, aug_b, order_b, n2)
+def two_stage_inputs(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
+                     rows_b_super, maxd_b):
+    """The compact buffers ``two_stage_kernel`` takes, in its argument
+    order (stage B: one level over the candidate superset)."""
+    build.require_cuda("jv_two_stage", cost_a, levels_a, rows_a, cols,
+                       cost_b, rows_b_super, contiguous=False)
+    _check_problem("jv_two_stage", cost_a, levels_a, rows_a, cols,
+                   rows_b_super)
+    if cost_b.shape != cost_a.shape:
+        raise ValueError("jv_two_stage: stage costs differ in shape")
+    s, dev = cost_a.shape[0], cost_a.device
+    return (cost_a.float().contiguous(),
+            levels_a.to(torch.int32).contiguous(),
+            rows_a.bool().contiguous(), cols.bool().contiguous(),
+            _maxd_arg(maxd_a, s, dev), cost_b.float().contiguous(),
+            rows_b_super.bool().contiguous(), _maxd_arg(maxd_b, s, dev))
+
+
+def two_stage_kernel(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
+                     rows_b, maxd_b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on the buffers of ``two_stage_inputs``: -> two (S, R)
+    int32 real-column assignments (-1 unmatched)."""
+    global two_stage_launches, last_staged
+    (ma, sa, va), (mb, sb, vb) = maxd_a, maxd_b
+    bufs = (cost_a, levels_a, rows_a, cols, cost_b, rows_b) + tuple(
+        m for m in (ma, mb) if m is not None)
     build.require_cuda("jv_two_stage", *bufs)
-    s, r, nc = aug_a.shape
-    if aug_b.shape != aug_a.shape or n2.shape != (s, 2):
+    s, r, c = cost_a.shape
+    if cost_b.shape != cost_a.shape:
         raise ValueError("jv_two_stage: stage buffers do not match")
-    out_a = torch.empty((s, r), dtype=torch.int32, device=aug_a.device)
+    out_a = torch.empty((s, r), dtype=torch.int32, device=cost_a.device)
     out_b = torch.empty_like(out_a)
+    staged = ctypes.c_int(0)
     lib = build.load()
     err = lib.ydt_jv_two_stage(
-        *(b.data_ptr() for b in bufs), out_a.data_ptr(), out_b.data_ptr(),
-        s, r, nc, int(c_real),
-        torch.cuda.current_stream(aug_a.device).cuda_stream)
+        cost_a.data_ptr(), levels_a.data_ptr(), rows_a.data_ptr(),
+        cols.data_ptr(), None if ma is None else ma.data_ptr(), sa, va,
+        cost_b.data_ptr(), rows_b.data_ptr(),
+        None if mb is None else mb.data_ptr(), sb, vb, out_a.data_ptr(),
+        out_b.data_ptr(), s, r, c, ctypes.addressof(staged),
+        torch.cuda.current_stream(cost_a.device).cuda_stream)
     build.check_launch("jv_two_stage", err)
     two_stage_launches += 1
+    last_staged = bool(staged.value)
     return out_a, out_b
 
 
 def two_stage_prep(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
                    rows_b_super, maxd_b):
-    """Both stages' ``prep``, in the argument order of ``two_stage_kernel``
-    (stage B: one level over the candidate superset)."""
+    """Both stages' ``prep`` (stage B: one level over the candidate
+    superset): the plain version of K5's prologue, with the augmented
+    blocks written out -> (aug_a, order_a, levels_a, aug_b, order_b, n2
+    (S, 2) [n_a, n_b])."""
     aug_a, order_a, lv_a, n_a = prep(cost_a, levels_a, rows_a, cols, maxd_a)
     aug_b, order_b, _, n_b = prep(cost_b, torch.zeros_like(levels_a),
                                   rows_b_super, cols, maxd_b)
@@ -216,14 +310,6 @@ def two_stage_prep(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
 
 def two_stage_cuda(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
                    rows_b_super, maxd_b):
-    build.require_cuda("jv_two_stage", cost_a, levels_a, rows_a, cols,
-                       cost_b, rows_b_super, contiguous=False)
-    _check_problem("jv_two_stage", cost_a, levels_a, rows_a, cols,
-                   rows_b_super)
-    if cost_b.shape != cost_a.shape:
-        raise ValueError("jv_two_stage: stage costs differ in shape")
-    c = cost_a.shape[2]
-    out_a, out_b = two_stage_kernel(
-        *two_stage_prep(cost_a, levels_a, rows_a, cols, maxd_a, cost_b,
-                        rows_b_super, maxd_b), c)
-    return _matches(out_a, rows_a, c), _matches(out_b, rows_b_super, c)
+    return two_stage_kernel(*two_stage_inputs(
+        cost_a, levels_a, rows_a, cols, maxd_a, cost_b, rows_b_super,
+        maxd_b))

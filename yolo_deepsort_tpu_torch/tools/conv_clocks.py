@@ -1,9 +1,10 @@
-"""Time the kernels on the conv kernels' main loop on two clocks, in this
-checkout or in another one.
+"""Time the kernels on the conv kernels' main loop, and the tracker and JV
+kernels, on two clocks, in this checkout or in another one.
 
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --out clocks.json
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --root DIR --out ...
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k9 k10
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k3 k4 k5
 
 Kernel 7 at the 15 eligible conv shapes of yolov3-416 at batch 8 plus the mish
 shape (bf16 mode, and int8 mode with bf16 activations), kernel 8 at the nine
@@ -16,8 +17,16 @@ takes, both modes, batch 8 and 32 (``resblock_chain_bf16`` /
 weights packed once where the checkout's module packs them:
 ``pack_chain_args``); kernel 10 at the probe's (32768, 256) x (256, 256),
 both types (``matmul_probe``, the weight packed once where the module
-packs it: ``pack_probe_weight``). Two clocks, both CUDA events around 50
-calls (10 for kernel 9):
+packs it: ``pack_probe_weight``); kernel 3 on the sixth frame of
+``chip_smoke.py``'s tracker scene (``_tracker_scene``, seeded 0 here: S=8,
+T=128, D=40, F=512, the state advanced through frames 0-4 by the
+checkout's own step), kernels 4 and 5 on ``jv_problem`` at ``JV_SHAPE``
+(8, 128, 64), seeded 0 -- each the kernel alone on the inputs its
+checkout's wrapper hands it (``pack_inputs``; ``cascade_inputs`` /
+``two_stage_inputs``, or ``prep`` / ``two_stage_prep`` in a checkout that
+predates them) and the whole wrapper beside it (``tracker_step_cuda``, the
+two public solvers). Two clocks, both CUDA events around 50 calls (10 for
+kernel 9):
 
 * ``called_ms``: the calls made from Python back to back. Where a kernel is
   shorter than its wrapper's time on the host, this is the host's time.
@@ -176,6 +185,74 @@ def time_k10(torch, dev):
     return out
 
 
+def _smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its scene and problem
+    makers; it imports numpy only at the top)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_ydt_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_tracker_jv(torch, dev, kernels):
+    """Kernels 3-5 alone and inside their wrappers, on both clocks."""
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel as TK
+    from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
+
+    smoke = _smoke()
+    out = {}
+
+    def record(name, fn):
+        called, device = both_clocks(torch, fn)
+        out[name] = {"called_ms": called, "device_ms": device}
+        print(f"{name}: called {called:.6f} ms, device {device:.6f} ms",
+              flush=True)
+
+    if "k3" in kernels:
+        cfg = TrackerConfig(max_dets=40)
+        hw = (smoke.FRAME_H, smoke.FRAME_W)
+        scene = smoke._tracker_scene(np.random.default_rng(0), smoke.STREAMS,
+                                     40, 6, cfg.feat_dim)
+        state = init_tracker_state(cfg, smoke.STREAMS, dev)
+        for args in scene[:5]:
+            state, _, _ = TK.tracker_step_fused_batched(
+                cfg, state, *(a.to(dev) for a in args), hw)
+        args = [a.to(dev) for a in scene[5]]
+        packed = TK.pack_inputs(cfg, state, *args)
+        record("k3", lambda: TK.kernel_batched(cfg, *packed))
+        # the whole step writes the gallery in place: every replay sees a
+        # gallery one write further on, the same work
+        record("k3 whole step", lambda: TK.tracker_step_cuda(
+            cfg, state, *args, hw))
+    prob = [v.to(dev) for v in smoke.jv_problem(np.random.default_rng(0),
+                                                *smoke.JV_SHAPE)]
+    c = smoke.JV_SHAPE[2]
+    if "k4" in kernels:
+        if hasattr(AK, "cascade_inputs"):
+            bufs = AK.cascade_inputs(*prob[:5])
+        else:
+            bufs = AK.prep(*prob[:5])
+        record("k4", lambda: AK.cascade_kernel(*bufs))
+        record("k4 whole wrapper",
+               lambda: AK.solve_cascade_assignment_fused(*prob[:5]))
+    if "k5" in kernels:
+        if hasattr(AK, "two_stage_inputs"):
+            bufs5 = AK.two_stage_inputs(*prob, 0.7)
+            fn = lambda: AK.two_stage_kernel(*bufs5)  # noqa: E731
+        else:
+            bufs5 = AK.two_stage_prep(*prob, 0.7)
+            fn = lambda: AK.two_stage_kernel(*bufs5, c)  # noqa: E731
+        record("k5", fn)
+        record("k5 whole wrapper",
+               lambda: AK.solve_two_stage_assignment_fused(*prob, 0.7))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -183,7 +260,8 @@ def main(argv=None) -> int:
                          "this one)")
     ap.add_argument("--crops", type=int, nargs="*", default=[320, 512])
     ap.add_argument("--kernels", nargs="*", default=["k7", "k8", "k9", "k10"],
-                    help="which kernels to time (k7 k8 k9 k10)")
+                    help="which kernels to time (k3 k4 k5 k7 k8 k9 "
+                         "k10)")
     ap.add_argument("--out", default=None, help="write the JSON record here")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve() if args.root else \
@@ -274,6 +352,8 @@ def main(argv=None) -> int:
         out["k9"] = time_k9(torch, dev, rng)
     if "k10" in args.kernels:
         out["k10"] = time_k10(torch, dev)
+    if {"k3", "k4", "k5"} & set(args.kernels):
+        out["tracker_jv"] = time_tracker_jv(torch, dev, args.kernels)
     print(out["card"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
