@@ -24,8 +24,14 @@ which ends the run with a non-zero exit code when it fails:
                    one mish shape, in bf16 mode (within 2 bf16 ulps) and in
                    int8 mode (exactly equal); ``check_conv``
      crops_interleaved  the same boxes through kernel 6 (the interleaved-RGB
-                   variant, staged window rows): to its plain version within
-                   the crops tolerance, and exactly equal to kernel 2
+                   variant of the same staged main loop): to its plain
+                   version within the crops tolerance, and exactly equal to
+                   kernel 2
+     crops_dense   the K=1 step's crops (the dense-order entry of the same
+                   loop, whole-frame window) on those boxes with a
+                   full-frame, a tall and a wide box in every frame: exactly
+                   equal to its plain version, the batched
+                   ``crop_and_normalize`` at bf16; ``check_crops_dense``
      conv_int8     kernel 8 at the nine conv shape classes of one int8-
                    resident ReID embed of 320 crops (``REID_INT8_CLASSES``),
                    each in every epilogue its layers use (ReLU, residual,
@@ -47,7 +53,9 @@ which ends the run with a non-zero exit code when it fails:
                    division), bf16 within 1 bf16 ulp; timed on both clocks
                    beside ``torch.matmul`` / ``torch._int_mm``
    The kernel times (``ms``, and ``library_ms`` beside them) are CUDA-event
-   means of repeated calls from Python on the same inputs (the tracker and
+   means of repeated calls from Python on the same inputs (K1, K2, K6 and
+   the dense crops also replayed from a CUDA graph, ``device_ms``; the
+   tracker and
    the JV solvers: the kernel alone, with the whole wrapper beside it, and
    the kernel alone replayed from a CUDA graph, ``device_ms``; their lines
    also carry the longest stream's ``rows`` and ``dijkstra_steps``, counted
@@ -59,8 +67,9 @@ which ends the run with a non-zero exit code when it fails:
    way, the same calls replayed from a CUDA graph: ``device_ms``,
    ``library_device_ms``, ``k7_device_ms``. Each kernel's line also gives its roofline bound
    (``roofline``: bytes in and out over 3.35 TB/s, or operations over the
-   card's peak for their type; for the crops the bytes in are the frame
-   pixels that lie in a box, ``crops_io_bytes``) and, for the conv, the time of the library
+   card's peak for their type; for kernels 2 and 6 the bytes in are the
+   frame pixels that lie in a box, ``crops_io_bytes``, for the dense crops
+   the pixels its taps weigh, ``crops_dense_io_bytes``) and, for the conv, the time of the library
    call that computes the same function (``F.conv2d`` + activation), a
    yardstick the port never calls.
 3. small paths: ``BucketedScannedStep`` on the card against the same step on
@@ -84,26 +93,28 @@ which ends the run with a non-zero exit code when it fails:
    (320, 192), the backbone convs of a FIXED layer set (``CONV_ROUTE``: 9
    layers through the bf16 conv kernel, 10 through the int8 one, package
    calibrated from two of the frames) routed through kernel 7. Checks per
-   step: K1, K2, K3 launch once and K7 19 times, one readback and no other
-   synchronizing call; prints p50/p99 ms per step with the route and
-   without it, whether both emit the same rows, and what the window guard's
-   dense crops cost alone.
+   step: K1, the dense crops and K3 launch once, K2 never, K7 19 times, one
+   readback and no other synchronizing call; prints p50/p99 ms per step
+   with the route and without it, whether both emit the same rows, and the
+   step's crops alone beside the earlier design's (K2, the per-frame dense
+   crops and the window guard's ``torch.where``) on both clocks.
 4c. int8-resident ReID embed (``run_int8_embed_paths``): the package of
    ``quantize_reid_params_resident`` (seeded ReID weights, 64 N(0, 1) crops,
    calibrated on the card) through the chunked step and the K=1 step with
    ``embed_int8="resident_pallas"`` on the main path's model and frames:
-   per chunk K8 15 launches, K1 1, K2 1, K3 K; per K=1 step K8 15, K1, K2,
-   K3 1; one readback each and no other synchronizing call; frames/s and
-   p50/p99 beside the bf16 embed's in alternated blocks; and both steps
-   under ``YDT_CROPS_LAYOUT=interleaved`` (K6 1 per chunk and per step, K2
-   0, rows equal to the planar run's).
+   per chunk K8 15 launches, K1 1, K2 1, K3 K; per K=1 step K8 15, K1, the
+   dense crops, K3 1; one readback each and no other synchronizing call;
+   frames/s and p50/p99 beside the bf16 embed's in alternated blocks; and
+   both steps under ``YDT_CROPS_LAYOUT=interleaved`` (K6 1 per chunk and 0
+   per step, K2 0, rows equal to the planar run's).
 4d. fused residual chains (``run_resblock_paths``): the chunked step and
    the K=1 step with ``use_resblock=True`` and ``use_resblock="int8"`` (the
    package of the 40 chain convs calibrated on the card from two frames) on
    the main path's model and frames: per chunk and per step K9 3 launches
    (one per routed chain, what ``plan_chain_schedule`` promises) and 40
    kernels behind them, two per block of the model's chains, as the C entry
-   counts its launches (``device_kernels``), K1, K2, K3 as before,
+   counts its launches (``device_kernels``), K1, K2 (the K=1 step: the
+   dense crops), K3 as before,
    one readback and no other synchronizing call; the routed
    detector's decoded output against the unrouted one; frames/s and p50/p99
    beside the unrouted run's in alternated blocks; emitted rows beside the
@@ -320,7 +331,7 @@ def cuda_ms(fn, reps: int) -> float:
 _GRAPH_POOL = None  # one memory pool for every graph cuda_graph_ms captures
 
 
-def cuda_graph_ms(fn, reps: int) -> float:
+def cuda_graph_ms(fn, reps: int, own_pool: bool = False) -> float:
     """Mean device time of fn() with the host out of the way: ``reps``
     calls captured into one CUDA graph (after one warm-up), the graph
     replayed between two events, the median of three replays. Kernels 7 and
@@ -328,7 +339,9 @@ def cuda_graph_ms(fn, reps: int) -> float:
     wrappers take on the host, so back-to-back calls (``cuda_ms``) would
     time the host there. The graphs are replayed one at a time and their
     outputs never read, so all share one memory pool: none pays to reserve
-    and to return the memory of its ``reps`` outputs."""
+    and to return the memory of its ``reps`` outputs. ``own_pool`` gives
+    the graph a pool of its own instead (a function of many framework ops,
+    whose temporaries the shared pool's allocator bookkeeping refuses)."""
     import torch
 
     global _GRAPH_POOL
@@ -337,7 +350,7 @@ def cuda_graph_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=_GRAPH_POOL):
+    with torch.cuda.graph(graph, pool=None if own_pool else _GRAPH_POOL):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -369,8 +382,11 @@ def check_letterbox(rng, dev):
         raise AssertionError(f"letterbox: shape {tuple(got.shape)}, "
                              f"max |err| {err} > {TOL_LETTERBOX}")
     ms = cuda_ms(lambda: LK.letterbox_cuda(frames, 416, torch.bfloat16), 50)
+    device_ms = cuda_graph_ms(
+        lambda: LK.letterbox_cuda(frames, 416, torch.bfloat16), 50)
     plain_ms = cuda_ms(lambda: letterbox_batch(frames, 416, torch.bfloat16), 10)
-    return err, ms, plain_ms, "", nbytes(frames, got)
+    return (err, ms, plain_ms, f", {device_ms:.4f} ms of device time",
+            nbytes(frames, got), {"device_ms": device_ms})
 
 
 def crops_io_bytes(boxes, frame_hw, out) -> int:
@@ -388,6 +404,52 @@ def crops_io_bytes(boxes, frame_hw, out) -> int:
     return 3 * int(needed.sum()) + nbytes(boxes, out)
 
 
+def crops_dense_io_bytes(boxes, frame_hw, out) -> int:
+    """The bytes the dense crop entry must move: every frame pixel that a
+    box's taps weigh (its rows of a non-zero Y weight by its columns of a
+    non-zero X weight, over the whole frame) read once per frame, the boxes
+    read, the crops written. A box downsampled in a direction names at most
+    two source lines per output line there: a full-frame 1080p box, 256 rows
+    by 128 columns."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.crops import (
+        CROP_H,
+        CROP_W,
+        _interp_matrix,
+        crop_window_bounds,
+    )
+
+    h, w = frame_hw
+    pixels = 0
+    for frame_boxes in boxes.cpu():
+        x1, y1, x2, y2 = crop_window_bounds(frame_boxes, h, w)
+        rows = (_interp_matrix(y1, y2, h, CROP_H, torch.float32) != 0).any(1)
+        cols = (_interp_matrix(x1, x2, w, CROP_W, torch.float32) != 0).any(1)
+        needed = np.zeros((h, w), bool)
+        for r, c in zip(rows.numpy(), cols.numpy()):
+            needed[np.ix_(r, c)] = True
+        pixels += int(needed.sum())
+    return 3 * pixels + nbytes(boxes, out)
+
+
+def crops_case(rng, dev):
+    """The crop kernels' inputs at the served shape: 8 1080p frames and 40
+    boxes per frame that fit the (320, 192) window."""
+    import torch
+
+    frames = torch.from_numpy(rng.integers(
+        0, 256, (STREAMS, FRAME_H, FRAME_W, 3), dtype=np.uint8)).to(dev)
+    d = K1_CAP
+    bw = rng.uniform(20, 190, (STREAMS, d))
+    bh = rng.uniform(40, 318, (STREAMS, d))
+    x1 = rng.uniform(0, FRAME_W - 1, (STREAMS, d))
+    y1 = rng.uniform(0, FRAME_H - 1, (STREAMS, d))
+    boxes = np.stack([x1, y1, np.minimum(x1 + bw, FRAME_W - 1),
+                      np.minimum(y1 + bh, FRAME_H - 1)], -1)
+    return frames, torch.from_numpy(boxes.astype(np.float32)).to(dev)
+
+
 def check_crops(rng, dev, interleaved=False):
     """Kernel 2 or, with ``interleaved``, kernel 6 against ``crops_plain``
     (the plain version of both: same rounding points); kernel 6 also against
@@ -396,16 +458,8 @@ def check_crops(rng, dev, interleaved=False):
 
     from yolo_deepsort_tpu_torch.ops import crops_kernel as CK
 
-    frames = torch.from_numpy(rng.integers(
-        0, 256, (STREAMS, FRAME_H, FRAME_W, 3), dtype=np.uint8)).to(dev)
-    d = 40
-    bw = rng.uniform(20, 190, (STREAMS, d))
-    bh = rng.uniform(40, 318, (STREAMS, d))
-    x1 = rng.uniform(0, FRAME_W - 1, (STREAMS, d))
-    y1 = rng.uniform(0, FRAME_H - 1, (STREAMS, d))
-    boxes = np.stack([x1, y1, np.minimum(x1 + bw, FRAME_W - 1),
-                      np.minimum(y1 + bh, FRAME_H - 1)], -1)
-    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    frames, boxes = crops_case(rng, dev)
+    d = boxes.shape[1]
     got = CK.crops_cuda(frames, boxes, 320, 192, interleaved=interleaved)
     want = CK.crops_plain(frames, boxes, 320, 192)
     err = (got - want).abs().max().item()
@@ -419,9 +473,74 @@ def check_crops(rng, dev, interleaved=False):
         note = ", exactly equal to kernel 2"
     ms = cuda_ms(lambda: CK.crops_cuda(frames, boxes, 320, 192,
                                        interleaved=interleaved), 50)
+    device_ms = cuda_graph_ms(lambda: CK.crops_cuda(
+        frames, boxes, 320, 192, interleaved=interleaved), 50)
     plain_ms = cuda_ms(lambda: CK.crops_plain(frames, boxes, 320, 192), 5)
-    return (err, ms, plain_ms, note,
-            crops_io_bytes(boxes, (FRAME_H, FRAME_W), got))
+    return (err, ms, plain_ms, note + f", {device_ms:.4f} ms of device time",
+            crops_io_bytes(boxes, (FRAME_H, FRAME_W), got),
+            {"device_ms": device_ms})
+
+
+def check_crops_dense(rng, dev):
+    """The dense crop entry (the K=1 step's crops) against its plain
+    version, the batched ``crop_and_normalize`` at bf16, bit for bit, at the
+    K=1 shape: ``crops_case``'s boxes with, in every frame, one full-frame
+    box, one taller and one wider than the K=1 window."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import crops_kernel as CK
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize_batch
+
+    frames, boxes = crops_case(rng, dev)
+    big = boxes.clone()
+    for s in range(STREAMS):
+        x0 = float(rng.uniform(0, FRAME_W - 900))
+        y0 = float(rng.uniform(0, FRAME_H - 700))
+        big[s, 0] = torch.tensor([0.0, 0.0, FRAME_W - 1, FRAME_H - 1])
+        big[s, 1] = torch.tensor([x0, y0, x0 + 150.5, y0 + 690.25])
+        big[s, 2] = torch.tensor([x0, y0, x0 + 890.75, y0 + 200.5])
+    got = CK.crops_dense_cuda(frames, big)
+    want = crop_and_normalize_batch(frames, big, torch.bfloat16)
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"crops_dense: shape {tuple(got.shape)}, max "
+                             f"|err| {err}, not equal to its plain version")
+    ms = cuda_ms(lambda: CK.crops_dense_cuda(frames, big), 50)
+    device_ms = cuda_graph_ms(lambda: CK.crops_dense_cuda(frames, big), 50)
+    plain_ms = cuda_ms(
+        lambda: crop_and_normalize_batch(frames, big, torch.bfloat16), 5)
+    # the K=1 step's own boxes (crops_case's alone) bound it too
+    k1_case_bound_ms = roofline(
+        crops_dense_io_bytes(boxes, (FRAME_H, FRAME_W), got))[0]
+    return (err, ms, plain_ms, f", {device_ms:.4f} ms of device time, "
+            "exactly equal to its plain version (a full-frame, a tall and a "
+            "wide box in every frame); bound on crops_case's boxes alone "
+            f"{k1_case_bound_ms:.6f} ms",
+            crops_dense_io_bytes(big, (FRAME_H, FRAME_W), got),
+            {"device_ms": device_ms, "k1_case_bound_ms": k1_case_bound_ms})
+
+
+def k1_crops_parent(frames, boxes, mask, frame_hw, win):
+    """The K=1 step's bf16 crops as the earlier design made them (kernel
+    2, the per-frame dense crops and a ``torch.where`` on the window
+    guard's device flag), to time beside ``streams.make_k1_crops``."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.crops import (
+        crop_and_normalize,
+        crop_window_bounds,
+    )
+    from yolo_deepsort_tpu_torch.ops.crops_kernel import (
+        crop_and_normalize_fused,
+    )
+
+    x1, y1, x2, y2 = crop_window_bounds(boxes, *frame_hw)
+    fits = (~mask | (((y2 - y1) <= win[0]) & ((x2 - x1) <= win[1]))).all()
+    dense = torch.stack([
+        crop_and_normalize(frames[i], boxes[i], compute_dtype=torch.bfloat16)
+        for i in range(frames.shape[0])])
+    return torch.where(fits, crop_and_normalize_fused(frames, boxes, *win),
+                       dense)
 
 
 def _tracker_scene(rng, s, d, n_frames, feat_dim):
@@ -1376,13 +1495,15 @@ def _k1_latency(step, states, base, steps):
 
 
 def run_k1_path(dev, setup=None):
-    """The K=1 path at full width. Checks: per step K1, K2 and K3 launch
-    once and K7 once per routed layer; a step with its readback makes no
-    other synchronizing call (2 steps in sync debug mode "error"); tracks
-    confirm on the static scene and rows are emitted. Prints p50/p99 ms per
-    step with the conv route and without it (alternated blocks on fresh
-    states), whether both emit the same rows, and the cost of the window
-    guard's dense crops alone. Returns the launches of the counted run."""
+    """The K=1 path at full width. Checks: per step K1, the dense crops and
+    K3 launch once, K2 never, and K7 once per routed layer; a step with its
+    readback makes no other synchronizing call (2 steps in sync debug mode
+    "error"); tracks confirm on the static scene and rows are emitted.
+    Prints p50/p99 ms per step with the conv route and without it
+    (alternated blocks on fresh states), whether both emit the same rows,
+    and the step's crops alone beside the earlier design's (kernel 2, the
+    per-frame dense crops and the guard's ``torch.where``), on both clocks.
+    Returns the launches of the counted run."""
     import torch
 
     from yolo_deepsort_tpu_torch.ops import (
@@ -1390,8 +1511,10 @@ def run_k1_path(dev, setup=None):
         crops_kernel,
         letterbox_kernel,
     )
-    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
-    from yolo_deepsort_tpu_torch.parallel.streams import init_stream_states
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_stream_states,
+        make_k1_crops,
+    )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     routed, unrouted, base, parts = k1_setup(dev, setup)
@@ -1407,14 +1530,18 @@ def run_k1_path(dev, setup=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
-    counters = {"letterbox": letterbox_kernel, "crops": crops_kernel,
-                "tracker": tracker_kernel, "conv": conv_kernel}
-    for m in counters.values():
-        m.launches = 0
+    counters = {"letterbox": (letterbox_kernel, "launches"),
+                "crops": (crops_kernel, "launches"),
+                "crops_dense": (crops_kernel, "launches_dense"),
+                "tracker": (tracker_kernel, "launches"),
+                "conv": (conv_kernel, "launches")}
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
     on_ms, on_rows, states = _k1_latency(routed, states, base, K1_STEPS)
-    launches = {name: m.launches for name, m in counters.items()}
-    want = {"letterbox": K1_STEPS, "crops": K1_STEPS, "tracker": K1_STEPS,
-            "conv": N_ROUTED * K1_STEPS}
+    launches = {name: getattr(m, attr)
+                for name, (m, attr) in counters.items()}
+    want = {"letterbox": K1_STEPS, "crops": 0, "crops_dense": K1_STEPS,
+            "tracker": K1_STEPS, "conv": N_ROUTED * K1_STEPS}
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -1431,18 +1558,21 @@ def run_k1_path(dev, setup=None):
     off_ms, off_rows, _ = _k1_latency(unrouted, off_states, base, K1_STEPS)
     same = all(np.array_equal(a, b) for a, b in zip(on_rows, off_rows))
 
-    # the window guard computes the dense crops every step: their cost alone
-    rng = np.random.default_rng(2)
-    x1 = rng.uniform(0, FRAME_W - 200, (STREAMS, K1_CAP))
-    y1 = rng.uniform(0, FRAME_H - 320, (STREAMS, K1_CAP))
-    boxes = torch.from_numpy(np.stack(
-        [x1, y1, x1 + rng.uniform(20, 190, x1.shape),
-         y1 + rng.uniform(40, 318, y1.shape)], -1).astype(np.float32)).to(dev)
-    _, dense_ms = _timed(lambda: torch.stack([
-        crop_and_normalize(base[i], boxes[i], compute_dtype=torch.bfloat16)
-        for i in range(STREAMS)]), 5)
-    _, win_ms = _timed(lambda: crops_kernel.crop_and_normalize_fused(
-        base, boxes, *K1_WINDOW), 5)
+    # the step's crops alone, and the earlier design's (kernel 2, the dense
+    # crops per frame and the guard's torch.where), on the same boxes
+    _, boxes = crops_case(np.random.default_rng(2), dev)
+    mask = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+    hw = (FRAME_H, FRAME_W)
+    crops_of = make_k1_crops(hw, K1_WINDOW, torch.bfloat16)
+    crop_ms = {}
+    for name, fn in (
+            ("parent", lambda: k1_crops_parent(base, boxes, mask, hw,
+                                               K1_WINDOW)),
+            ("new", lambda: crops_of(base, boxes, mask)),
+            ("new2", lambda: crops_of(base, boxes, mask)),
+            ("parent2", lambda: k1_crops_parent(base, boxes, mask, hw,
+                                                K1_WINDOW))):
+        crop_ms[name] = (cuda_ms(fn, 10), cuda_graph_ms(fn, 10, True))
 
     def pct(ms, q):
         return float(np.percentile(ms, q))
@@ -1450,14 +1580,18 @@ def run_k1_path(dev, setup=None):
     print(f"K=1 path: yolov3-416 bf16, {STREAMS} x {FRAME_H}p, cap {K1_CAP}, "
           f"window {K1_WINDOW}, fixed conv route ({len(CONV_ROUTE['bf16'])} "
           f"bf16 + {len(CONV_ROUTE['int8'])} int8 layers), {K1_STEPS} steps: "
-          f"launches per step K1 1, K2 1, K3 1, K7 {N_ROUTED}; 1 readback "
+          f"launches per step K1 1, K2 0, dense crops 1, K3 1, K7 "
+          f"{N_ROUTED}; 1 readback "
           f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
           f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
           f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; both "
           f"emit the same rows: {same} ({sum(len(r) for r in on_rows)} vs "
           f"{sum(len(r) for r in off_rows)} rows); confirmed tracks "
-          f"{n_conf}; window guard: dense crops alone {dense_ms:.4f} ms, "
-          f"windowed crops (K2) alone {win_ms:.4f} ms per step", flush=True)
+          f"{n_conf}; the step's crops alone (called / device ms, "
+          f"{STREAMS} x {K1_CAP} boxes): one dense launch "
+          f"{crop_ms['new']} {crop_ms['new2']}, the earlier design (K2 + dense "
+          f"crops per frame + torch.where) {crop_ms['parent']} "
+          f"{crop_ms['parent2']}", flush=True)
     return launches
 
 
@@ -1496,11 +1630,13 @@ def run_int8_embed_paths(dev, setup):
                   conv_int8_kernel):
             m.launches = 0
         crops_kernel.launches_interleaved = 0
+        crops_kernel.launches_dense = 0
 
     def counts():
         return {"letterbox": letterbox_kernel.launches,
                 "crops": crops_kernel.launches,
                 "crops_interleaved": crops_kernel.launches_interleaved,
+                "crops_dense": crops_kernel.launches_dense,
                 "tracker": tracker_kernel.launches,
                 "conv_int8": conv_int8_kernel.launches}
 
@@ -1536,7 +1672,8 @@ def run_int8_embed_paths(dev, setup):
         if name == "int8":
             chunk_counts = counts()
     want = {"letterbox": INT8_CHUNKS, "crops": INT8_CHUNKS,
-            "crops_interleaved": 0, "tracker": K_FRAMES * INT8_CHUNKS,
+            "crops_interleaved": 0, "crops_dense": 0,
+            "tracker": K_FRAMES * INT8_CHUNKS,
             "conv_int8": N_INT8_CONVS * INT8_CHUNKS}
     if chunk_counts != want:
         raise AssertionError(f"int8 embed, chunked: launches over "
@@ -1622,8 +1759,9 @@ def run_int8_embed_paths(dev, setup):
         return ms, rows, states, counts()
 
     ms8, rows8, st8, k1_counts = k1_run(k1_int8, True)
-    want = {"letterbox": INT8_K1_STEPS, "crops": INT8_K1_STEPS,
-            "crops_interleaved": 0, "tracker": INT8_K1_STEPS,
+    want = {"letterbox": INT8_K1_STEPS, "crops": 0,
+            "crops_interleaved": 0, "crops_dense": INT8_K1_STEPS,
+            "tracker": INT8_K1_STEPS,
             "conv_int8": N_INT8_CONVS * INT8_K1_STEPS}
     if k1_counts != want:
         raise AssertionError(f"int8 embed, K=1: launches over "
@@ -1638,14 +1776,12 @@ def run_int8_embed_paths(dev, setup):
         ms6, rows6, _, k6_counts = k1_run(k1_int8, True)
     finally:
         del os.environ["YDT_CROPS_LAYOUT"]
-    want = dict(want, crops=0, crops_interleaved=INT8_K1_STEPS)
-    if k6_counts != want:
+    if k6_counts != want:  # the K=1 step's crops are the dense entry
         raise AssertionError(f"int8 embed, K=1, interleaved crops: launches "
                              f"{k6_counts}, expected {want}")
     if not all(np.array_equal(a, b) for a, b in zip(rows6, rows8)):
         raise AssertionError("K=1 rows under YDT_CROPS_LAYOUT=interleaved "
-                             "differ from the planar run's (kernels 6 and 2 "
-                             "are equal bit for bit)")
+                             "differ from the planar run's")
     same = all(np.array_equal(a, b) for a, b in zip(rows8, rows16))
 
     def pct(ms, q):
@@ -1653,13 +1789,15 @@ def run_int8_embed_paths(dev, setup):
 
     print(f"int8 embed, K=1 (cap {K1_CAP}, window {K1_WINDOW}, "
           f"{EMBED_CROPS} crops per step, no conv route, {INT8_K1_STEPS} "
-          f"steps): launches per step K8 {N_INT8_CONVS}, K1 1, K2 1, K3 1; 1 "
+          f"steps): launches per step K8 {N_INT8_CONVS}, K1 1, K2 0, dense "
+          f"crops 1, K3 1; 1 "
           f"readback per step and no other sync; p50 {pct(ms8, 50):.4f} ms, "
           f"p99 {pct(ms8, 99):.4f} ms per step; bf16 embed: p50 "
           f"{pct(ms16, 50):.4f} ms, p99 {pct(ms16, 99):.4f} ms; rows equal "
           f"to the bf16 embed's: {same} ({sum(len(r) for r in rows8)} vs "
           f"{sum(len(r) for r in rows16)} rows); under "
-          f"YDT_CROPS_LAYOUT=interleaved: launches per step K6 1, K2 0, K8 "
+          f"YDT_CROPS_LAYOUT=interleaved: launches per step K6 0, K2 0, "
+          f"dense crops 1, K8 "
           f"{N_INT8_CONVS}, rows equal to the planar run's, p50 "
           f"{pct(ms6, 50):.4f} ms, p99 {pct(ms6, 99):.4f} ms", flush=True)
     return {"conv_int8": chunk_counts["conv_int8"],
@@ -2124,9 +2262,11 @@ def run_resblock_paths(dev, setup):
         for m in counters.values():
             m.launches = 0
         resblock_kernel.device_kernels = 0
+        crops_kernel.launches_dense = 0
 
     def counts():
         return {**{name: m.launches for name, m in counters.items()},
+                "crops_dense": crops_kernel.launches_dense,
                 "resblock_kernels": resblock_kernel.device_kernels}
 
     # chunked path
@@ -2167,6 +2307,7 @@ def run_resblock_paths(dev, setup):
         chunk_counts[name] = counts()
     for name in routes:
         want_counts = {"letterbox": RESBLOCK_CHUNKS, "crops": RESBLOCK_CHUNKS,
+                       "crops_dense": 0,
                        "tracker": K_FRAMES * RESBLOCK_CHUNKS,
                        "resblock": n_chains * RESBLOCK_CHUNKS,
                        "resblock_kernels": n_kernels * RESBLOCK_CHUNKS}
@@ -2250,8 +2391,8 @@ def run_resblock_paths(dev, setup):
         ms[name], rows[name], states = _k1_latency(k1[name], states, base,
                                                    RESBLOCK_K1_STEPS)
         k1_counts[name] = counts()
-        want_counts = {"letterbox": RESBLOCK_K1_STEPS,
-                       "crops": RESBLOCK_K1_STEPS,
+        want_counts = {"letterbox": RESBLOCK_K1_STEPS, "crops": 0,
+                       "crops_dense": RESBLOCK_K1_STEPS,
                        "tracker": RESBLOCK_K1_STEPS,
                        "resblock": (0 if name == "off" else
                                     n_chains * RESBLOCK_K1_STEPS),
@@ -2282,7 +2423,8 @@ def run_resblock_paths(dev, setup):
 
     print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
           f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
-          f"step K9 {n_chains} ({n_kernels} kernels), K1 1, K2 1, K3 1; 1 "
+          f"step K9 {n_chains} ({n_kernels} kernels), K1 1, dense crops 1, "
+          f"K3 1; 1 "
           f"readback per step and "
           f"no other sync; p50 / p99 ms per step: off {pct(ms['off'], 50):.4f}"
           f" / {pct(ms['off'], 99):.4f}, bf16 chains "
@@ -2875,10 +3017,6 @@ def profile_k1(dev, repeats: int = 5):
     kernel's share of the device time."""
     import torch
 
-    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
-    from yolo_deepsort_tpu_torch.ops.crops_kernel import (
-        crop_and_normalize_fused,
-    )
     from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
         letterbox_batch_fused,
     )
@@ -2887,6 +3025,7 @@ def profile_k1(dev, repeats: int = 5):
         _frame_boxes,
         _make_conv_impl,
         init_stream_states,
+        make_k1_crops,
     )
     from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
         tracker_step_fused_batched,
@@ -2916,11 +3055,9 @@ def profile_k1(dev, repeats: int = 5):
             dec, det_cfg.conf_thres, det_cfg.nms_thres, det_cfg.max_boxes,
             K1_CAP))
         xyxy, tlwh = _frame_boxes(b7, 416, FRAME_H, FRAME_W)
-        crops, win_ms = timed(lambda: crop_and_normalize_fused(
-            base, xyxy.contiguous(), *K1_WINDOW))
-        _, dense_ms = timed(lambda: torch.stack([
-            crop_and_normalize(base[i], xyxy[i], compute_dtype=torch.bfloat16)
-            for i in range(STREAMS)]))
+        crops_of = make_k1_crops((FRAME_H, FRAME_W), K1_WINDOW,
+                                 torch.bfloat16)
+        crops, crops_ms = timed(lambda: crops_of(base, xyxy, mask))
         feats, reid_ms = timed(lambda: parts["reid"](
             crops.reshape(-1, *crops.shape[2:])))
         feats = feats.reshape(STREAMS, K1_CAP, -1)
@@ -2930,10 +3067,9 @@ def profile_k1(dev, repeats: int = 5):
     print(f"profile: K=1 step {step_ms:.4f} ms with the conv route, "
           f"{float(np.median(off_ms)):.4f} ms without; alone: letterbox "
           f"{lb_ms:.4f}, backbone + decode {bb_on:.4f} routed / {bb_off:.4f} "
-          f"library convs, NMS (cap {K1_CAP}) {nms_ms:.4f}, windowed crops "
-          f"{win_ms:.4f}, dense crops (the guard's other branch) "
-          f"{dense_ms:.4f}, ReID embed ({STREAMS * K1_CAP} crops) "
-          f"{reid_ms:.4f}, tracker step {trk_ms:.4f} ms", flush=True)
+          f"library convs, NMS (cap {K1_CAP}) {nms_ms:.4f}, crops (one "
+          f"dense launch) {crops_ms:.4f}, ReID embed ({STREAMS * K1_CAP} "
+          f"crops) {reid_ms:.4f}, tracker step {trk_ms:.4f} ms", flush=True)
 
     def advance():
         nonlocal states
@@ -3212,25 +3348,25 @@ def main() -> int:
                         ("crops", check_crops),
                         ("crops_interleaved",
                          lambda r, d: check_crops(r, d, interleaved=True)),
+                        ("crops_dense", check_crops_dense),
                         ("tracker", check_tracker),
                         ("jv_cascade", check_jv_cascade),
                         ("jv_two_stage", check_jv_two_stage)):
-        err, ms, plain_ms, note, io_bytes, *chain = check(rng, dev)
+        err, ms, plain_ms, note, io_bytes, extra = check(rng, dev)
         # K1, K2 and K6 move bytes (the crops: the box pixels, not the whole
         # frames); K3-K5 are latency chains, far above their byte bound,
         # which is what ``bound_ms`` states: their chain bound is beside it
         bound_ms, bound_by = roofline(io_bytes)
-        results[name] = (err, ms, plain_ms, bound_ms, bound_by,
-                         chain[0] if chain else {})
-        if chain:
-            note += (f"; chain bound {chain[0]['chain_bound_ms']:.6f} ms "
+        results[name] = (err, ms, plain_ms, bound_ms, bound_by, extra)
+        if "chain_bound_ms" in extra:
+            note += (f"; chain bound {extra['chain_bound_ms']:.6f} ms "
                      f"({CHAIN_STEP_CYCLES} cycles a row or step at "
-                     f"{chain[0]['sm_clock_mhz']:.0f} MHz)")
+                     f"{extra['sm_clock_mhz']:.0f} MHz)")
         print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms{note}; bound {bound_ms:.6f} ms "
               f"({bound_by}: {io_bytes} in and out), library call: none",
               flush=True)
-    mark("kernels 1-6")
+    mark("kernels 1-6, dense crops")
     conv = check_conv(rng, dev)
     mark("kernel 7")
     for (hi, ci, co, k, stride, act), r in conv.items():
@@ -3338,6 +3474,8 @@ def main() -> int:
     # YDT_CROPS_LAYOUT=interleaved
     launches["crops_interleaved"] = int8_launches["crops_interleaved"]
     k1_launches["crops_interleaved"] = int8_launches["crops_interleaved_k1"]
+    # the dense crops' path is the K=1 step
+    launches["crops_dense"] = k1_launches["crops_dense"]
     # kernel 8 once more at the chunked path's own crop count
     chunk_crops = int8_launches["crops_per_chunk"]
     conv8_chunk = check_conv_int8(rng, dev, chunk_crops)
@@ -3355,6 +3493,11 @@ def main() -> int:
         "crops": ("crops.cu", "yolo_deepsort_tpu/ops/pallas_crops.py:150"),
         "crops_interleaved": ("crops.cu",
                               "yolo_deepsort_tpu/ops/pallas_crops.py:282"),
+        "crops_dense": ("crops.cu",
+                        "yolo_deepsort_tpu/ops/crops.py:78 (XLA "
+                        "crop_and_normalize; crop_and_normalize_windowed "
+                        ":109) and the K=1 window guard, yolo_deepsort_tpu/"
+                        "parallel/streams.py:290-307"),
         "tracker": ("tracker.cu", "yolo_deepsort_tpu/tracking/tracker_pallas.py:127"),
         "jv_cascade": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:158"),
         "jv_two_stage": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:174"),

@@ -400,7 +400,8 @@ def test_conv_kernel_refuses_non_contiguous_input(cuda_device):
 def test_k1_step_launch_counts(cuda_device):
     """A small ``make_batched_step`` on the card (yolov3-tiny at 64, bf16,
     cap and crop window, every eligible conv routed, some through the int8
-    package): per step K1 1, K2 1, K3 1 and K7 once per routed layer."""
+    package): per step K1 1, K2 0, the dense crops 1, K3 1 and K7 once per
+    routed layer."""
     from specs.weights_np import random_darknet_weights
     from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
     from yolo_deepsort_tpu_torch.config import DetectorConfig
@@ -457,13 +458,15 @@ def test_k1_step_launch_counts(cuda_device):
             conv_impl=lambda *a: routed.append(a[-1]) if impl(
                 *a) is not None else None)
     assert len(routed) >= 3 and set(pkg) < set(routed)
-    counters = (letterbox_kernel, crops_kernel, tracker_kernel, conv_kernel)
+    counters = ((letterbox_kernel, "launches"), (crops_kernel, "launches"),
+                (crops_kernel, "launches_dense"),
+                (tracker_kernel, "launches"), (conv_kernel, "launches"))
     for _ in range(3):
-        before = [m.launches for m in counters]
+        before = [getattr(m, a) for m, a in counters]
         states, (outputs, emit) = step(states, on_card)
         torch.cuda.synchronize()
-        got = [m.launches - b for m, b in zip(counters, before)]
-        assert got == [1, 1, 1, len(routed)], got
+        got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+        assert got == [1, 0, 1, 1, len(routed)], got
     assert outputs.shape == (s, 16, 5) and emit.shape == (s, 16)
     assert bool(torch.isfinite(states.mean).all())
 
@@ -512,6 +515,182 @@ def test_crops_layout_is_read_at_the_call(cuda_device, monkeypatch):
     assert (crops_kernel.launches, crops_kernel.launches_interleaved) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(a, b)
+
+
+# the crop family's shape classes: a frame 1080 rows tall whose row of
+# W*3 = 999 bytes is not a multiple of 16; boxes 1, 127, 128, 129, 256, 257
+# and 1080 rows tall (as wide, the last as wide as the frame), boxes at
+# every frame edge, 1-pixel boxes, boxes that leave the frame
+CLASS_H, CLASS_W = 1080, 333
+SIDES = ((1, 1), (127, 127), (128, 128), (129, 129), (256, 256),
+         (257, 257), (1080, 333))
+STRIPS = (8, 16, 32, 64, 128)
+
+
+def _strip_builds():
+    """The crop kernels built once per strip height (``CROPS_STRIP_*``)."""
+    from yolo_deepsort_tpu_torch.kernels import build
+
+    return zip(STRIPS, build.load_variants(
+        "crops", [crops_kernel.strip_defines(rows) for rows in STRIPS]))
+
+
+def _class_boxes(b):
+    h, w = CLASS_H, CLASS_W
+    rows = []
+    for f in range(b):
+        per = []
+        for i, (bh, bw) in enumerate(SIDES):
+            t = ((i + f) % len(SIDES)) / (len(SIDES) - 1)
+            x0, y0 = (w - bw) * t, (h - bh) * (1 - t)
+            per.append([x0, y0, x0 + bw, y0 + bh])
+        per += [[0, 0, 10, 10], [w - 10, 0, w, 20], [0, h - 5, 30, h],
+                [w - 1, h - 1, w, h], [-5, -3, 2.5, 4.7],
+                [0.2, 500 + f, w - 0.1, 500.5 + f], [50, 0, 50.5, h],
+                [3.7, 9.2, 3.9, 9.4]]
+        rows.append(per)
+    return np.asarray(rows, np.float32)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("window", [(320, 192), (32, 40), (CLASS_H, CLASS_W)])
+def test_crops_shape_classes_vs_plain(cuda_device, b, window):
+    """Kernels 2 and 6 at the shape classes, with every strip height:
+    kernel 2 within 1e-4 of its plain version (boxes larger than the
+    window included: both sides truncate to the same window), kernel 6
+    equal to kernel 2 bit for bit."""
+    frames = _frames(11, b, CLASS_H, CLASS_W, cuda_device)
+    boxes = torch.from_numpy(_class_boxes(b)).to(cuda_device)
+    want = crops_kernel.crops_plain(frames, boxes, *window)
+    served = crops_kernel.crops_cuda(frames, boxes, *window)
+    torch.cuda.synchronize()
+    assert (served - want).abs().max().item() <= 1e-4
+    for rows, lib in _strip_builds():
+        got = crops_kernel.crops_cuda(frames, boxes, *window, lib=lib)
+        k6 = crops_kernel.crops_cuda(frames, boxes, *window,
+                                     interleaved=True, lib=lib)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4, rows
+        assert torch.equal(k6, got), rows
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_dense_crops_shape_classes_vs_plain(cuda_device, b):
+    """The dense entry at the shape classes, with every strip height,
+    against its plain version (``crop_and_normalize_batch`` at bf16) and
+    against the per-frame ``crop_and_normalize`` on the card, bit for
+    bit."""
+    from yolo_deepsort_tpu_torch.ops.crops import (
+        crop_and_normalize,
+        crop_and_normalize_batch,
+    )
+
+    frames = _frames(12, b, CLASS_H, CLASS_W, cuda_device)
+    boxes = torch.from_numpy(_class_boxes(b)).to(cuda_device)
+    want = crop_and_normalize_batch(frames, boxes, torch.bfloat16)
+    per_frame = torch.stack([crop_and_normalize(
+        frames[i], boxes[i], compute_dtype=torch.bfloat16) for i in range(b)])
+    assert torch.equal(want, per_frame)
+    before = crops_kernel.launches_dense
+    got = crops_kernel.crop_and_normalize_dense(frames, boxes)
+    assert crops_kernel.launches_dense == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for rows, lib in _strip_builds():
+        assert torch.equal(crops_kernel.crops_dense_cuda(
+            frames, boxes, lib=lib), want), rows
+
+
+def test_crops_stamped_build_computes_the_same(cuda_device):
+    """The build with clock stamps (``CROPS_STAMPS``, read by
+    ``tools/crops_phases.py``) gives the served build's crops bit for bit,
+    and every stamp of a block is written in order."""
+    import ctypes
+
+    from yolo_deepsort_tpu_torch.kernels import build
+    from yolo_deepsort_tpu_torch.tools.crops_phases import SLOTS, phases
+
+    frames = _frames(15, 2, CLASS_H, CLASS_W, cuda_device)
+    boxes = torch.from_numpy(_class_boxes(2)).to(cuda_device)
+    (lib,) = build.load_variants("crops", [{"CROPS_STAMPS": 1}])
+    lib.ydt_crops_stamps.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    for interleaved in (False, True):
+        assert torch.equal(
+            crops_kernel.crops_cuda(frames, boxes, 320, 192,
+                                    interleaved=interleaved, lib=lib),
+            crops_kernel.crops_cuda(frames, boxes, 320, 192,
+                                    interleaved=interleaved))
+    assert torch.equal(crops_kernel.crops_dense_cuda(frames, boxes, lib=lib),
+                       crops_kernel.crops_dense_cuda(frames, boxes))
+    rows = crops_kernel.STRIP_ROWS["dense"]
+    n_blocks = boxes.shape[0] * boxes.shape[1] * (128 // rows)
+    buf = torch.zeros(n_blocks * SLOTS, dtype=torch.int64, device=cuda_device)
+    assert lib.ydt_crops_stamps(buf.data_ptr(), n_blocks * SLOTS) == 0
+    st = buf.view(n_blocks, SLOTS).cpu().numpy().astype(np.float64)
+    order = st[:, [0, 1, 2, 3] + list(range(6, 6 + rows // 4)) + [4]]
+    assert (np.diff(order, axis=1) >= 0).all()
+    assert phases(st, rows // 8)["life"] > 0
+
+
+def test_dense_crops_served_shape_and_empty(cuda_device):
+    """The dense entry at the K=1 shape (8 1080p frames, 40 boxes each, a
+    full-frame box among them) bit for bit against its plain version, and
+    a batch with no boxes."""
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize_batch
+
+    rng = np.random.default_rng(13)
+    frames = _frames(13, 8, 1080, 1920, cuda_device)
+    x1, y1 = rng.uniform(0, 1700, (8, 40)), rng.uniform(0, 760, (8, 40))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(20, 220, x1.shape),
+                      y1 + rng.uniform(40, 318, y1.shape)], -1)
+    boxes[:, 0] = [0, 0, 1919, 1079]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
+    got = crops_kernel.crop_and_normalize_dense(frames, boxes)
+    assert torch.equal(got, crop_and_normalize_batch(frames, boxes,
+                                                     torch.bfloat16))
+    empty = crops_kernel.crop_and_normalize_dense(frames, boxes[:, :0])
+    torch.cuda.synchronize()
+    assert empty.shape == (8, 0, 128, 64, 3)
+
+
+def test_crop_and_normalize_bf16_card_equals_cpu(cuda_device):
+    """The port's ``crop_and_normalize`` at bf16 on the card against the
+    same call on the CPU, bit for bit: the /255 must be a true division on
+    both (PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal)."""
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
+
+    rng = np.random.default_rng(14)
+    frame = rng.integers(0, 256, (192, 320, 3), np.uint8)
+    xy = rng.uniform(0, 150, (20, 2))
+    boxes = np.clip(np.concatenate([xy, xy + rng.uniform(2, 160, (20, 2))],
+                                   1), 0, [319, 191, 319, 191])
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    frame = torch.from_numpy(frame)
+    cpu = crop_and_normalize(frame, boxes, compute_dtype=torch.bfloat16)
+    card = crop_and_normalize(frame.to(cuda_device), boxes.to(cuda_device),
+                              compute_dtype=torch.bfloat16)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_bf16_k1_step_card_equals_cpu(cuda_device):
+    """The K=1 step with a bf16 ReID net (dense crops on the card, their
+    plain version on the CPU) on the card against the same step built on the
+    CPU: yolov3-tiny at 64, an f32 detector, 2 streams of 64x128, cap 6,
+    window (48, 64), 4 static frames. Emit, ids and the discrete state
+    exactly equal; boxes within 1 px (the f32 detector sums in another
+    order on the card, so a Kalman mean can sit an ulp to either side of an
+    integer)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = crops_kernel.launches_dense
+    assert smoke.check_small_k1(cuda_device) > 0
+    assert crops_kernel.launches_dense == before + 4
 
 
 def _int8_conv_case(seed, n, hi, wi, ci, co, k, dev, residual, stride):

@@ -11,6 +11,10 @@ A source that names ``CONV_RING_BM`` (the instantiations of the main loop
 that kernels 7-10 share, the slowest files to compile) is compiled once per
 tile height, ``-DCONV_RING_BM=64`` and ``=128``, side by side.
 
+``load_variants`` builds one source alone with extra ``-D`` defines into a
+library of its own, for a tool or test that launches another build of a
+kernel (the crop kernels at another strip height, or with clock stamps).
+
 The library lands in ``yolo_deepsort_tpu_torch/build/`` (git-ignored) under
 a name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the cached build. Nothing here links
@@ -52,8 +56,10 @@ SIGNATURES = {
     # frames, out, b, h, w, size, top, left, side, out_bf16, stream
     "ydt_letterbox": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # frames, boxes, out, b, d, h, w, win_h, win_w, stream
-    "ydt_crops": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ydt_crops_interleaved": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ydt_crops": [_P, _P, _P] + [_I] * 6 + [_P],
+    "ydt_crops_interleaved": [_P, _P, _P] + [_I] * 6 + [_P],
+    # frames, boxes, out, b, d, h, w, stream
+    "ydt_crops_dense": [_P, _P, _P] + [_I] * 4 + [_P],
     # app, det_tlwh, det_conf, det_mask, state, hits, age, tsu, track_id,
     # mean, cov, next_id, mean_out, cov_out, ints_out, next_id_out,
     # scratch, s, t, d, max_dist, max_iou_distance, max_age, n_init,
@@ -84,6 +90,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_variants = {}
 
 
 def nvcc_path() -> str:
@@ -173,18 +180,62 @@ def build() -> Path:
     return out
 
 
+def _bind(lib, required=True):
+    """Set the argument and result types of the C entries ``lib`` has."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name) if required else getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """Build if needed, then load the library once per process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = _bind(ctypes.CDLL(str(build())))
         return _lib
+
+
+def variant_path(stem: str, defines: dict) -> Path:
+    """The library of ``csrc/<stem>.cu`` built with ``defines``, keyed by
+    the sources, the flags and the defines."""
+    key = f"{source_hash()}|{stem}|{sorted(defines.items())!r}"
+    digest = hashlib.sha256(key.encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libydt_{stem}_{digest}.so"
+
+
+def variant_command(stem: str, defines: dict, out) -> list:
+    """The nvcc command that builds ``csrc/<stem>.cu`` alone, with the
+    package's flags and ``-D<name>=<value>`` of every define, into ``out``."""
+    return ([nvcc_path()] + ARCH_FLAGS + BASE_FLAGS
+            + [f"-D{k}={v}" for k, v in sorted(defines.items())]
+            + ["-I", str(CSRC), "-shared", "-o", str(out),
+               str(CSRC / f"{stem}.cu")])
+
+
+def load_variants(stem: str, defines_list) -> list:
+    """``csrc/<stem>.cu`` built alone once per dict of defines (every
+    missing build at once), each library loaded once per process, its C
+    entries bound as ``load()`` binds them. The package's own kernels go
+    through ``load()``; these are other builds of them for a tool or test."""
+    paths = [variant_path(stem, d) for d in defines_list]
+    todo = {p: d for p, d in zip(paths, defines_list) if not p.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            tmps = {p: Path(tmp) / p.name for p in todo}
+            _run_all([variant_command(stem, d, tmps[p])
+                      for p, d in todo.items()])
+            for p in todo:
+                os.replace(tmps[p], p)
+    with _lock:
+        for p in paths:
+            if p not in _variants:
+                _variants[p] = _bind(ctypes.CDLL(str(p)), required=False)
+        return [_variants[p] for p in paths]
 
 
 def check_launch(name: str, err: int) -> None:

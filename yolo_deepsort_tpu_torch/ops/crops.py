@@ -62,10 +62,18 @@ def device_constant(values, device) -> torch.Tensor:
                                    device=device) for v in values])
 
 
+def true_divisor(value: float, device) -> torch.Tensor:
+    """A 0-dim float32 divisor on ``device``. PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which rounds apart from the
+    CPU's and the JAX package's division in most values; a divisor tensor
+    on the device keeps the division IEEE (a fill: no host copy)."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
 def _normalize(crops):
     mean = device_constant(REID_MEAN, crops.device)
     std = device_constant(REID_STD, crops.device)
-    return (crops / 255.0 - mean) / std
+    return (crops / true_divisor(255.0, crops.device) - mean) / std
 
 
 def crop_and_normalize(frame_rgb, boxes_xyxy, compute_dtype=torch.float32):
@@ -79,6 +87,30 @@ def crop_and_normalize(frame_rgb, boxes_xyxy, compute_dtype=torch.float32):
     tmp = torch.einsum("dxw,hwc->dhxc", wx.float(), img.float())
     tmp = tmp.to(compute_dtype).float()
     return _normalize(torch.einsum("dyh,dhxc->dyxc", wy.float(), tmp))
+
+
+def crop_and_normalize_batch(frames, boxes_xyxy,
+                             compute_dtype=torch.float32):
+    """crop_and_normalize of a frame batch as one set of ops: (B, H, W, 3)
+    frames, (B, D, 4) clipped boxes -> (B, D, 128, 64, 3) float32. At bf16
+    every sum has two non-zero terms whose products are exact, so it equals
+    the per-frame form bit for bit; it is the plain version of the dense
+    crop kernel (``crops_kernel.crop_and_normalize_dense``). Memory: its X
+    pass holds a (B, D, H, 64, 3) f32 intermediate, B times the per-frame
+    form's -- 265 MB at 8 frames of 1080p with 40 boxes each."""
+    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    d = boxes_xyxy.shape[1]
+    x1, y1, x2, y2 = crop_window_bounds(boxes_xyxy.reshape(b * d, 4), h, w)
+    wy = _interp_matrix(y1, y2, h, CROP_H, compute_dtype)
+    wx = _interp_matrix(x1, x2, w, CROP_W, compute_dtype)
+    img = frames.to(compute_dtype)
+    # X then Y, f32 sums, the intermediate rounded to compute_dtype
+    tmp = torch.einsum("bdxw,bhwc->bdhxc",
+                       wx.float().reshape(b, d, CROP_W, w), img.float())
+    tmp = tmp.to(compute_dtype).float()
+    crops = torch.einsum("bdyh,bdhxc->bdyxc",
+                         wy.float().reshape(b, d, CROP_H, h), tmp)
+    return _normalize(crops)
 
 
 def crop_and_normalize_windowed(frame_rgb, boxes_xyxy, win_h: int, win_w: int,

@@ -17,8 +17,9 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
   launch per frame.
 
 ``make_batched_step`` is the K=1 step: one frame of every stream per call,
-no readback inside the step -- capacity is a static ``cap`` and the crop
-window is guarded on the device. Both steps can route whitelisted backbone
+no readback inside the step -- capacity is a static ``cap``; a bf16 embed's
+crops are one launch of the dense crop entry, an f32 embed's crop window is
+guarded on the device. Both steps can route whitelisted backbone
 convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``),
 the backbone's residual chains through the fused chain kernel (kernel 9,
 ``_make_block_impl``: one launch per chain) and run the ReID embed in int8
@@ -47,7 +48,10 @@ from ..ops.crops import (
     crop_and_normalize_windowed,
     crop_window_bounds,
 )
-from ..ops.crops_kernel import crop_and_normalize_fused
+from ..ops.crops_kernel import (
+    crop_and_normalize_dense,
+    crop_and_normalize_fused,
+)
 from ..ops.letterbox import rescale_boxes
 from ..ops.letterbox_kernel import letterbox_batch_fused
 from ..ops.nms import batched_nms, batched_nms_with_stats
@@ -321,6 +325,54 @@ def make_scanned_track_stage(
     return track
 
 
+def make_k1_crops(frame_hw: Tuple[int, int],
+                  crop_window: Optional[Tuple[int, int]], dtype):
+    """The K=1 step's ReID crops: crops(frames (S, H, W, 3), boxes_xyxy
+    (S, D, 4), mask (S, D)) -> (S, D, 128, 64, 3) f32, the reference step's
+    value on both sides of its window guard.
+
+    bf16: one launch of the dense crop entry over the whole frame
+    (``crop_and_normalize_dense``; on CPU tensors its plain version). The
+    reference rounds in the dense (XLA) order on both branches of its
+    ``lax.cond``, and its windowed form equals its dense form whenever the
+    guard takes it, so the window changes nothing here.
+    Other dtypes: the windowed resampler with an exactness guard on the
+    device -- the windowed crops equal the dense ones bit for bit only when
+    every consumed crop fits the window. The reference branches on that
+    with ``lax.cond``; a branch on a device value would cost a host sync
+    here, so both forms are computed and ``torch.where`` selects on the
+    device flag."""
+    h, w = frame_hw
+    if dtype == torch.bfloat16:
+        return lambda frames, boxes_xyxy, mask: crop_and_normalize_dense(
+            frames, boxes_xyxy.contiguous())
+    win = None
+    if crop_window is not None:
+        win = (min(crop_window[0], h), min(crop_window[1], w))
+        win = None if win == (h, w) else win
+
+    def dense(frames, boxes_xyxy):
+        return torch.stack([
+            crop_and_normalize(frames[i], boxes_xyxy[i],
+                               compute_dtype=dtype)
+            for i in range(frames.shape[0])])
+
+    if win is None:
+        return lambda frames, boxes_xyxy, mask: dense(frames, boxes_xyxy)
+
+    def guarded(frames, boxes_xyxy, mask):
+        wh, ww = win
+        x1i, y1i, x2i, y2i = crop_window_bounds(boxes_xyxy, h, w)
+        fits = (~mask | (((y2i - y1i) <= wh) & ((x2i - x1i) <= ww))).all()
+        windowed = torch.stack([
+            crop_and_normalize_windowed(frames[i], boxes_xyxy[i], wh, ww,
+                                        compute_dtype=dtype)
+            for i in range(frames.shape[0])])
+        return torch.where(fits, windowed, dense(frames, boxes_xyxy))
+
+    return guarded
+
+
 def make_batched_step(
     detector: Darknet,
     reid: ReIDNet,
@@ -350,26 +402,19 @@ def make_batched_step(
 
     Low-latency mode: ``cap`` runs NMS and the tracker at capacity ``cap``
     (NMS emits score-descending, so a frame with more real detections drops
-    its lowest-scoring ones), and ``crop_window`` routes the ReID crops
-    through the windowed resampler (kernel 2 for a bf16 embed) with an
-    exactness guard on the device: the windowed crops equal the dense ones
-    bit for bit only when every consumed crop fits the window. The
-    reference branches on that with ``lax.cond``; a branch on a device value
-    would cost a host sync here, so both forms are computed and
-    ``torch.where`` selects on the device flag.
+    its lowest-scoring ones), and ``crop_window`` routes an f32 embed's
+    ReID crops through the windowed resampler with an exactness guard on the
+    device; a bf16 embed's crops are one launch of the dense crop entry
+    whatever the window (``make_k1_crops``).
 
     The step launches the letterbox (K1), with a conv route the conv kernel
     (K7) once per routed layer, with ``use_resblock`` the chain kernel (K9)
-    once per routed chain, the windowed crops (K2), with
+    once per routed chain, with a bf16 embed the dense crops, with
     ``embed_int8="resident_pallas"`` the int8 conv kernel (K8) once per
     quantized ReID conv, and the fused tracker step (K3), and reads nothing
     back."""
     h, w = frame_hw
     size = det_cfg.img_size
-    crop_window_eff = None
-    if crop_window is not None:
-        cw = (min(crop_window[0], h), min(crop_window[1], w))
-        crop_window_eff = None if cw == (h, w) else cw
     cfg_c = trk_cfg
     if cap is not None and cap < trk_cfg.max_dets:
         cfg_c = dataclasses.replace(trk_cfg, max_dets=cap)
@@ -381,22 +426,7 @@ def make_batched_step(
     det_dtype = param.dtype
     embed, reid_dtype, _ = _make_embed(reid, embed_int8)
     tracked = class_filter(tracked_class_ids, param.device)
-
-    def dense(frames, boxes_xyxy):
-        return torch.stack([
-            crop_and_normalize(frames[i], boxes_xyxy[i],
-                               compute_dtype=reid_dtype)
-            for i in range(frames.shape[0])])
-
-    def windowed(frames, boxes_xyxy):
-        wh, ww = crop_window_eff
-        if reid_dtype == torch.bfloat16:
-            return crop_and_normalize_fused(frames, boxes_xyxy.contiguous(),
-                                            wh, ww)
-        return torch.stack([
-            crop_and_normalize_windowed(frames[i], boxes_xyxy[i], wh, ww,
-                                        compute_dtype=reid_dtype)
-            for i in range(frames.shape[0])])
+    crops_of = make_k1_crops(frame_hw, crop_window, reid_dtype)
 
     @torch.no_grad()
     def run(states: TrackerState, frames: torch.Tensor, frame_valid=None):
@@ -413,14 +443,7 @@ def make_batched_step(
         if frame_valid is not None:
             mask = mask & frame_valid[:, None]
         boxes_xyxy, tlwh = _frame_boxes(boxes7, size, h, w)
-        if crop_window_eff is not None:
-            wh, ww = crop_window_eff
-            x1i, y1i, x2i, y2i = crop_window_bounds(boxes_xyxy, h, w)
-            fits = (~mask | (((y2i - y1i) <= wh) & ((x2i - x1i) <= ww))).all()
-            crops = torch.where(fits, windowed(frames, boxes_xyxy),
-                                dense(frames, boxes_xyxy))
-        else:
-            crops = dense(frames, boxes_xyxy)
+        crops = crops_of(frames, boxes_xyxy, mask)
         feats = embed(crops.reshape(s * d, *crops.shape[2:])).reshape(s, d, -1)
         new, outputs, emit = tracker_step_fused_batched(
             cfg_c, states, tlwh, boxes7[..., 5], feats, mask, (h, w))

@@ -5,6 +5,7 @@ kernels, on two clocks, in this checkout or in another one.
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --root DIR --out ...
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k9 k10
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k3 k4 k5
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k1 k2 k6 k1crops
 
 Kernel 7 at the 15 eligible conv shapes of yolov3-416 at batch 8 plus the mish
 shape (bf16 mode, and int8 mode with bf16 activations), kernel 8 at the nine
@@ -25,8 +26,15 @@ checkout's own step), kernels 4 and 5 on ``jv_problem`` at ``JV_SHAPE``
 checkout's wrapper hands it (``pack_inputs``; ``cascade_inputs`` /
 ``two_stage_inputs``, or ``prep`` / ``two_stage_prep`` in a checkout that
 predates them) and the whole wrapper beside it (``tracker_step_cuda``, the
-two public solvers). Two clocks, both CUDA events around 50 calls (10 for
-kernel 9):
+two public solvers); kernel 1 on 8 1080p frames to (8, 416, 416, 3) bf16,
+kernels 2 and 6 on ``chip_smoke.py``'s ``crops_case`` (8 x 40 boxes, window
+(320, 192)), seeded 0, and ``k1crops``: the K=1 step's bf16 crops of those
+boxes as the checkout makes them (``k1_crops_fn``); ``strips`` times the
+three crop entries at every height of a block's strip of output rows
+(``STRIP_SWEEP``; a build of ``csrc/crops.cu`` per height,
+``CROPS_STRIP_*``), and the dense entry on boxes as wide as the frame. Two
+clocks, both CUDA events around 50 calls (10 for kernel 9 and
+``k1crops``):
 
 * ``called_ms``: the calls made from Python back to back. Where a kernel is
   shorter than its wrapper's time on the host, this is the host's time.
@@ -57,6 +65,8 @@ import numpy as np
 REPS = 50
 BATCH = 8
 K9_REPS = 10
+K1CROPS_REPS = 10
+STRIP_SWEEP = (8, 16, 32, 64, 128)  # output rows per block of the crops
 # (map, Ci, Cm, blocks): the chains of yolov3-416 the chain route takes, at
 # the K=1 step's batch and the chunked step's
 K9_CLASSES = ((52, 256, 128, 8), (26, 512, 256, 8), (13, 1024, 512, 4))
@@ -253,6 +263,70 @@ def time_tracker_jv(torch, dev, kernels):
     return out
 
 
+def time_letterbox_crops(torch, dev, kernels):
+    """Kernels 1, 2 and 6 alone on the smoke's inputs (``crops_case``), and
+    the K=1 step's crops as the checkout makes them (``k1crops``)."""
+    from yolo_deepsort_tpu_torch.ops import crops_kernel as CK
+    from yolo_deepsort_tpu_torch.ops import letterbox_kernel as LK
+
+    smoke = _smoke()
+    out = {}
+
+    def record(name, fn, reps=REPS):
+        called, device = both_clocks(torch, fn, reps)
+        out[name] = {"called_ms": called, "device_ms": device}
+        print(f"{name}: called {called:.6f} ms, device {device:.6f} ms",
+              flush=True)
+
+    frames, boxes = smoke.crops_case(np.random.default_rng(0), dev)
+    win = smoke.K1_WINDOW
+    if "k1" in kernels:
+        record("k1", lambda: LK.letterbox_cuda(frames, 416, torch.bfloat16))
+    if "k2" in kernels:
+        record("k2", lambda: CK.crops_cuda(frames, boxes, *win))
+    if "k6" in kernels:
+        record("k6", lambda: CK.crops_cuda(frames, boxes, *win,
+                                           interleaved=True))
+    if "k1crops" in kernels:
+        record("k1crops", k1_crops_fn(torch, smoke, frames, boxes, win),
+               K1CROPS_REPS)
+    if "strips" in kernels:
+        # output rows per block of each entry, and the dense entry on boxes
+        # as wide as the frame (their tap columns are gathered)
+        wide = boxes.clone()
+        wide[..., 0], wide[..., 2] = 0.0, float(frames.shape[2] - 1)
+        from yolo_deepsort_tpu_torch.kernels import build
+
+        libs = build.load_variants(
+            "crops", [CK.strip_defines(rows) for rows in STRIP_SWEEP])
+        for rows, lib in zip(STRIP_SWEEP, libs):
+            record(f"k2 strip {rows}", lambda: CK.crops_cuda(
+                frames, boxes, *win, lib=lib))
+            record(f"k6 strip {rows}", lambda: CK.crops_cuda(
+                frames, boxes, *win, interleaved=True, lib=lib))
+            record(f"dense strip {rows}", lambda: CK.crops_dense_cuda(
+                frames, boxes, lib=lib))
+            record(f"dense wide strip {rows}", lambda: CK.crops_dense_cuda(
+                frames, wide, lib=lib))
+    return out
+
+
+def k1_crops_fn(torch, smoke, frames, boxes, win):
+    """fn() -> the K=1 step's bf16 crops of every box (all consumed), as
+    the checkout's step makes them: ``streams.make_k1_crops`` where the
+    checkout has it; before it, kernel 2 and the per-frame dense crops,
+    selected on the window guard's device flag (``chip_smoke.py``
+    ``k1_crops_parent``)."""
+    from yolo_deepsort_tpu_torch.parallel import streams as ST
+
+    hw = tuple(frames.shape[1:3])
+    mask = torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device)
+    if hasattr(ST, "make_k1_crops"):
+        crops = ST.make_k1_crops(hw, win, torch.bfloat16)
+        return lambda: crops(frames, boxes, mask)
+    return lambda: smoke.k1_crops_parent(frames, boxes, mask, hw, win)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -260,8 +334,9 @@ def main(argv=None) -> int:
                          "this one)")
     ap.add_argument("--crops", type=int, nargs="*", default=[320, 512])
     ap.add_argument("--kernels", nargs="*", default=["k7", "k8", "k9", "k10"],
-                    help="which kernels to time (k3 k4 k5 k7 k8 k9 "
-                         "k10)")
+                    help="which kernels to time (k1 k2 k6 k1crops k3 k4 "
+                         "k5 k7 k8 k9 k10; strips: the crop entries at "
+                         "every strip height, this checkout only)")
     ap.add_argument("--out", default=None, help="write the JSON record here")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve() if args.root else \
@@ -354,6 +429,9 @@ def main(argv=None) -> int:
         out["k10"] = time_k10(torch, dev)
     if {"k3", "k4", "k5"} & set(args.kernels):
         out["tracker_jv"] = time_tracker_jv(torch, dev, args.kernels)
+    if {"k1", "k2", "k6", "k1crops", "strips"} & set(args.kernels):
+        out["letterbox_crops"] = time_letterbox_crops(torch, dev,
+                                                      args.kernels)
     print(out["card"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
