@@ -79,7 +79,10 @@ which ends the run with a non-zero exit code when it fails:
    ``reid_apply_int8_resident`` with kernel 8 on the card against the same
    package on the CPU (``check_small_reid_int8``); and a small residual
    detector through the K=1 step with the chain route, bf16 and int8 chains
-   (``check_small_resblock``).
+   (``check_small_resblock``); and the monolithic chunk step
+   ``make_scanned_step`` likewise on both tracker branches, 2 chunks of
+   K=3 (``check_small_scanned``: ids, emit and discrete state equal, boxes
+   within 1 px, per chunk K1 1, the dense crops 1, K2 0, K3 3 or K5 3).
 4. main path: yolov3-416 at full width in bf16 with seeded well-conditioned
    random weights (head biases aimed at person-sized boxes, per-stream
    thresholds calibrated to ~32 detections per frame), 8 temporally static
@@ -121,6 +124,18 @@ which ends the run with a non-zero exit code when it fails:
    unrouted run's, the number that differ printed.
 4e. the int8 probe (``run_probe_path``): ``tools/int8_probe.py``
    ``run_probe`` at its default shape; its JSON record on a line of its own.
+4f. the monolithic chunk step (``run_scanned_path``): ``make_scanned_step``
+   on the main path's model and frames (8 x 1080p, K=4, max_dets 64,
+   max_tracks 128, nn_budget 100) with one threshold calibrated to ~32
+   detections a frame, on both tracker branches: per chunk K1 1, the dense
+   crops 1 (all K x S x 64 rows), K2 0, and K3 4 (fused) or K5 4
+   (``tracker_step``); no host wait inside the step (sync debug mode
+   "error"); then frames/s and device ms per chunk beside
+   ``BucketedScannedStep``'s on the same chunks (alternated blocks,
+   medians), with the card's name and power limit.
+4g. F8 (``run_f8_path``): ``BucketedScannedStep`` bf16 on 480 x 854
+   frames, which the reference's crop gate refuses: the windowed crops are
+   one launch of the dense entry (K2 0), bit-equal to its plain version.
 5. public JV ops (``run_jv_ops``): ``solve_cascade_assignment_fused`` and
    ``solve_masked_assignment_fused`` on the card over 8 streams of
    tracker-sized problems, equal to the same ops on the CPU.
@@ -138,11 +153,20 @@ which ends the run with a non-zero exit code when it fails:
    native frame pool (g++ at first use) in place of video decoders; one
    stream ends early, and the ``with_validity`` step must leave its state
    untouched and emit nothing for it.
+8. tracking quality (``run_tracking_quality``): 4 streams of the reference's
+   synthetic MOT scene (``mot_scene``: 120 frames, 8 objects, seeds 0-3)
+   through kernel 3 and kernel 5 on the card and ``tracker_step`` on the
+   CPU, scored with the port's ``utils/mot.py``: per stream MOTA, ID
+   switches and IDF1 of both kernels equal the CPU's.
 
-Each of paths 4-7 is run with the launch counters set to 0 just before it
-and read just after. Prints frames/s and per-stage times, the facades' ms
-per call, a JSON line of per-kernel results, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+Each of paths 4-8 is run with the launch counters set to 0 just before it
+and read just after (the ``kernels`` line: ``launches`` from path 4,
+``launches_k1_path``, ``launches_scanned_path`` from 4f -- its counted
+chunk of each tracker branch, every counter of the port read -- and
+``launches_quality_gate`` from 8, likewise). Prints frames/s and per-stage times,
+the facades' ms per call, a JSON line of per-kernel results, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -1506,16 +1530,10 @@ def run_k1_path(dev, setup=None):
     Returns the launches of the counted run."""
     import torch
 
-    from yolo_deepsort_tpu_torch.ops import (
-        conv_kernel,
-        crops_kernel,
-        letterbox_kernel,
-    )
     from yolo_deepsort_tpu_torch.parallel.streams import (
         init_stream_states,
         make_k1_crops,
     )
-    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     routed, unrouted, base, parts = k1_setup(dev, setup)
     trk_cfg = parts["trk_cfg"]
@@ -1530,18 +1548,10 @@ def run_k1_path(dev, setup=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
-    counters = {"letterbox": (letterbox_kernel, "launches"),
-                "crops": (crops_kernel, "launches"),
-                "crops_dense": (crops_kernel, "launches_dense"),
-                "tracker": (tracker_kernel, "launches"),
-                "conv": (conv_kernel, "launches")}
-    for m, attr in counters.values():
-        setattr(m, attr, 0)
-    on_ms, on_rows, states = _k1_latency(routed, states, base, K1_STEPS)
-    launches = {name: getattr(m, attr)
-                for name, (m, attr) in counters.items()}
-    want = {"letterbox": K1_STEPS, "crops": 0, "crops_dense": K1_STEPS,
-            "tracker": K1_STEPS, "conv": N_ROUTED * K1_STEPS}
+    (on_ms, on_rows, states), launches = _counted(
+        lambda: _k1_latency(routed, states, base, K1_STEPS))
+    want = _only(letterbox=K1_STEPS, crops_dense=K1_STEPS, tracker=K1_STEPS,
+                 conv=N_ROUTED * K1_STEPS)
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -3308,6 +3318,474 @@ def profile_facades(dev, tmp_dir, repeats: int = 5):
                              for _ in range(4)], 4, "update", upd_ms)
 
 
+# ---- the monolithic chunk step, F8 and the tracking-quality gate
+
+SCAN_BLOCKS, SCAN_BLOCK_CHUNKS = 4, 3  # timed blocks per step, chunks each
+F8_HW = (480, 854)  # a frame the reference's crop gate refuses (854 % 128)
+# the tracking-quality scene: benchmarks/mot_eval.py synthetic_eval's, one
+# seed per stream, at its tracker configuration
+MOT_STREAMS, MOT_FRAMES, MOT_OBJECTS, MOT_FEAT = 4, 120, 8, 64
+MOT_HW = (1080, 1920)
+
+
+def _port_counters():
+    """{kernel name in the ``kernels`` line: (module, counter)}: every
+    launch counter of the port."""
+    from yolo_deepsort_tpu_torch.ops import (
+        assignment_kernel,
+        conv_int8_kernel,
+        conv_kernel,
+        crops_kernel,
+        letterbox_kernel,
+        resblock_kernel,
+    )
+    from yolo_deepsort_tpu_torch.tools import int8_probe
+    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
+
+    return {"letterbox": (letterbox_kernel, "launches"),
+            "crops": (crops_kernel, "launches"),
+            "crops_interleaved": (crops_kernel, "launches_interleaved"),
+            "crops_dense": (crops_kernel, "launches_dense"),
+            "tracker": (tracker_kernel, "launches"),
+            "jv_cascade": (assignment_kernel, "cascade_launches"),
+            "jv_two_stage": (assignment_kernel, "two_stage_launches"),
+            "conv": (conv_kernel, "launches"),
+            "conv_int8": (conv_int8_kernel, "launches"),
+            "resblock": (resblock_kernel, "launches"),
+            "matmul_probe": (int8_probe, "launches")}
+
+
+def _counted(run):
+    """run() with every launch counter of the port set to 0 just before it:
+    (its result, {kernel name: launches}), every kernel read."""
+    counters = _port_counters()
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    out = run()
+    return out, {name: getattr(m, attr)
+                 for name, (m, attr) in counters.items()}
+
+
+def _only(**launched):
+    """{kernel name: launches}: the given kernels' counts, every other
+    kernel of ``_port_counters`` 0."""
+    return {**{name: 0 for name in _port_counters()}, **launched}
+
+
+def _dense_calls(run):
+    """run() with every call of the dense crop entry that
+    ``parallel/streams.py`` makes recorded: (its result, [(frames, boxes,
+    crops)]), each to be held against the plain version
+    (``_check_dense_calls``)."""
+    from yolo_deepsort_tpu_torch.parallel import streams
+
+    seen = []
+    dense = streams.crop_and_normalize_dense
+
+    def recorded(frames, boxes):
+        out = dense(frames, boxes)
+        seen.append((frames, boxes, out))
+        return out
+
+    streams.crop_and_normalize_dense = recorded
+    try:
+        return run(), seen
+    finally:
+        streams.crop_and_normalize_dense = dense
+
+
+def _check_dense_calls(seen, tag):
+    """Each recorded dense-entry call bit-equal to its plain version (the
+    batched ``crop_and_normalize`` at bf16) on the same card tensors."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize_batch
+
+    for frames, boxes, out in seen:
+        if not torch.equal(out, crop_and_normalize_batch(frames, boxes,
+                                                         torch.bfloat16)):
+            raise AssertionError(f"{tag}: the dense entry's crops of "
+                                 f"{tuple(boxes.shape[:2])} boxes differ "
+                                 "from its plain version")
+
+
+def _scan_launches(k, fused):
+    """The launches of one chunk of K frames through make_scanned_step with
+    a bf16 ReID net: K1 once, the dense crops once, K2 never, and K3 (the
+    fused branch) or K5 (``tracker_step``) once per frame."""
+    return _only(letterbox=1, crops_dense=1, tracker=k if fused else 0,
+                 jv_two_stage=0 if fused else k)
+
+
+def check_small_scanned(dev):
+    """The monolithic chunk step on the card against the same step on the
+    CPU (``_small_setup``: yolov3-tiny at 64, 2 streams of 64x128, an f32
+    detector and a bf16 ReID net; one threshold in the widest gap of the
+    objectness ranks 8..20, as ``check_small_k1``), 2 chunks of K=3 static
+    frames, on both tracker branches: emit, ids and the discrete state
+    exactly equal, boxes within 1 px; per chunk on the card
+    ``_scan_launches``. Returns {branch: emitted rows}."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_stream_states,
+        make_scanned_step,
+    )
+
+    su = _small_setup()
+    cl = torch.channels_last
+    obj = torch.sort(su["obj"].flatten(), descending=True).values[8:21]
+    gap = int(torch.argmax(obj[:-1] - obj[1:]))
+    det_cfg = DetectorConfig(img_size=su["size"], max_dets=8,
+                             conf_thres=float((obj[gap] + obj[gap + 1]) / 2))
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    hw, k, s = (su["h"], su["w"]), 3, su["s"]
+    frames = torch.from_numpy(np.broadcast_to(su["base"][None],
+                                              (k, s, *hw, 3)).copy())
+    frames_dev = frames.to(dev)
+    card_det = su["det"]().to(dev, memory_format=cl)
+    card_reid = su["reid"]().to(dev, memory_format=cl)
+    emitted = {}
+    for fused in (True, False):
+        ref = make_scanned_step(su["cpu_det"], su["reid"](), det_cfg,
+                                trk_cfg, hw, k, use_fused_tracker=fused)
+        card = make_scanned_step(card_det, card_reid, det_cfg, trk_cfg, hw,
+                                 k, use_fused_tracker=fused)
+        st_ref = init_stream_states(trk_cfg, s, "cpu")
+        st_card = init_stream_states(trk_cfg, s, dev)
+        rows = 0
+        for c in range(2):
+            st_ref, (out_r, emit_r) = ref(st_ref, frames)
+            (st_card, (out_c, emit_c)), launched = _counted(
+                lambda: card(st_card, frames_dev))
+            tag = f"small scanned step (fused={fused}) chunk {c}"
+            if launched != _scan_launches(k, fused):
+                raise AssertionError(f"{tag}: launches {launched}")
+            out_c, emit_c = out_c.cpu(), emit_c.cpu()
+            if not (torch.equal(emit_r, emit_c)
+                    and torch.equal(out_r[..., 4], out_c[..., 4])):
+                raise AssertionError(f"{tag}: emitted tracks differ between "
+                                     "the card and the CPU")
+            if (out_r[..., :4] - out_c[..., :4]).abs().max().item() > 1:
+                raise AssertionError(f"{tag}: boxes differ by more than 1 px")
+            for name in ("state", "hits", "age", "time_since_update",
+                         "track_id", "gallery_head", "gallery_count",
+                         "next_id"):
+                if not torch.equal(getattr(st_ref, name),
+                                   getattr(st_card, name).cpu()):
+                    raise AssertionError(f"{tag}: {name} differs")
+            rows += int(emit_c.sum())
+        if rows == 0:
+            raise AssertionError(f"small scanned step (fused={fused}): no "
+                                 "emitted tracks")
+        emitted["fused" if fused else "tracker_step"] = rows
+    return emitted
+
+
+def run_scanned_path(dev, setup):
+    """The monolithic chunk step at full width (phase 4f of the module
+    docstring) on the main path's model, weights and frames, with one
+    threshold (the step has one): the (TARGET_DETS x STREAMS)-th largest
+    objectness of the 8 frames, about TARGET_DETS detections a frame. On
+    both tracker branches: one chunk in sync debug mode "error" (no host
+    wait), its launches (``_scan_launches``), the dense entry's crops of
+    all K x S x 64 rows bit-equal to its plain version, finite state and
+    emitted
+    rows, the same on both branches. Then frames/s (host clock,
+    synchronized blocks of SCAN_BLOCK_CHUNKS chunks, alternated scanned /
+    bucketed / bucketed / scanned, median of SCAN_BLOCKS blocks each) and
+    device ms per chunk (``torch.profiler`` over one more block) of the
+    fused branch beside
+    ``BucketedScannedStep``'s (same threshold, pipelined as it serves) on
+    the same chunks. Returns {branch: launches of its counted chunk}."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        BucketedScannedStep,
+        init_stream_states,
+        make_scanned_step,
+    )
+
+    _, _, frames, parts = setup
+    detector, reid, trk_cfg = parts["detector"], parts["reid"], parts[
+        "trk_cfg"]
+    hw = (FRAME_H, FRAME_W)
+    with torch.no_grad():
+        obj = detector(letterbox_batch_fused(frames[0], 416,
+                                             torch.bfloat16))[..., 4]
+    thr = float(torch.sort(obj.flatten(), descending=True).values[
+        TARGET_DETS * STREAMS - 1])
+    det_cfg = DetectorConfig(img_size=416, conf_thres=thr, nms_thres=0.4,
+                             max_dets=trk_cfg.max_dets)
+    steps = {fused: make_scanned_step(detector, reid, det_cfg, trk_cfg, hw,
+                                      K_FRAMES, use_fused_tracker=fused)
+             for fused in (True, False)}
+    launches, rows = {}, {}
+    states = {}
+    for fused, step in steps.items():
+        st = init_stream_states(trk_cfg, STREAMS, dev)
+        for _ in range(2):  # warm-up: tracks confirm after n_init frames
+            st, _ = step(st, frames)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ((st, (outputs, emit)), seen), launched = _counted(
+                lambda: _dense_calls(lambda: step(st, frames)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        name = "fused" if fused else "tracker_step"
+        # the dense entry at the step's shape: all K x S x max_dets rows
+        _check_dense_calls(seen, f"scanned step ({name})")
+        if launched != _scan_launches(K_FRAMES, fused):
+            raise AssertionError(f"scanned step ({name}): launches per chunk "
+                                 f"{launched}, expected "
+                                 f"{_scan_launches(K_FRAMES, fused)}")
+        if outputs.shape != (K_FRAMES, STREAMS, trk_cfg.max_tracks, 5):
+            raise AssertionError(f"scanned step outputs {outputs.shape}")
+        if not (bool(torch.isfinite(st.mean).all()) and int(emit.sum())):
+            raise AssertionError(f"scanned step ({name}): non-finite state "
+                                 "or no emitted rows")
+        launches[name], rows[name], states[fused] = launched, emit, st
+    if not torch.equal(rows["fused"], rows["tracker_step"]):
+        raise AssertionError("scanned step: the two tracker branches emit "
+                             "different rows")
+
+    bucketed = BucketedScannedStep(detector, reid, det_cfg, trk_cfg, hw,
+                                   buckets=(16, 24, 32, 36, 40, 48))
+    b_states = init_stream_states(trk_cfg, STREAMS, dev)
+    b_states, _ = pipelined(bucketed, b_states, frames, 3)
+    scan_states = states[True]
+
+    def block(which):
+        nonlocal scan_states, b_states
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "scanned":
+            for _ in range(SCAN_BLOCK_CHUNKS):
+                scan_states, out = steps[True](scan_states, frames)
+        else:
+            b_states, out = pipelined(bucketed, b_states, frames,
+                                      SCAN_BLOCK_CHUNKS)
+        torch.cuda.synchronize()
+        return STREAMS * K_FRAMES * SCAN_BLOCK_CHUNKS / (
+            time.perf_counter() - t0), out
+
+    fps = {"scanned": [], "bucketed": []}
+    outs = {}
+    for which in ("scanned", "bucketed", "bucketed", "scanned") * (
+            SCAN_BLOCKS // 2):
+        f, outs[which] = block(which)
+        fps[which].append(f)
+    differ = int((outs["scanned"][1] != outs["bucketed"][1]).sum())
+    dev_ms = {}
+    for which in ("scanned", "bucketed"):
+        per_kernel = _device_kernels(lambda: block(which))
+        dev_ms[which] = sum(us for _, us in per_kernel.values()) / 1e3 / (
+            SCAN_BLOCK_CHUNKS)
+    med = {k: float(np.median(v)) for k, v in fps.items()}
+    print(f"scanned step: yolov3-416 bf16, {STREAMS} x {FRAME_H}p, K="
+          f"{K_FRAMES}, max_dets {trk_cfg.max_dets}, max_tracks "
+          f"{trk_cfg.max_tracks}, nn_budget {trk_cfg.nn_budget}, one "
+          f"threshold {thr:.4f}: launches per chunk fused {launches['fused']}"
+          f", tracker_step {launches['tracker_step']}; no host wait inside "
+          f"the step on either branch; both branches emit the same rows; "
+          f"frames/s median of {SCAN_BLOCKS} blocks of {SCAN_BLOCK_CHUNKS} "
+          f"chunks {med['scanned']:.2f} (blocks {fps['scanned']}), device "
+          f"ms per chunk {dev_ms['scanned']:.4f}; BucketedScannedStep on "
+          f"the same chunks (bucket {bucketed.last_bucket}, window "
+          f"{bucketed.last_window}) {med['bucketed']:.2f} frames/s (blocks "
+          f"{fps['bucketed']}), device ms per chunk "
+          f"{dev_ms['bucketed']:.4f}; emit flags that differ between the "
+          f"two in the last chunk {differ}; card {card_line()}", flush=True)
+    return launches
+
+
+def run_f8_path(dev, setup):
+    """F8 on the card: ``BucketedScannedStep`` with the main path's bf16
+    models on a chunk of K_FRAMES x STREAMS frames of F8_HW, which the
+    reference's crop gate refuses (W % 128 != 0; per-stream thresholds
+    calibrated on them as ``main_path_setup`` does). The track stage's
+    windowed crops must be one launch of the dense entry and none of K2,
+    bit-equal to the dense entry's plain version on the same frames and
+    boxes. Returns the launches of the counted chunk."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.parallel import streams
+
+    _, _, _, parts = setup
+    h, w = F8_HW
+    rng = np.random.default_rng(8)
+    base = torch.from_numpy(rng.integers(0, 256, (STREAMS, h, w, 3),
+                                         dtype=np.uint8)).to(dev)
+    frames = base[None].expand(K_FRAMES, -1, -1, -1, -1).contiguous()
+    with torch.no_grad():
+        obj = parts["detector"](letterbox_batch_fused(
+            base, 416, torch.bfloat16))[..., 4]
+    conf = torch.sort(obj, -1, descending=True).values[:, TARGET_DETS - 1]
+    conf_vec = conf.float().cpu().numpy()
+    det_cfg = DetectorConfig(img_size=416, conf_thres=float(conf_vec.mean()),
+                             nms_thres=0.4, max_dets=64)
+    step = streams.BucketedScannedStep(
+        parts["detector"], parts["reid"], det_cfg, parts["trk_cfg"], (h, w),
+        buckets=(16, 24, 32, 36, 40, 48), conf_thres_per_stream=conf_vec)
+    states = streams.init_stream_states(parts["trk_cfg"], STREAMS, dev)
+    states, _ = step(states, frames)
+    ((states, (_, emit)), seen), launched = _counted(
+        lambda: _dense_calls(lambda: step(states, frames)))
+    if step.last_window == (h, w):
+        raise AssertionError("F8: the chunk took no crop window")
+    if (launched["crops"], launched["crops_dense"], len(seen)) != (0, 1, 1):
+        raise AssertionError(f"F8: launches {launched} on a {h} x {w} "
+                             "chunk, expected K2 0 and the dense entry 1")
+    _check_dense_calls(seen, "F8")
+    boxes = seen[0][1]
+    print(f"F8: BucketedScannedStep bf16 on {STREAMS} x {h}x{w} (refused by "
+          f"the reference's crop gate), K={K_FRAMES}: window "
+          f"{step.last_window}, bucket {step.last_bucket}, crops K2 0, "
+          f"dense entry 1 launch of {boxes.shape[0]} x {boxes.shape[1]} "
+          f"boxes, bit-equal to its plain version; emitted rows "
+          f"{int(emit.sum())}", flush=True)
+    return launched
+
+
+def mot_scene(seed=0, n_frames=120, n_objects=8, feat_dim=64):
+    """The scene of ``benchmarks/mot_eval.py`` ``synthetic_eval``: per
+    frame the gt rows [id, x1, y1, x2, y2] and the detections (xywh
+    centres, confidences, unit features), drawn in the same order from the
+    same seeded generator (``tests/test_torch_port_mot.py`` holds it to the
+    reference's numbers)."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n_objects, feat_dim))
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    pos = rng.uniform([100, 200], [1700, 800], (n_objects, 2))
+    vel = rng.uniform(-12, 12, (n_objects, 2))
+    size = rng.uniform([40, 90], [90, 200], (n_objects, 2))
+    t_in = rng.integers(0, 20, n_objects)
+    t_out = rng.integers(n_frames - 30, n_frames + 30, n_objects)
+    occl = [(rng.integers(30, 70), rng.integers(3, 15))
+            for _ in range(n_objects)]
+    gt_frames, dets = [], []
+    for t in range(n_frames):
+        rows, confs, fs, gts = [], [], [], []
+        for k in range(n_objects):
+            if not (t_in[k] <= t < t_out[k]):
+                continue
+            o_start, o_len = occl[k]
+            cx, cy = pos[k] + vel[k] * t
+            w, h = size[k]
+            cx = float(np.clip(cx, w / 2, 1920 - w / 2))
+            cy = float(np.clip(cy, h / 2, 1080 - h / 2))
+            gts.append([k + 1, cx - w / 2, cy - h / 2, cx + w / 2,
+                        cy + h / 2])
+            if o_start <= t < o_start + o_len:
+                continue  # occluded: no detection, gt persists
+            if rng.uniform() < 0.05:
+                continue  # detector miss
+            jit_xy = rng.normal(0, 2, 2)
+            f = feats[k] + rng.normal(0, 0.08, feat_dim)
+            rows.append([cx + jit_xy[0], cy + jit_xy[1], w, h])
+            confs.append(float(rng.uniform(0.5, 0.95)))
+            fs.append(f / np.linalg.norm(f))
+        gt_frames.append(np.array(gts, np.float64).reshape(-1, 5))
+        dets.append((np.array(rows, np.float64).reshape(-1, 4), confs,
+                     np.array(fs, np.float64).reshape(-1, feat_dim)))
+    return gt_frames, dets
+
+
+def pack_scene_frame(dets, d, feat_dim):
+    """One frame's detections of S streams -> (tlwh (S, D, 4), conf (S,
+    D), feat (S, D, F), mask (S, D)) numpy f32 / bool, D rows per stream."""
+    s = len(dets)
+    tlwh = np.zeros((s, d, 4), np.float32)
+    conf = np.zeros((s, d), np.float32)
+    feat = np.zeros((s, d, feat_dim), np.float32)
+    mask = np.zeros((s, d), bool)
+    for i, (xywh, confs, fs) in enumerate(dets):
+        n = len(xywh)
+        tlwh[i, :n, 0] = xywh[:, 0] - xywh[:, 2] / 2
+        tlwh[i, :n, 1] = xywh[:, 1] - xywh[:, 3] / 2
+        tlwh[i, :n, 2:] = xywh[:, 2:]
+        conf[i, :n] = confs
+        feat[i, :n] = fs
+        mask[i, :n] = True
+    return tlwh, conf, feat, mask
+
+
+def run_tracking_quality(dev):
+    """The tracking-quality gate on the card: MOT_STREAMS streams, each the
+    ``mot_scene`` of its own seed (MOT_FRAMES frames, MOT_OBJECTS objects),
+    through kernel 3 (``tracker_step_fused_batched``) and kernel 5
+    (``tracker_step``), one launch per frame for all streams, at the
+    reference's synthetic-eval configuration (max_tracks 64, max_dets 32,
+    feat_dim 64, nn_budget 100), and through ``tracker_step`` on the CPU.
+    Per stream, MOTA, ID switches and IDF1 (``utils/mot.py``) of both
+    kernels must equal the CPU's. Returns {kernel name: launches} over both
+    runs, every counter of the port read."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.tracking.tracker import (
+        init_tracker_state,
+        tracker_step,
+    )
+    from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
+        tracker_step_fused_batched,
+    )
+    from yolo_deepsort_tpu_torch.utils.mot import evaluate_mot, idf1_score
+
+    cfg = TrackerConfig(max_tracks=64, max_dets=32, feat_dim=MOT_FEAT,
+                        nn_budget=100)
+    scenes = [mot_scene(seed, MOT_FRAMES, MOT_OBJECTS, MOT_FEAT)
+              for seed in range(MOT_STREAMS)]
+    packed = [pack_scene_frame([sc[1][t] for sc in scenes], cfg.max_dets,
+                               MOT_FEAT) for t in range(MOT_FRAMES)]
+
+    def run(step, device):
+        st = init_tracker_state(cfg, MOT_STREAMS, device)
+        hyps = [[] for _ in range(MOT_STREAMS)]
+        for frame in packed:
+            st, boxes, emit = step(cfg, st, *(torch.from_numpy(a).to(device)
+                                              for a in frame), MOT_HW)
+            boxes, emit = boxes.cpu().numpy(), emit.cpu().numpy()
+            for i in range(MOT_STREAMS):
+                hyps[i].append(boxes[i][emit[i]].astype(np.float64))
+        scores = []
+        for i, hyp in enumerate(hyps):
+            m = evaluate_mot(scenes[i][0], hyp)
+            scores.append((float(m.mota), m.id_switches,
+                           idf1_score(scenes[i][0], hyp), float(m.motp)))
+        return scores
+
+    want = run(tracker_step, "cpu")
+    got, launches = {}, _only()
+    for name, step in (("tracker", tracker_step_fused_batched),
+                       ("jv_two_stage", tracker_step)):
+        got[name], counts = _counted(lambda: run(step, dev))
+        if counts != _only(**{name: MOT_FRAMES}):
+            raise AssertionError(f"tracking quality: {name}'s run launched "
+                                 f"{counts}, expected {name} {MOT_FRAMES}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        if [s[:3] for s in got[name]] != [s[:3] for s in want]:
+            raise AssertionError(f"tracking quality through {name}: MOTA, "
+                                 f"IDSW, IDF1 {got[name]} differ from the "
+                                 f"CPU's {want}")
+    print(f"tracking quality ({MOT_STREAMS} streams x {MOT_FRAMES} frames, "
+          f"{MOT_OBJECTS} objects each, seeds 0-{MOT_STREAMS - 1}; "
+          f"per stream (MOTA, IDSW, IDF1, MOTP)): K3 {got['tracker']}, K5 "
+          f"{got['jv_two_stage']}, CPU {want}; MOTA, IDSW and IDF1 equal",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3442,6 +3920,11 @@ def main() -> int:
     print(f"small K=1 step (yolov3-tiny-64, 2 x 64x128, cap 6, window "
           f"(48, 64), 4 frames) card vs CPU: emit, ids and discrete state "
           f"equal, boxes within 1 px ({emitted} rows)", flush=True)
+    emitted = check_small_scanned(dev)
+    print(f"small scanned step (yolov3-tiny-64, 2 x 64x128, 2 chunks of K=3, "
+          f"both tracker branches) card vs CPU: emit, ids and discrete state "
+          f"equal, boxes within 1 px, launches per chunk K1 1, dense crops "
+          f"1, K2 0, K3 3 or K5 3 (rows {emitted})", flush=True)
 
     emitted = check_small_resblock(dev)
     print(f"small residual detector (width 128, one chain of 2 blocks at "
@@ -3468,6 +3951,10 @@ def main() -> int:
     mark("int8 embed paths")
     chain_launches = run_resblock_paths(dev, setup)
     mark("chain paths")
+    scan_launches = run_scanned_path(dev, setup)
+    mark("scanned path")
+    run_f8_path(dev, setup)
+    mark("F8")
     del setup
     probe_rec, probe_launches, probe_io, probe_ops = run_probe_path(dev)
     # kernel 6's paths are the chunked and the K=1 step under
@@ -3487,6 +3974,12 @@ def main() -> int:
         mark("JV ops, facades")
         run_multistream(dev, tmp_dir)
     mark("multistream")
+    quality_launches = run_tracking_quality(dev)
+    mark("tracking quality")
+    # the scanned path's counts: its two counted chunks, one per tracker
+    # branch, every counter of the port read
+    scanned = {name: sum(b[name] for b in scan_launches.values())
+               for name in _port_counters()}
     src = "yolo_deepsort_tpu_torch/csrc/"
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
@@ -3508,7 +4001,10 @@ def main() -> int:
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2], "bound_ms": results[name][3],
         "bound_by": results[name][4], "library_ms": None,
-        "launches_k1_path": k1_launches.get(name, 0), **results[name][5],
+        "launches_k1_path": k1_launches[name],
+        "launches_scanned_path": scanned[name],
+        "launches_quality_gate": quality_launches[name],
+        **results[name][5],
     } for name in meta]
     kernels.append(conv_kernel_entry(conv, k1_launches["conv"]))
     kernels.append(conv_int8_kernel_entry(
@@ -3520,6 +4016,8 @@ def main() -> int:
     kernels.append(probe_kernel_entry(probe_rec, probe_launches, probe_io,
                                       probe_ops))
     for entry in kernels:
+        entry["launches_scanned_path"] = scanned[entry["name"]]
+        entry["launches_quality_gate"] = quality_launches[entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")

@@ -214,3 +214,90 @@ def test_crops_phases_reads_stamps():
     assert got["wait_per_substrip"] == 10
     assert got["compute_per_substrip"] == 60
     assert got["blocks_at_once_per_sm"] == 400 / 300
+
+
+def _chunk_case(frame_w):
+    """Seeded (2, 64, frame_w, 3) frames and 6 boxes per frame whose
+    integer crops fit a (32, 40) window."""
+    rng = np.random.default_rng(21)
+    h = 64
+    frames = rng.integers(0, 256, (2, h, frame_w, 3), np.uint8)
+    bw, bh = rng.uniform(1, 38, (2, 6)), rng.uniform(1, 30, (2, 6))
+    x1, y1 = rng.uniform(-5, frame_w - 2, (2, 6)), rng.uniform(-5, h - 2,
+                                                               (2, 6))
+    boxes = np.clip(np.stack([x1, y1, x1 + bw, y1 + bh], -1), 0,
+                    [frame_w - 1, h - 1, frame_w - 1, h - 1])
+    return frames, boxes.astype(np.float32)
+
+
+@pytest.mark.parametrize("frame_w", [120, 128], ids=["refused", "gated"])
+def test_chunk_crops_follow_the_reference_crop_gate(frame_w, monkeypatch):
+    """The chunk step's bf16 windowed crops (``make_chunk_crops``, the
+    bucketed track stage's) on a frame the reference's crop gate refuses
+    (64 x 120: 120 % 128 != 0) equal the JAX step's crops there bit for
+    bit -- ``crop_and_normalize_windowed`` at bf16, the dense order, on its
+    CPU and TPU backends alike -- and come from the dense entry, not kernel
+    2's plain version. On a frame the gate takes (64 x 128) they are kernel
+    2's plain version, as before."""
+    frames, boxes = _chunk_case(frame_w)
+    assert crops_kernel.crops_pallas_order_supported(64, frame_w) == (
+        frame_w == 128)
+    k2_calls = []
+    plain = crops_kernel.crops_plain
+    monkeypatch.setattr(crops_kernel, "crops_plain",
+                        lambda *a: k2_calls.append(1) or plain(*a))
+    crops = TS.make_chunk_crops((64, frame_w), (32, 40), torch.bfloat16)
+    got = crops(torch.from_numpy(frames), torch.from_numpy(boxes)).numpy()
+    if frame_w == 128:
+        assert k2_calls == [1]
+        want = plain(torch.from_numpy(frames), torch.from_numpy(boxes), 32,
+                     40).numpy()
+        np.testing.assert_array_equal(got, want)
+        return
+    assert k2_calls == []
+    win = jax.vmap(lambda f, b: j_windowed(f, b, 32, 40,
+                                           compute_dtype=jnp.bfloat16))
+    want = np.asarray(win(jnp.asarray(frames), jnp.asarray(boxes)))
+    np.testing.assert_array_equal(got, want)
+    # what the fault was: kernel 2's rounding order differs almost
+    # everywhere on such a frame
+    k2 = plain(torch.from_numpy(frames), torch.from_numpy(boxes), 32,
+               40).numpy()
+    assert (k2 != want).mean() > 0.5
+
+
+@pytest.mark.parametrize("window", [None, (64, 128)],
+                         ids=["no-window", "full-frame-window"])
+def test_chunk_crops_dense_branch_equals_the_reference(window):
+    """The chunk step's bf16 crops without a window (a chunk whose largest
+    crop exceeds the ladder's top, or a full-frame window) are one call of
+    the dense entry, bit-equal to the JAX step's ``vmap(crop_and_normalize)``
+    at bf16."""
+    frames, boxes = _chunk_case(128)
+    boxes[0, 0] = [0, 0, 127, 63]  # a full-frame box
+    crops = TS.make_chunk_crops((64, 128), window, torch.bfloat16)
+    got = crops(torch.from_numpy(frames), torch.from_numpy(boxes)).numpy()
+    den = jax.vmap(lambda f, b: j_dense(f, b, compute_dtype=jnp.bfloat16))
+    want = np.asarray(den(jnp.asarray(frames), jnp.asarray(boxes)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dense_crops_batch_is_the_per_frame_form_f32():
+    """``crop_and_normalize_batch`` at f32 -- the f32 dense crops of the
+    monolithic step (``streams.dense_crops(..., batched=True)``) -- against
+    the per-frame ``crop_and_normalize``, bit for bit: every output sums two
+    non-zero taps per axis, and the batched contractions add them in the
+    same order."""
+    rng = np.random.default_rng(9)
+    for b, h, w, d in ((3, 37, 53, 4), (4, 96, 160, 7), (2, 270, 480, 16)):
+        frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                               np.uint8))
+        x1, y1 = rng.uniform(-5, w, (b, d)), rng.uniform(-5, h, (b, d))
+        bw, bh = rng.uniform(1, w, (b, d)), rng.uniform(1, h, (b, d))
+        boxes = torch.from_numpy(np.clip(
+            np.stack([x1, y1, x1 + bw, y1 + bh], -1), 0,
+            [w - 1, h - 1, w - 1, h - 1]).astype(np.float32))
+        got = TS.dense_crops(frames, boxes, torch.float32, batched=True)
+        want = torch.stack([TC.crop_and_normalize(frames[i], boxes[i])
+                            for i in range(b)])
+        assert torch.equal(got, want), (b, h, w, d)

@@ -681,6 +681,13 @@ def test_bf16_k1_step_card_equals_cpu(cuda_device):
     exactly equal; boxes within 1 px (the f32 detector sums in another
     order on the card, so a Kalman mean can sit an ulp to either side of an
     integer)."""
+    smoke = _load_smoke()
+    before = crops_kernel.launches_dense
+    assert smoke.check_small_k1(cuda_device) > 0
+    assert crops_kernel.launches_dense == before + 4
+
+
+def _load_smoke():
     import importlib.util
     from pathlib import Path
 
@@ -688,9 +695,74 @@ def test_bf16_k1_step_card_equals_cpu(cuda_device):
         "_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    before = crops_kernel.launches_dense
-    assert smoke.check_small_k1(cuda_device) > 0
-    assert crops_kernel.launches_dense == before + 4
+    return smoke
+
+
+@pytest.mark.parametrize("frame_w,window,launched", [
+    (120, (32, 40), (0, 1)), (128, None, (0, 1)), (128, (32, 40), (1, 0))],
+    ids=["refused-frame", "no-window", "gated-frame"])
+def test_chunk_crops_launch_once(cuda_device, frame_w, window, launched):
+    """The chunk step's bf16 crops (``make_chunk_crops``, the bucketed
+    track stage's) are one launch: the dense entry on a frame the
+    reference's crop gate refuses (F8) and without a window (F3's dense
+    branch), kernel 2 on a frame the gate takes; the dense entry bit for
+    bit against its plain version on the card, kernel 2 within the crops
+    tolerance."""
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize_batch
+    from yolo_deepsort_tpu_torch.parallel.streams import make_chunk_crops
+
+    rng = np.random.default_rng(16)
+    b, d, h = 4, 6, 64
+    x1, y1 = rng.uniform(0, frame_w - 2, (b, d)), rng.uniform(0, h - 2, (b, d))
+    boxes = np.clip(np.stack([x1, y1, x1 + rng.uniform(1, 38, (b, d)),
+                              y1 + rng.uniform(1, 30, (b, d))], -1), 0,
+                    [frame_w - 1, h - 1, frame_w - 1, h - 1])
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
+    frames = _frames(16, b, h, frame_w, cuda_device)
+    before = (crops_kernel.launches, crops_kernel.launches_dense)
+    got = make_chunk_crops((h, frame_w), window, torch.bfloat16)(frames,
+                                                                 boxes)
+    assert (crops_kernel.launches - before[0],
+            crops_kernel.launches_dense - before[1]) == launched
+    torch.cuda.synchronize()
+    if launched[1]:
+        assert torch.equal(got, crop_and_normalize_batch(frames, boxes,
+                                                         torch.bfloat16))
+    else:
+        want = crops_kernel.crops_plain(frames, boxes, *window)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_dense_crops_f32_batch_equals_per_frame_on_card(cuda_device):
+    """The monolithic step's f32 dense crops (``streams.dense_crops`` with
+    ``batched``: one set of ops over the batch) equal the per-frame
+    ``crop_and_normalize`` on the card, bit for bit, as on the CPU."""
+    from yolo_deepsort_tpu_torch.ops.crops import crop_and_normalize
+    from yolo_deepsort_tpu_torch.parallel.streams import dense_crops
+
+    rng = np.random.default_rng(17)
+    b, d, h, w = 3, 12, 270, 480
+    frames = _frames(17, b, h, w, cuda_device)
+    x1, y1 = rng.uniform(-5, w, (b, d)), rng.uniform(-5, h, (b, d))
+    boxes = np.clip(np.stack([x1, y1, x1 + rng.uniform(1, w, (b, d)),
+                              y1 + rng.uniform(1, h, (b, d))], -1), 0,
+                    [w - 1, h - 1, w - 1, h - 1])
+    boxes[:, 0] = [0, 0, w - 1, h - 1]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
+    got = dense_crops(frames, boxes, torch.float32, batched=True)
+    want = torch.stack([crop_and_normalize(frames[i], boxes[i])
+                        for i in range(b)])
+    assert torch.equal(got, want)
+
+
+def test_small_scanned_step_card_equals_cpu(cuda_device):
+    """The monolithic chunk step on the card against the same step on the
+    CPU (``chip_smoke.check_small_scanned``: yolov3-tiny at 64, 2 x
+    64x128, 2 chunks of K=3, both tracker branches): emit, ids and the
+    discrete state exactly equal, boxes within 1 px, and per chunk K1 1,
+    the dense crops 1, K2 0, K3 3 or K5 3."""
+    rows = _load_smoke().check_small_scanned(cuda_device)
+    assert rows["fused"] > 0 and rows["fused"] == rows["tracker_step"]
 
 
 def _int8_conv_case(seed, n, hi, wi, ci, co, k, dev, residual, stride):

@@ -20,6 +20,9 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import yolo_deepsort_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+missing = {"yolo_deepsort_tpu_torch.utils." + m
+           for m in ("mot", "metrics", "profiling")} - set(names)
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # and what the smoke run imports inside its phases
@@ -148,6 +151,12 @@ def _calls():
                       torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
                                   device=meta),
                       torch.zeros((1, 2, 4), device=meta), 4, 4)),
+        "crops_dense": (crops_kernel, "crop_and_normalize_batch",
+                        "launches_dense",
+                        lambda: crops_kernel.crop_and_normalize_dense(
+                            torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
+                                        device=meta),
+                            torch.zeros((1, 2, 4), device=meta))),
         "tracker": (tracker_kernel, "tracker_step", "launches", tracker),
         "jv_cascade": (assignment_kernel, "solve_cascade_assignment",
                        "cascade_launches", jv()),
@@ -156,7 +165,8 @@ def _calls():
     }
 
 
-@pytest.mark.parametrize("kernel", ["letterbox", "crops", "tracker",
+@pytest.mark.parametrize("kernel", ["letterbox", "crops", "crops_dense",
+                                    "tracker",
                                     "jv_cascade", "jv_two_stage",
                                     "conv_bf16", "conv_int8",
                                     "resblock_bf16", "resblock_int8",

@@ -66,6 +66,15 @@ _MEAN_OVER_STD = np.asarray(
     np.float32)
 
 
+def crops_pallas_order_supported(h: int, w: int) -> bool:
+    """The reference's gate on its windowed crop kernel (copied from
+    ``yolo_deepsort_tpu/ops/pallas_crops.py`` ``pallas_crops_supported``):
+    only frames with H % 8 == 0 and W % 128 == 0 take kernels 2 and 6, and
+    so round in the Pallas order; on any other frame the reference makes
+    its windowed crops in the dense (XLA) order."""
+    return h % 8 == 0 and w % 128 == 0
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 

@@ -1,5 +1,6 @@
-"""Multi-stream serving steps: the bucketed chunked detect -> track step and
-the single-frame low-latency step (port of the serving subset of
+"""Multi-stream serving steps: the bucketed chunked detect -> track step,
+the monolithic chunk step it is measured against, and the single-frame
+low-latency step (port of the single-device part of
 yolo_deepsort_tpu/parallel/streams.py).
 
 A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
@@ -12,9 +13,15 @@ A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 * One host readback of the stats picks the capacity bucket and the ReID
   crop window (``BucketedScannedStep.track``).
 * Track stage (``make_scanned_track_stage``): rescale -> windowed crops
-  (kernel 2, or kernel 6 under ``YDT_CROPS_LAYOUT=interleaved``) -> ReID
-  embed -> a K-frame Python loop of the fused tracker step (kernel 3), one
-  launch per frame.
+  (``make_chunk_crops``: kernel 2, or kernel 6 under
+  ``YDT_CROPS_LAYOUT=interleaved``, on the frames the reference's crop gate
+  takes; the dense crop entry on the others) -> ReID embed -> a K-frame
+  Python loop of the fused tracker step (kernel 3), one launch per frame.
+
+``make_scanned_step`` is the reference's monolithic chunk step: the same
+stages with no readback, at the worst-case capacity and with dense crops.
+It and its per-frame body ``fused_frame_step`` share their stateless
+stages (``_make_detect_embed``).
 
 ``make_batched_step`` is the K=1 step: one frame of every stream per call,
 no readback inside the step -- capacity is a static ``cap``; a bf16 embed's
@@ -45,17 +52,23 @@ from ..models.darknet import Darknet
 from ..models.reid import ReIDNet
 from ..ops.crops import (
     crop_and_normalize,
+    crop_and_normalize_batch,
     crop_and_normalize_windowed,
     crop_window_bounds,
 )
 from ..ops.crops_kernel import (
     crop_and_normalize_dense,
     crop_and_normalize_fused,
+    crops_pallas_order_supported,
 )
 from ..ops.letterbox import rescale_boxes
 from ..ops.letterbox_kernel import letterbox_batch_fused
 from ..ops.nms import batched_nms, batched_nms_with_stats
-from ..tracking.tracker import TrackerState, init_tracker_state
+from ..tracking.tracker import (
+    TrackerState,
+    init_tracker_state,
+    tracker_step,
+)
 from ..tracking.tracker_kernel import tracker_step_fused_batched
 
 
@@ -263,6 +276,60 @@ def make_scanned_detect_stage(
     return detect
 
 
+def dense_crops(frames, boxes_xyxy, dtype, batched=False):
+    """The reference's ``vmap(crop_and_normalize)`` over a frame batch:
+    (B, H, W, 3) uint8, (B, D, 4) clipped xyxy -> (B, D, 128, 64, 3) f32,
+    in the dense (XLA) rounding order over the whole frame. bf16: one
+    launch of the dense crop entry (``crop_and_normalize_dense``; on CPU
+    tensors its plain version). Other dtypes: ``crop_and_normalize`` frame
+    by frame, or with ``batched`` ``crop_and_normalize_batch``, one set of
+    ops over the batch, bit-equal to it (held at f32 on the CPU and the
+    card) but with an X-pass intermediate B times as large, so only the
+    monolithic step takes it."""
+    if dtype == torch.bfloat16:
+        return crop_and_normalize_dense(frames, boxes_xyxy.contiguous())
+    if batched:
+        return crop_and_normalize_batch(frames, boxes_xyxy, dtype)
+    return torch.stack([
+        crop_and_normalize(frames[i], boxes_xyxy[i], compute_dtype=dtype)
+        for i in range(frames.shape[0])])
+
+
+def make_chunk_crops(frame_hw: Tuple[int, int],
+                     crop_window: Optional[Tuple[int, int]], dtype):
+    """The track stage's ReID crops: crops(frames (B, H, W, 3), boxes_xyxy
+    (B, D, 4)) -> (B, D, 128, 64, 3) f32, rounded as the reference's
+    bucketed step rounds them on its TPU backend. ``crop_window`` (win_h,
+    win_w) must cover every consumed detection's integer crop (the detect
+    stage's stats guarantee it); a full-frame window is the dense path.
+
+    bf16 with a window, on a frame the reference's crop gate takes
+    (``crops_pallas_order_supported``: H % 8 == 0 and W % 128 == 0, as
+    1080p, 720p and 4K are): kernel 2 (kernel 6 under
+    ``YDT_CROPS_LAYOUT=interleaved``), the Pallas rounding order. Any other
+    bf16 crops -- a frame the gate refuses, or no window -- are one launch
+    of the dense entry (``dense_crops``): the reference makes them in the
+    dense order, and its windowed form equals its dense form whenever every
+    crop fits. Other dtypes: the windowed resampler frame by frame, or
+    without a window ``dense_crops`` (``compute_dtype`` honoured)."""
+    h, w = frame_hw
+    if crop_window is not None and crop_window[0] >= h and crop_window[1] >= w:
+        crop_window = None  # a full-frame window is the dense path
+    bf16 = dtype == torch.bfloat16
+    if crop_window is None or (bf16
+                               and not crops_pallas_order_supported(h, w)):
+        return lambda frames, boxes_xyxy: dense_crops(frames, boxes_xyxy,
+                                                      dtype)
+    wh, ww = crop_window
+    if bf16:
+        return lambda frames, boxes_xyxy: crop_and_normalize_fused(
+            frames, boxes_xyxy.contiguous(), wh, ww)
+    return lambda frames, boxes_xyxy: torch.stack([
+        crop_and_normalize_windowed(frames[i], boxes_xyxy[i], wh, ww,
+                                    compute_dtype=dtype)
+        for i in range(frames.shape[0])])
+
+
 def make_scanned_track_stage(
     reid: ReIDNet,
     det_cfg: DetectorConfig,
@@ -276,17 +343,18 @@ def make_scanned_track_stage(
     """Returns track(states, frames (K, S, H, W, 3), boxes7, mask) ->
     (states, (outputs (K, S, T, 5), emit (K, S, T))) at detection capacity
     ``cap``. ``crop_window`` (win_h, win_w) must cover every valid
-    detection's integer crop (the detect stage's stats guarantee it). With
-    a bf16 embed (an int8-resident one: a bf16 front) the windowed crops go
-    through kernel 2; an f32 embed keeps the f32 windowed resampler, so the
-    compute dtype is honoured."""
+    detection's integer crop (the detect stage's stats guarantee it). The
+    crops are made in the dtype of the embed's front (an int8-resident
+    embed: bf16) as ``make_chunk_crops`` says: a bf16 window takes kernel 2
+    on the frames the reference's crop gate takes, the dense entry on the
+    others and without a window; an f32 embed keeps the f32 resamplers, so
+    the compute dtype is honoured."""
     h, w = frame_hw
     size = det_cfg.img_size
     cfg_c = dataclasses.replace(trk_cfg, max_dets=cap)
-    if crop_window is not None and crop_window[0] >= h and crop_window[1] >= w:
-        crop_window = None  # a full-frame window is the dense path
     embed, dtype, device = _make_embed(reid, embed_int8)
     tracked = class_filter(tracked_class_ids, device)
+    crops_of = make_chunk_crops(frame_hw, crop_window, dtype)
 
     @torch.no_grad()
     def track(states: TrackerState, frames, boxes7, mask):
@@ -297,19 +365,7 @@ def make_scanned_track_stage(
         if tracked is not None:
             m = m & tracked(b7)
         boxes_xyxy, tlwh = _frame_boxes(b7, size, h, w)
-        if crop_window is not None and dtype == torch.bfloat16:
-            crops = crop_and_normalize_fused(flat, boxes_xyxy.contiguous(),
-                                             crop_window[0], crop_window[1])
-        elif crop_window is not None:
-            crops = torch.stack([
-                crop_and_normalize_windowed(flat[i], boxes_xyxy[i],
-                                            crop_window[0], crop_window[1],
-                                            compute_dtype=dtype)
-                for i in range(k * s)])
-        else:
-            crops = torch.stack([
-                crop_and_normalize(flat[i], boxes_xyxy[i], compute_dtype=dtype)
-                for i in range(k * s)])
+        crops = crops_of(flat, boxes_xyxy)
         feats = embed(crops.reshape(k * s * cap, *crops.shape[2:]))
         feats = feats.reshape(k, s, cap, -1)
         per_frame = lambda a: a.reshape(k, s, *a.shape[1:])  # noqa: E731
@@ -331,8 +387,8 @@ def make_k1_crops(frame_hw: Tuple[int, int],
     (S, D, 4), mask (S, D)) -> (S, D, 128, 64, 3) f32, the reference step's
     value on both sides of its window guard.
 
-    bf16: one launch of the dense crop entry over the whole frame
-    (``crop_and_normalize_dense``; on CPU tensors its plain version). The
+    bf16, and any dtype without a window: ``dense_crops`` (at bf16 one
+    launch of the dense crop entry over the whole frame). The
     reference rounds in the dense (XLA) order on both branches of its
     ``lax.cond``, and its windowed form equals its dense form whenever the
     guard takes it, so the window changes nothing here.
@@ -343,22 +399,13 @@ def make_k1_crops(frame_hw: Tuple[int, int],
     here, so both forms are computed and ``torch.where`` selects on the
     device flag."""
     h, w = frame_hw
-    if dtype == torch.bfloat16:
-        return lambda frames, boxes_xyxy, mask: crop_and_normalize_dense(
-            frames, boxes_xyxy.contiguous())
     win = None
-    if crop_window is not None:
+    if crop_window is not None and dtype != torch.bfloat16:
         win = (min(crop_window[0], h), min(crop_window[1], w))
         win = None if win == (h, w) else win
-
-    def dense(frames, boxes_xyxy):
-        return torch.stack([
-            crop_and_normalize(frames[i], boxes_xyxy[i],
-                               compute_dtype=dtype)
-            for i in range(frames.shape[0])])
-
     if win is None:
-        return lambda frames, boxes_xyxy, mask: dense(frames, boxes_xyxy)
+        return lambda frames, boxes_xyxy, mask: dense_crops(frames,
+                                                            boxes_xyxy, dtype)
 
     def guarded(frames, boxes_xyxy, mask):
         wh, ww = win
@@ -368,7 +415,8 @@ def make_k1_crops(frame_hw: Tuple[int, int],
             crop_and_normalize_windowed(frames[i], boxes_xyxy[i], wh, ww,
                                         compute_dtype=dtype)
             for i in range(frames.shape[0])])
-        return torch.where(fits, windowed, dense(frames, boxes_xyxy))
+        return torch.where(fits, windowed,
+                           dense_crops(frames, boxes_xyxy, dtype))
 
     return guarded
 
@@ -462,6 +510,143 @@ def make_batched_step(
     if not with_validity:
         return lambda states, frames: run(states, frames)
     return run
+
+
+def _make_detect_embed(detector: Darknet, reid: ReIDNet,
+                       det_cfg: DetectorConfig, trk_cfg: TrackerConfig,
+                       frame_hw: Tuple[int, int], tracked_class_ids=None):
+    """The stateless stages of ``make_scanned_step`` and
+    ``fused_frame_step``: detect_embed(frames (B, H, W, 3) uint8,
+    letterboxed=None, decoded=None, with_feats=True) -> (tlwh (B, D, 4),
+    conf (B, D), mask (B, D), xyxy (B, D, 4), feats (B, D, F) or None).
+    Letterbox (kernel 1) -> Darknet forward and decode -> NMS at
+    ``trk_cfg.max_dets`` -> rescale, clip and class filter -> the dense
+    crops of all B*D rows (``dense_crops``, batched) -> one ReID embed.
+    ``letterboxed`` (B, size, size, 3) replaces the letterbox, ``decoded``
+    (B, N, 5+C) the letterbox and the forward."""
+    h, w = frame_hw
+    size = det_cfg.img_size
+    param = next(detector.parameters())
+    embed, reid_dtype, _ = _make_embed(reid, False)
+    tracked = class_filter(tracked_class_ids, param.device)
+
+    @torch.no_grad()
+    def detect_embed(frames, letterboxed=None, decoded=None,
+                     with_feats=True):
+        if decoded is None:
+            if letterboxed is None:
+                letterboxed = letterbox_batch_fused(frames, size,
+                                                    out_dtype=param.dtype)
+            decoded = detector(letterboxed)
+        boxes7, mask = batched_nms(decoded, det_cfg.conf_thres,
+                                   det_cfg.nms_thres, det_cfg.max_boxes,
+                                   trk_cfg.max_dets)
+        if tracked is not None:
+            mask = mask & tracked(boxes7)
+        xyxy, tlwh = _frame_boxes(boxes7, size, h, w)
+        feats = None
+        if with_feats:
+            crops = dense_crops(frames, xyxy, reid_dtype, batched=True)
+            b, d = crops.shape[:2]
+            feats = embed(crops.reshape(b * d, *crops.shape[2:]))
+            feats = feats.reshape(b, d, -1)
+        return tlwh, boxes7[..., 5], mask, xyxy, feats
+
+    return detect_embed
+
+
+def fused_frame_step(
+    detector: Darknet,
+    reid: ReIDNet,
+    det_cfg: DetectorConfig,
+    trk_cfg: TrackerConfig,
+    frame_hw: Tuple[int, int],
+    state: TrackerState,
+    frame_rgb: torch.Tensor,  # (H, W, 3) uint8
+    tracked_class_ids=None,  # optional (C,) class ids
+    letterboxed: Optional[torch.Tensor] = None,  # (size, size, 3) input
+    decoded: Optional[torch.Tensor] = None,  # (N, 5+C) network output
+    return_dets=False,  # False | True | "boxes", as in the reference
+):
+    """One stream, one frame (the reference's per-stream body):
+    ``_make_detect_embed``'s stages at B = 1, then associate. The compute
+    dtypes are the models' own (the crops follow the ReID net's; a bf16
+    net's are one launch of the dense crop entry). ``state`` is a
+    one-stream ``TrackerState`` (S = 1). ``letterboxed`` replaces the
+    letterbox (kernel 1, one frame) with a given input; ``decoded`` also
+    skips the backbone. Returns, as the reference does:
+      * return_dets=False: (state, (outputs (T, 5), emit (T,))), through
+        ``tracker_step`` (on the card: kernel 5 once);
+      * return_dets=True: (tlwh (D, 4), conf (D,), feats (D, F), mask (D,)),
+        the stateless half;
+      * return_dets="boxes": (tlwh, conf, mask, xyxy (D, 4)), before the
+        crops and the embed."""
+    detect_embed = _make_detect_embed(detector, reid, det_cfg, trk_cfg,
+                                      frame_hw, tracked_class_ids)
+    tlwh, conf, mask, xyxy, feats = detect_embed(
+        frame_rgb[None],
+        None if letterboxed is None else letterboxed[None],
+        None if decoded is None else decoded.reshape(1, *decoded.shape[-2:]),
+        with_feats=return_dets != "boxes")
+    if return_dets == "boxes":
+        return tlwh[0], conf[0], mask[0], xyxy[0]
+    if return_dets:
+        return tlwh[0], conf[0], feats[0], mask[0]
+    with torch.no_grad():
+        state, outputs, emit = tracker_step(trk_cfg, state, tlwh, conf,
+                                            feats, mask, frame_hw)
+    return state, (outputs[0], emit[0])
+
+
+def make_scanned_step(
+    detector: Darknet,
+    reid: ReIDNet,
+    det_cfg: DetectorConfig,
+    trk_cfg: TrackerConfig,
+    frame_hw: Tuple[int, int],
+    n_frames: int,
+    tracked_class_ids=None,
+    use_fused_tracker=None,  # None | True: kernel 3; False: tracker_step
+):
+    """The monolithic K-frame step (the reference's ``make_scanned_step``):
+    step(states, frames (K, S, H, W, 3) uint8) -> (states, (outputs (K, S,
+    T, 5), emit (K, S, T))), ``n_frames`` = K, the chunk it is built for
+    (as in the reference, the frames' leading axis is what runs).
+
+    ``_make_detect_embed``'s stages run as one K*S batch at the worst-case
+    capacity ``trk_cfg.max_dets`` (kernel 1 once; a bf16 ReID net's crops
+    one launch of the dense crop entry), then the tracker over the K frames
+    in a Python loop: ``use_fused_tracker`` None or True the fused step
+    (kernel 3, ``tracker_step_fused_batched``), False ``tracker_step``
+    (kernel 5), once per frame. The port's kernel 3 takes any
+    ``max_tracks`` up to 256, so the reference's ``max_tracks % 8 == 0``
+    condition is not needed (on CPU tensors both branches are
+    ``tracker_step``). The compute dtypes are the models' own; the step
+    reads nothing back. Not taken from the reference: ``compute_dtype``,
+    ``use_pallas_letterbox`` (the port's letterbox is always kernel 1) and
+    ``donate_state`` (the gallery is written in place)."""
+    del n_frames
+    h, w = frame_hw
+    detect_embed = _make_detect_embed(detector, reid, det_cfg, trk_cfg,
+                                      frame_hw, tracked_class_ids)
+    fused = use_fused_tracker is None or bool(use_fused_tracker)
+    associate = tracker_step_fused_batched if fused else tracker_step
+
+    @torch.no_grad()
+    def step(states: TrackerState, frames: torch.Tensor):
+        k, s = frames.shape[0], frames.shape[1]
+        per_frame = lambda a: a.reshape(k, s, *a.shape[1:])  # noqa: E731
+        tlwh, conf, mask, _, feats = (per_frame(a) for a in detect_embed(
+            frames.reshape(k * s, h, w, 3)))
+        outputs, emits = [], []
+        for f in range(k):  # the K-frame scan: one kernel launch per frame
+            states, out, emit = associate(trk_cfg, states, tlwh[f], conf[f],
+                                          feats[f], mask[f], (h, w))
+            outputs.append(out)
+            emits.append(emit)
+        return states, (torch.stack(outputs), torch.stack(emits))
+
+    return step
 
 
 class BucketedScannedStep:
