@@ -23,6 +23,16 @@ which ends the run with a non-zero exit code when it fails:
                    Ci 128-1024 incl. 384 and 768, Co 128-1024 and 255) plus
                    one mish shape, in bf16 mode (within 2 bf16 ulps) and in
                    int8 mode (exactly equal); ``check_conv``
+     conv (default bf16 path)  every other conv shape the bf16 forwards give
+                   kernel 7 (``check_bf16_rounding``): the rest of
+                   yolov3-416 at batch 8 (layer 0's 3 input channels
+                   zero-padded to 8, the 416/208/104 maps) and every conv of
+                   both ReID nets at EMBED_CROPS crops (the ReLU and ELU
+                   codes; the f32-output form of each block's second conv
+                   and projection shortcut): bf16 outputs within 2 bf16
+                   ulps, f32 outputs within TOL_CONV_F32; then the small
+                   bf16 detector and both bf16 ReID nets on the card against
+                   the CPU's plain forwards (``check_small_bf16_nets``)
      crops_interleaved  the same boxes through kernel 6 (the interleaved-RGB
                    variant of the same staged main loop): to its plain
                    version within the crops tolerance, and exactly equal to
@@ -158,6 +168,21 @@ which ends the run with a non-zero exit code when it fails:
    through kernel 3 and kernel 5 on the card and ``tracker_step`` on the
    CPU, scored with the port's ``utils/mot.py``: per stream MOTA, ID
    switches and IDF1 of both kernels equal the CPU's.
+9. training (``run_yolo_training``, ``run_reid_training``; library convs
+   and autograd, as the reference leaves training to XLA): yolov3 at full
+   width, 416 px, batch 8, and the 512-d ReID net with a 751-class head at
+   128 x 64, batch 64, each TRAIN_STEPS SGD steps on a fixed generated
+   batch (loss finite and falling; ms per step and peak memory); each
+   one's tiny net for 3 steps on the card against the CPU
+   (``_forced_steps``); both CLIs on the card on generated files: train,
+   checkpoint, resume, export (YOLO) or test and evaluate (ReID).
+
+Since the bf16 forwards round where the reference rounds, kernel 7 runs
+every conv of the bf16 detector and ReID net: the counted paths hold its
+launches to one per conv layer per forward (yolov3 75, the 512-d ReID net
+20), measured: per chunk on the main path, per K=1 step (the routed layers
+included), on the int8-embed paths (the detector's alone), on the chain
+paths (the convs off the chains) and on the scanned path.
 
 Each of paths 4-8 is run with the launch counters set to 0 just before it
 and read just after (the ``kernels`` line: ``launches`` from path 4,
@@ -282,6 +307,22 @@ TOL_SMALL_BOXES = 1e-3
 # libraries: int8 mode within 1 bf16 ulp there.
 TOL_CONV_ULPS = 2.0
 CONV_ULP_FLOOR = 2.0 ** -6
+# kernel 7's f32-output form: the same products summed in another order
+# and not rounded to bf16; the tensor cores do not accumulate in IEEE
+# round-to-nearest, so the sums of a deep layer drift by more than an f32
+# ulp (1.6e-5 relative measured at depth 2304): within 2^-13 of
+# max(|want|, 1), 64 times tighter than the bf16 bound
+TOL_CONV_F32 = 2.0 ** -13
+# the bf16 nets on the card (kernel 7) against the CPU (its plain version),
+# check_small_bf16_nets: both round at the same points, and the tensor
+# cores' sums, which truncate, flip a bf16 rounding more often than the
+# two frameworks' CPU forwards do (3.3% of the decoded values there): a
+# flip moves objectness by up to a bf16 ulp of the head through the
+# sigmoid. Decoded boxes in px of the 64-px input (measured 3.9e-3),
+# objectness (4.8e-4), the share of decoded values that differ (16%), max
+# |feature diff| of the 512-d and 128-d embeds (3.8e-4, 1.5e-3)
+TOL_BF16_BOXES, TOL_BF16_OBJ, MAX_BF16_DIFFER = 1e-2, 1e-3, 0.3
+TOL_BF16_REID = {"512": 1e-3, "128": 4e-3}
 # kernel 8: int32 sums are exact and its f32 epilogue is the plain version's
 # op for op, so int8 codes must be exactly equal; the f32 output (the last
 # conv) is held to 1e-5 relative (of max(|want|, 1e-3))
@@ -1072,30 +1113,241 @@ def check_conv(rng, dev):
     return out
 
 
-def conv_kernel_entry(per_class, launches):
-    """K7's entry of the ``kernels`` line. Its times are those of one K=1
-    step's routed layers (CONV_ROUTE): each routed layer's class time in the
-    mode it is routed in, summed, and the plain, bound and library times of
-    the same layers likewise. ``ms`` and ``library_ms`` are on the clock of
-    every other kernel's (called from Python back to back, ``cuda_ms``);
-    ``device_ms`` and ``library_device_ms`` are the same sums of device
-    time (``cuda_graph_ms``). ``per_shape`` lists every class in both modes
-    on both clocks."""
-    by_layer = {idx: (key, r) for key, r in per_class.items()
-                for idx in r["layers"]}
+def bf16_layer_shapes(model, x):
+    """Every conv a bf16 model's forward of ``x`` runs through
+    ``models/layers.conv_layer_bf16`` (kernel 7 on the card), as {(n, hi,
+    wi, ci, co, k, stride, act, out f32): [layer numbers in call order]}."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.models import darknet, reid
+
+    shapes, count = {}, [0]
+
+    def recorded(conv, xin, act, out_dtype=torch.bfloat16):
+        n, hi, wi, ci = (int(v) for v in xin.shape)
+        key = (n, hi, wi, ci, conv.out_channels, conv.kernel_size[0],
+               conv.stride[0], act, out_dtype == torch.float32)
+        shapes.setdefault(key, []).append(count[0])
+        count[0] += 1
+        return layer_bf16(conv, xin, act, out_dtype)
+
+    layer_bf16 = darknet.conv_layer_bf16
+    darknet.conv_layer_bf16 = reid.conv_layer_bf16 = recorded
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        darknet.conv_layer_bf16 = reid.conv_layer_bf16 = layer_bf16
+    return shapes
+
+
+def check_bf16_rounding(rng, dev):
+    """Kernel 7 at every conv shape the default bf16 forwards give it that
+    ``check_conv`` does not cover: the convs of yolov3-416 at batch 8 off
+    the eligible classes (layer 0 with its 3 input channels zero-padded to
+    8, the 416, 208 and 104 maps, Ci 32-128), and every conv of both ReID
+    nets at the K=1 step's embed of EMBED_CROPS crops -- the ReLU and ELU
+    codes, and the f32-output form of each block's second conv and
+    projection shortcut. Each against its plain version on the same
+    operands (x ~ N(0, 1), w ~ N(0, 1/K), b ~ N(0, 1)): bf16 outputs within
+    TOL_CONV_ULPS, f32 outputs within TOL_CONV_F32; timed on both clocks
+    beside the library's bf16 conv + activation on the same tensors (a
+    yardstick: the repair needs the kernel's f32 sums whatever it costs).
+    Then the small bf16 detector (yolov3-tiny at 64, 2 frames) and both
+    ReID nets (24 crops) on the card against their plain forwards on the
+    CPU. Returns ({"detector" | "reid512" | "reid128": {shape: record}},
+    {small check: numbers})."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import Darknet, build_network
+    from yolo_deepsort_tpu_torch.models.reid import (
+        random_original_reid_params,
+        random_reid_params,
+    )
+    from yolo_deepsort_tpu_torch.ops import conv_kernel as CV
+    from yolo_deepsort_tpu_torch.ops.conv_plan import plan_for
+    from yolo_deepsort_tpu_torch.weights import reid_from_params
+
+    cl = torch.channels_last
+    covered = {(hi, ci, co, k, stride, act)
+               for (hi, ci, co, k, stride, act) in conv_shape_classes(dev)}
+    det = Darknet(build_network(ARCHITECTURES["yolov3"](img_size=416))).to(
+        dev, torch.bfloat16, memory_format=cl).eval()
+    nets = {"detector": bf16_layer_shapes(det, torch.zeros(
+        (STREAMS, 416, 416, 3), dtype=torch.bfloat16, device=dev))}
+    if sum(len(v) for v in nets["detector"].values()) != len(det.convs):
+        raise AssertionError("the bf16 detector ran a conv past kernel 7")
+    nets["detector"] = {k: v for k, v in nets["detector"].items()
+                        if (k[1], k[3], k[4], k[5], k[6], k[7])
+                        not in covered}
+    del det
+    crops = torch.zeros((EMBED_CROPS, 128, 64, 3), dtype=torch.bfloat16,
+                        device=dev)
+    for name, params in (("reid512", random_reid_params(0)),
+                         ("reid128", random_original_reid_params(0))):
+        net = reid_from_params(params).to(dev, torch.bfloat16,
+                                          memory_format=cl)
+        nets[name] = bf16_layer_shapes(net, crops)
+    out = {}
+    for net_name, shapes in nets.items():
+        out[net_name] = {}
+        for key, layers in shapes.items():
+            n, hi, wi, ci, co, k, stride, act, f32_out = key
+            x = torch.from_numpy(rng.standard_normal(
+                (n, hi, wi, ci), np.float32)).to(dev, torch.bfloat16)
+            w = torch.from_numpy((rng.standard_normal((k, k, ci, co),
+                                                      np.float32)
+                                  / np.sqrt(k * k * ci)).astype(np.float32)
+                                 ).to(dev, torch.bfloat16)
+            b = torch.from_numpy(rng.standard_normal((co,), np.float32)).to(
+                dev)
+            pad_c = (-ci) % 8  # layer 0: 3 channels, zero-padded to 8
+            xk = F.pad(x, (0, pad_c)).contiguous() if pad_c else x
+            wk = F.pad(w, (0, 0, 0, pad_c)).contiguous() if pad_c else w
+            kw = dict(stride=stride, pad=(k - 1) // 2, act=act,
+                      out_dtype=torch.float32 if f32_out else torch.bfloat16)
+            got = CV.conv_bf16(xk, wk, b, **kw)
+            want = CV.conv_plain_bf16(x, w, b, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if f32_out:
+                held = float(((got - want).abs() / want.abs().clamp(min=1.0))
+                             .max())
+                ok = got.dtype == torch.float32 and held <= TOL_CONV_F32
+            else:
+                held = _bf16_ulps(got.float(), want.float())
+                ok = got.dtype == torch.bfloat16 and held <= TOL_CONV_ULPS
+            if got.shape != want.shape or not ok:
+                raise AssertionError(f"conv {net_name} {key}: {held} > bound "
+                                     f"(max |err| {err})")
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+            b16 = b.to(torch.bfloat16)
+
+            def library():
+                y = F.conv2d(x_cl, w_cl, b16, stride=stride,
+                             padding=kw["pad"])
+                return CV.apply_act(y, act)
+
+            m, depth = int(np.prod(got.shape[:3])), k * k * (ci + pad_c)
+            ops = 2.0 * m * k * k * ci * co
+            io = nbytes(x, b, got, w)
+            out[net_name][key] = dict(
+                layers=layers, held=held, err=err,
+                device_ms=cuda_graph_ms(lambda: CV.conv_bf16(xk, wk, b, **kw),
+                                        20),
+                ms=cuda_ms(lambda: CV.conv_bf16(xk, wk, b, **kw), 20),
+                plain_ms=cuda_ms(lambda: CV.conv_plain_bf16(x, w, b, **kw),
+                                 2),
+                library_device_ms=cuda_graph_ms(library, 20),
+                library_ms=cuda_ms(library, 20),
+                bound=roofline(io, ops, "bf16"),
+                plan=tuple(plan_for(dev, m, co, depth, 2)))
+    return out, check_small_bf16_nets(dev)
+
+
+def check_small_bf16_nets(dev):
+    """The small bf16 detector (``_small_setup``'s yolov3-tiny at 64, its
+    2 frames) and both bf16 ReID nets (24 seeded N(0, 1) crops) on the card
+    (kernel 7 on every conv) against the same nets on the CPU (its plain
+    version), which round at the same points and sum in another order:
+    decoded boxes within TOL_BF16_BOXES px, objectness within TOL_BF16_OBJ,
+    at most MAX_BF16_DIFFER of the decoded values differing; features
+    within TOL_BF16_REID[layout]. Returns the measured numbers."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.models.reid import (
+        random_original_reid_params,
+        random_reid_params,
+    )
+    from yolo_deepsort_tpu_torch.ops import conv_kernel
+    from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch
+    from yolo_deepsort_tpu_torch.weights import reid_from_params
+
+    su = _small_setup()
+    x = letterbox_batch(torch.from_numpy(su["base"]), su["size"]).to(
+        torch.bfloat16)
+    cpu = su["det"]().to(torch.bfloat16)
+    card = su["det"]().to(dev, torch.bfloat16,
+                          memory_format=torch.channels_last)
+    conv_kernel.launches = 0
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    res = {"detector_k7_launches": conv_kernel.launches,
+           "boxes": float((got[..., :4] - want[..., :4]).abs().max()),
+           "obj": float((got[..., 4] - want[..., 4]).abs().max()),
+           "differ": float((got != want).float().mean())}
+    if res["detector_k7_launches"] != len(card.convs):
+        raise AssertionError(f"small bf16 detector: {res} K7 launches, "
+                             f"expected {len(card.convs)}")
+    crops = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (24, 128, 64, 3)).astype(np.float32)).to(torch.bfloat16)
+    for name, params in (("512", random_reid_params(0)),
+                         ("128", random_original_reid_params(0))):
+        net = reid_from_params(params)
+        with torch.no_grad():
+            want = net.to(torch.bfloat16)(crops)
+            got = net.to(dev, memory_format=torch.channels_last)(
+                crops.to(dev)).cpu()
+        res[f"reid{name}"] = float((got - want).abs().max())
+    if (res["boxes"] > TOL_BF16_BOXES or res["obj"] > TOL_BF16_OBJ
+            or res["differ"] > MAX_BF16_DIFFER
+            or any(res[f"reid{n}"] > t for n, t in TOL_BF16_REID.items())):
+        raise AssertionError(f"small bf16 nets card vs CPU: {res}")
+    return res
+
+
+def conv_kernel_entry(per_class, rounding, launches):
+    """K7's entry of the ``kernels`` line. Its times are those of the
+    default bf16 path of one K=1 step: every conv of the yolov3-416
+    detector at batch 8 and of the 512-d ReID embed of EMBED_CROPS crops,
+    each layer's shape time in bf16 mode (``check_conv``'s classes, the
+    other shapes from ``check_bf16_rounding``), summed, with the plain,
+    bound and library times of the same layers likewise. ``ms`` and
+    ``library_ms`` are on the clock of every other kernel's (called from
+    Python back to back, ``cuda_ms``); ``device_ms`` and
+    ``library_device_ms`` are the same sums of device time
+    (``cuda_graph_ms``). ``route_k1`` keeps the earlier totals over the
+    K=1 step's routed layers (CONV_ROUTE, each in the mode it is routed
+    in). ``per_shape`` lists every eligible class in both modes,
+    ``per_shape_default_path`` every other shape of the default path and
+    of the 128-d ReID net, with the held error (bf16 ulps, or relative for
+    the f32-output form). ``launches``: {path: count} of the counted
+    runs."""
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                device_ms=0.0, library_device_ms=0.0)
     by = {"operations": 0.0, "bytes": 0.0}  # bound ms by what bounds a layer
+
+    def add(n, ms, device_ms, plain_ms, bound, library_ms, library_device):
+        tot["ms"] += n * ms
+        tot["device_ms"] += n * device_ms
+        tot["plain_ms"] += n * plain_ms
+        tot["bound_ms"] += n * bound[0]
+        tot["library_ms"] += n * library_ms
+        tot["library_device_ms"] += n * library_device
+        by[bound[1]] += n * bound[0]
+
+    for r in per_class.values():
+        add(len(r["layers"]), r["called_bf16"], r["ms_bf16"],
+            r["plain_bf16"], r["bound_bf16"], r["library_called"],
+            r["library"])
+    for net in ("detector", "reid512"):
+        for r in rounding[net].values():
+            add(len(r["layers"]), r["ms"], r["device_ms"], r["plain_ms"],
+                r["bound"], r["library_ms"], r["library_device_ms"])
+    by_layer = {idx: r for r in per_class.values() for idx in r["layers"]}
+    route = dict(ms=0.0, device_ms=0.0, library_ms=0.0,
+                 library_device_ms=0.0)
     for mode in ("bf16", "int8"):
         for idx in CONV_ROUTE[mode]:
-            r = by_layer[idx][1]
-            tot["ms"] += r[f"called_{mode}"]
-            tot["device_ms"] += r[f"ms_{mode}"]
-            tot["plain_ms"] += r[f"plain_{mode}"]
-            tot["bound_ms"] += r[f"bound_{mode}"][0]
-            tot["library_ms"] += r["library_called"]
-            tot["library_device_ms"] += r["library"]
-            by[r[f"bound_{mode}"][1]] += r[f"bound_{mode}"][0]
+            r = by_layer[idx]
+            route["ms"] += r[f"called_{mode}"]
+            route["device_ms"] += r[f"ms_{mode}"]
+            route["library_ms"] += r["library_called"]
+            route["library_device_ms"] += r["library"]
     shapes = [{
         "shape": list(key), "layers": r["layers"],
         "ms_bf16": r["called_bf16"], "ms_int8": r["called_int8"],
@@ -1114,15 +1366,34 @@ def conv_kernel_entry(per_class, launches):
         "bound_share_bf16": r["share_bf16"],
         "bound_share_int8": r["share_int8"]}
         for key, r in per_class.items()]
+    default_shapes = [{
+        "net": net, "shape": list(key), "layers": len(r["layers"]),
+        "held": r["held"], "max_abs_err": r["err"], "ms": r["ms"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"],
+        "library_device_ms": r["library_device_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "plan": list(r["plan"])}
+        for net, recs in rounding.items() for key, r in recs.items()]
+    errs = {form: max([r["err"] for recs in rounding.values()
+                       for key, r in recs.items() if pick(key)] or [0.0])
+            for form, pick in (
+                ("relu_elu", lambda k: k[7] in ("relu", "elu") and not k[8]),
+                ("f32_out", lambda k: k[8]))}
     return {
         "name": "conv", "route": "cuda",
         "source": "yolo_deepsort_tpu_torch/csrc/conv.cu",
         "replaces": "yolo_deepsort_tpu/ops/pallas_conv.py:74",
-        "launches": launches,
+        "launches": launches["main"],
+        "launches_k1_path": launches["k1"],
         "max_abs_err": max(r["err_bf16"] for r in per_class.values()),
+        "max_abs_err_relu_elu": errs["relu_elu"],
+        "max_abs_err_f32_out": errs["f32_out"],
         **tot,
         "bound_by": max(by, key=by.get),
+        "route_k1": route,
         "per_shape": shapes,
+        "per_shape_default_path": default_shapes,
     }
 
 
@@ -1386,6 +1657,14 @@ def main_path_setup(dev):
         conf_vec=conf_vec, plan=plan, raw=raw)
 
 
+def n_convs(module) -> int:
+    """The conv layers of a net: one kernel 7 launch each per bf16
+    forward (``models/layers.conv_layer_bf16``)."""
+    import torch
+
+    return sum(isinstance(m, torch.nn.Conv2d) for m in module.modules())
+
+
 def pipelined(step, states, frames, chunks, event_readback=True):
     """``chunks`` chunks through the step, each chunk's track stage enqueued
     after the NEXT chunk's detect stage. ``event_readback=False`` hands the
@@ -1405,7 +1684,11 @@ def run_main_path(dev, setup=None):
     """yolov3-416 bf16, 8 x 1080p, K=4 through BucketedScannedStep."""
     import torch
 
-    from yolo_deepsort_tpu_torch.ops import crops_kernel, letterbox_kernel
+    from yolo_deepsort_tpu_torch.ops import (
+        conv_kernel,
+        crops_kernel,
+        letterbox_kernel,
+    )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     step, states, frames, parts = setup or main_path_setup(dev)
@@ -1427,15 +1710,21 @@ def run_main_path(dev, setup=None):
     if readbacks != 2:
         raise AssertionError(f"{readbacks} stats readbacks in 2 chunks")
 
-    kernels = (letterbox_kernel, crops_kernel, tracker_kernel)
+    kernels = (letterbox_kernel, crops_kernel, tracker_kernel, conv_kernel)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     states, (outputs, emit) = pipelined(step, states, frames, CHUNKS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(zip(("letterbox", "crops", "tracker"),
+    launches = dict(zip(("letterbox", "crops", "tracker", "conv"),
                         (k.launches for k in kernels)))
+    # kernel 7 runs every conv of the bf16 detector and ReID net, once per
+    # chunk each
+    per_chunk = n_convs(parts["detector"]) + n_convs(parts["reid"])
+    if launches["conv"] != per_chunk * CHUNKS:
+        raise AssertionError(f"main path: {launches['conv']} K7 launches in "
+                             f"{CHUNKS} chunks, expected {per_chunk} a chunk")
 
     # per-stage times of one more chunk, each stage synchronized
     torch.cuda.synchronize()
@@ -1468,8 +1757,9 @@ def run_main_path(dev, setup=None):
           f"per chunk; bucket {step.last_bucket}, window {step.last_window}, "
           f"max count {step.last_max_count}, confirmed tracks {n_conf}, "
           f"emitted rows {int(emit.sum())}, saturation {step.saturation()}, "
-          f"stats readbacks per chunk {readbacks // 2} and no other sync",
-          flush=True)
+          f"stats readbacks per chunk {readbacks // 2} and no other sync; "
+          f"K7 launches per chunk {per_chunk} (every conv of the bf16 "
+          f"detector and ReID net)", flush=True)
     return launches
 
 
@@ -1550,8 +1840,11 @@ def run_k1_path(dev, setup=None):
 
     (on_ms, on_rows, states), launches = _counted(
         lambda: _k1_latency(routed, states, base, K1_STEPS))
+    # K7: the routed layers in their modes, every other conv of the bf16
+    # detector and ReID net in bf16 mode
+    per_step = n_convs(parts["detector"]) + n_convs(parts["reid"])
     want = _only(letterbox=K1_STEPS, crops_dense=K1_STEPS, tracker=K1_STEPS,
-                 conv=N_ROUTED * K1_STEPS)
+                 conv=per_step * K1_STEPS)
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -1591,7 +1884,7 @@ def run_k1_path(dev, setup=None):
           f"window {K1_WINDOW}, fixed conv route ({len(CONV_ROUTE['bf16'])} "
           f"bf16 + {len(CONV_ROUTE['int8'])} int8 layers), {K1_STEPS} steps: "
           f"launches per step K1 1, K2 0, dense crops 1, K3 1, K7 "
-          f"{N_ROUTED}; 1 readback "
+          f"{per_step} ({N_ROUTED} of them the routed layers); 1 readback "
           f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
           f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
           f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; both "
@@ -1615,6 +1908,7 @@ def run_int8_embed_paths(dev, setup):
 
     from yolo_deepsort_tpu_torch.ops import (
         conv_int8_kernel,
+        conv_kernel,
         crops_kernel,
         letterbox_kernel,
     )
@@ -1626,6 +1920,7 @@ def run_int8_embed_paths(dev, setup):
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     bf16_step, _, frames, parts = setup
+    n_det = n_convs(parts["detector"])  # K7 per forward; the embed is K8's
     trk_cfg, det_cfg = parts["trk_cfg"], parts["det_cfg"]
     hw = (FRAME_H, FRAME_W)
     _, pkg = reid_int8_package(dev)
@@ -1637,7 +1932,7 @@ def run_int8_embed_paths(dev, setup):
 
     def reset_counters():
         for m in (letterbox_kernel, crops_kernel, tracker_kernel,
-                  conv_int8_kernel):
+                  conv_int8_kernel, conv_kernel):
             m.launches = 0
         crops_kernel.launches_interleaved = 0
         crops_kernel.launches_dense = 0
@@ -1648,7 +1943,8 @@ def run_int8_embed_paths(dev, setup):
                 "crops_interleaved": crops_kernel.launches_interleaved,
                 "crops_dense": crops_kernel.launches_dense,
                 "tracker": tracker_kernel.launches,
-                "conv_int8": conv_int8_kernel.launches}
+                "conv_int8": conv_int8_kernel.launches,
+                "conv": conv_kernel.launches}
 
     # chunked path: both embeds from fresh states over the same chunks
     st = {"int8": init_stream_states(trk_cfg, STREAMS),
@@ -1684,7 +1980,8 @@ def run_int8_embed_paths(dev, setup):
     want = {"letterbox": INT8_CHUNKS, "crops": INT8_CHUNKS,
             "crops_interleaved": 0, "crops_dense": 0,
             "tracker": K_FRAMES * INT8_CHUNKS,
-            "conv_int8": N_INT8_CONVS * INT8_CHUNKS}
+            "conv_int8": N_INT8_CONVS * INT8_CHUNKS,
+            "conv": n_det * INT8_CHUNKS}
     if chunk_counts != want:
         raise AssertionError(f"int8 embed, chunked: launches over "
                              f"{INT8_CHUNKS} chunks {chunk_counts}, expected "
@@ -1703,7 +2000,8 @@ def run_int8_embed_paths(dev, setup):
           f"K={K_FRAMES}, embed_int8=resident_pallas, {crops_per_chunk} crops "
           f"per chunk at bucket {int8_step.last_bucket}, window "
           f"{int8_step.last_window}): launches per chunk K8 {N_INT8_CONVS}, "
-          f"K1 1, K2 1, K3 {K_FRAMES}; 1 readback per chunk and no other "
+          f"K7 {n_det}, K1 1, K2 1, K3 {K_FRAMES}; 1 readback per chunk and "
+          f"no other "
           f"sync; frames/s over {INT8_CHUNKS} chunks, blocks bf16 int8 int8 "
           f"bf16: int8 {fps['int8']}, bf16 {fps['bf16']}; confirmed tracks "
           f"{n_conf}, emitted rows {int(emit8.sum())}; rows equal to the "
@@ -1772,7 +2070,8 @@ def run_int8_embed_paths(dev, setup):
     want = {"letterbox": INT8_K1_STEPS, "crops": 0,
             "crops_interleaved": 0, "crops_dense": INT8_K1_STEPS,
             "tracker": INT8_K1_STEPS,
-            "conv_int8": N_INT8_CONVS * INT8_K1_STEPS}
+            "conv_int8": N_INT8_CONVS * INT8_K1_STEPS,
+            "conv": n_det * INT8_K1_STEPS}
     if k1_counts != want:
         raise AssertionError(f"int8 embed, K=1: launches over "
                              f"{INT8_K1_STEPS} steps {k1_counts}, expected "
@@ -1799,7 +2098,8 @@ def run_int8_embed_paths(dev, setup):
 
     print(f"int8 embed, K=1 (cap {K1_CAP}, window {K1_WINDOW}, "
           f"{EMBED_CROPS} crops per step, no conv route, {INT8_K1_STEPS} "
-          f"steps): launches per step K8 {N_INT8_CONVS}, K1 1, K2 0, dense "
+          f"steps): launches per step K8 {N_INT8_CONVS}, K7 {n_det}, K1 1, "
+          f"K2 0, dense "
           f"crops 1, K3 1; 1 "
           f"readback per step and no other sync; p50 {pct(ms8, 50):.4f} ms, "
           f"p99 {pct(ms8, 99):.4f} ms per step; bf16 embed: p50 "
@@ -2202,6 +2502,7 @@ def run_resblock_paths(dev, setup):
     import torch
 
     from yolo_deepsort_tpu_torch.ops import (
+        conv_kernel,
         crops_kernel,
         letterbox_kernel,
         resblock_kernel,
@@ -2264,9 +2565,13 @@ def run_resblock_paths(dev, setup):
     # the kernels behind those calls: two per block of the model's chains,
     # held against what the C entry reports it launched
     n_kernels = 2 * sum(c[3] for c in RESBLOCK_CLASSES)
+    # kernel 7: every conv of the bf16 detector and ReID net off the chains
+    k7_off = n_convs(detector) + n_convs(parts["reid"])
+    k7_routed = k7_off - n_kernels
 
     counters = {"letterbox": letterbox_kernel, "crops": crops_kernel,
-                "tracker": tracker_kernel, "resblock": resblock_kernel}
+                "tracker": tracker_kernel, "resblock": resblock_kernel,
+                "conv": conv_kernel}
 
     def reset_counters():
         for m in counters.values():
@@ -2320,7 +2625,8 @@ def run_resblock_paths(dev, setup):
                        "crops_dense": 0,
                        "tracker": K_FRAMES * RESBLOCK_CHUNKS,
                        "resblock": n_chains * RESBLOCK_CHUNKS,
-                       "resblock_kernels": n_kernels * RESBLOCK_CHUNKS}
+                       "resblock_kernels": n_kernels * RESBLOCK_CHUNKS,
+                       "conv": k7_routed * RESBLOCK_CHUNKS}
         if chunk_counts[name] != want_counts:
             raise AssertionError(f"chain route ({name}), chunked: launches "
                                  f"over {RESBLOCK_CHUNKS} chunks "
@@ -2360,7 +2666,8 @@ def run_resblock_paths(dev, setup):
           f"K={K_FRAMES}, {K_FRAMES * STREAMS} frames per forward): launches "
           f"per chunk K9 {n_chains} (the planner's promise: one per chain, "
           f"chains at 52x52, 26x26, 13x13; {n_kernels} kernels behind "
-          f"them, two per block), K1 1, K2 1, K3 {K_FRAMES}; 1 "
+          f"them, two per block), K7 {k7_routed} (the other convs), K1 1, "
+          f"K2 1, K3 {K_FRAMES}; 1 "
           f"readback per chunk and no other sync; decoded output against "
           f"the unrouted detector at {STREAMS} / {K_FRAMES * STREAMS} "
           f"frames, max |err| over the column's scale (each <= "
@@ -2407,7 +2714,9 @@ def run_resblock_paths(dev, setup):
                        "resblock": (0 if name == "off" else
                                     n_chains * RESBLOCK_K1_STEPS),
                        "resblock_kernels": (0 if name == "off" else
-                                            n_kernels * RESBLOCK_K1_STEPS)}
+                                            n_kernels * RESBLOCK_K1_STEPS),
+                       "conv": (k7_off if name == "off" else k7_routed)
+                       * RESBLOCK_K1_STEPS}
         if k1_counts[name] != want_counts:
             raise AssertionError(f"chain route ({name}), K=1: launches over "
                                  f"{RESBLOCK_K1_STEPS} steps "
@@ -2433,8 +2742,8 @@ def run_resblock_paths(dev, setup):
 
     print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
           f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
-          f"step K9 {n_chains} ({n_kernels} kernels), K1 1, dense crops 1, "
-          f"K3 1; 1 "
+          f"step K9 {n_chains} ({n_kernels} kernels), K7 {k7_routed} (off: "
+          f"{k7_off}), K1 1, dense crops 1, K3 1; 1 "
           f"readback per step and "
           f"no other sync; p50 / p99 ms per step: off {pct(ms['off'], 50):.4f}"
           f" / {pct(ms['off'], 99):.4f}, bf16 chains "
@@ -3086,13 +3395,14 @@ def profile_k1(dev, repeats: int = 5):
         _, _, states = _k1_latency(routed, states, base, 4)
 
     per_kernel = _device_profile(advance, 4, "K=1 step", step_ms)
-    conv_us = sum(us for name, (_, us) in per_kernel.items()
-                  if "conv_ring_kernel" in name
-                  and "BackboneEpilogue" in name)
+    conv = [(c, us) for name, (c, us) in per_kernel.items()
+            if "conv_ring_kernel" in name and "BackboneEpilogue" in name]
+    conv_us = sum(us for _, us in conv)
     total_us = sum(us for _, us in per_kernel.values())
     print(f"profile: conv kernel (K7) {conv_us / 4e3:.4f} ms per K=1 step "
-          f"over {N_ROUTED} launches, share of device time "
-          f"{conv_us / total_us:.4f}", flush=True)
+          f"over {sum(c for c, _ in conv) / 4:.0f} launches (every conv of "
+          f"the bf16 detector and ReID net, {N_ROUTED} of them routed), "
+          f"share of device time {conv_us / total_us:.4f}", flush=True)
 
 
 def profile_int8_embed(dev, repeats: int = 5):
@@ -3180,8 +3490,10 @@ def profile_resblock(dev, repeats: int = 5):
     the K=1 step's 8 frames and on a chunk's 32, without the chain route,
     with bf16 chains and with int8 chains: backbone + decode by host clock
     around a synchronize (median of ``repeats``), its device time from
-    ``torch.profiler``, kernel 9's part and share of it, and the top 6
-    device ops; then the whole detect stage of the chunked step per
+    ``torch.profiler``, the part and share of kernels 7 and 9 (one main
+    loop under one kernel name: since the bf16 forward runs every conv off
+    the chains through kernel 7, their times are read together), and the
+    top 6 device ops; then the whole detect stage of the chunked step per
     route."""
     import torch
 
@@ -3212,8 +3524,9 @@ def profile_resblock(dev, repeats: int = 5):
                 _, host_ms = _timed(run, repeats)
                 per_kernel = _device_kernels(run)
                 dev_ms = sum(us for _, us in per_kernel.values()) / 1e3
-                # the routed backbone runs no kernel 7: every launch of the
-                # conv kernels' main loop there is one of kernel 9's
+                # kernels 7 (every conv off the chains, the bf16
+                # default) and 9 launch one main loop under one kernel
+                # name: their device time is read together
                 k9_ms = sum(us for op, (_, us) in per_kernel.items()
                             if "conv_ring_kernel" in op) / 1e3
                 k9_n = sum(c for op, (c, _) in per_kernel.items()
@@ -3222,8 +3535,8 @@ def profile_resblock(dev, repeats: int = 5):
                 print(f"profile: backbone + decode, {n} frames, chain route "
                       f"{name}: {host_ms:.4f} ms by host clock, device time "
                       f"{dev_ms:.4f} ms over {n_ops[name]} device ops "
-                      f"(unrouted: {n_ops['off']}); kernel 9 {k9_ms:.4f} ms "
-                      f"in {k9_n} kernels, "
+                      f"(unrouted: {n_ops['off']}); kernels 7 and 9 "
+                      f"{k9_ms:.4f} ms in {k9_n} kernels, "
                       f"share of the backbone's device time "
                       f"{k9_ms / dev_ms:.4f}", flush=True)
                 top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
@@ -3325,6 +3638,344 @@ F8_HW = (480, 854)  # a frame the reference's crop gate refuses (854 % 128)
 # the tracking-quality scene: benchmarks/mot_eval.py synthetic_eval's, one
 # seed per stream, at its tracker configuration
 MOT_STREAMS, MOT_FRAMES, MOT_OBJECTS, MOT_FEAT = 4, 120, 8, 64
+TRAIN_STEPS = 5  # SGD steps of each training phase on its fixed batch
+YOLO_TRAIN_BATCH, REID_TRAIN_BATCH, REID_CLASSES = 8, 64, 751
+# the tiny nets' 3 steps on the card against the CPU, each card step
+# started from the CPU step's params, optimizer state and BN stats: the
+# loss within TOL_TRAIN_LOSS relative, the BN stats within TOL_TRAIN_STATS
+# relative (atol 1e-6), the step's update of all params together within
+# TOL_TRAIN_UPDATE of its norm (L2 norm of the difference over the L2
+# norm of the CPU's update): f32 without TF32 on both, summed in another
+# order. A ReLU whose input lies within rounding of zero passes its
+# gradient on one side only, and the batch-statistics BN spreads that over
+# the channel (tests/test_torch_port_train_reid.py): measured 8.1e-3 for
+# the ReID net (cuDNN's f32 convs against oneDNN's; the CPU against the JAX
+# package 1.1e-3), 3.7e-6 for the detector (leaky ReLU); single ReID leaves
+# 3-10% of their own change
+TOL_TRAIN_LOSS, TOL_TRAIN_STATS, TOL_TRAIN_UPDATE = 1e-4, 1e-3, 3e-2
+
+
+def _forced_steps(tag, cpu_state, step, to_card, n=3):
+    """``n`` training steps on the CPU and on the card, each card step
+    started from a copy of the CPU's state before it (``to_card``): per
+    step the loss, the returned BN stats and the params' update held to
+    the TOL_TRAIN_* bounds. ``cpu_state``: (params, opt, stats);
+    ``step(state)`` -> (state, loss). Returns the worst ratios seen."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+
+    worst = {"loss": 0.0, "stats": 0.0, "update": 0.0}
+    for k in range(n):
+        card_state = to_card(cpu_state)
+        before = [p.detach().clone() for p in tree_leaves(cpu_state[0])]
+        cpu_state, cpu_loss = step(cpu_state)
+        card_state, card_loss = step(card_state)
+        rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        worst["loss"] = max(worst["loss"], rel)
+        for a, b in zip(tree_leaves(card_state[2]), tree_leaves(cpu_state[2])):
+            r = float(((a.cpu() - b).abs() - 1e-6).clamp(min=0).max()
+                      / b.abs().max().clamp(min=1e-12))
+            worst["stats"] = max(worst["stats"], r)
+        card, cpu = (torch.cat([p.detach().cpu().flatten() for p in
+                                tree_leaves(st[0])]) for st in (card_state,
+                                                           cpu_state))
+        moved = cpu - torch.cat([p.flatten() for p in before])
+        ratio = float((card - cpu).norm() / moved.norm())
+        worst["update"] = max(worst["update"], ratio)
+        if (rel > TOL_TRAIN_LOSS or worst["stats"] > TOL_TRAIN_STATS
+                or ratio > TOL_TRAIN_UPDATE):
+            raise AssertionError(f"{tag} step {k}: card vs CPU {worst}")
+    return worst
+
+
+def _timed_steps(step_once, n):
+    """n calls of step_once() -> (losses, ms per step by CUDA events, peak
+    device memory in GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step_once()
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}: not finite or not "
+                             "falling")
+    return losses, ms, peak
+
+
+def _generated_targets(rng, batch, max_targets, n_classes, per_image=4):
+    """(max_targets, 6) rows [b, cls, cx, cy, w, h] and the mask: per_image
+    boxes in each image, normalized."""
+    t = np.zeros((max_targets, 6), np.float32)
+    mask = np.zeros(max_targets, bool)
+    for i in range(batch * per_image):
+        t[i] = [i // per_image, rng.integers(0, n_classes),
+                *rng.uniform(0.2, 0.8, 2), *rng.uniform(0.05, 0.4, 2)]
+        mask[i] = True
+    return t, mask
+
+
+def run_yolo_training(dev, tmp_dir):
+    """YOLO detection training (``train/yolo_cli.py``) on the card: yolov3
+    at full width, 416 px, batch YOLO_TRAIN_BATCH of generated images
+    (uniform [0, 1]) and targets (4 boxes an image), TRAIN_STEPS SGD steps
+    of the cfg's optimizer without burn-in (lr 1e-3, momentum 0.9, decay
+    5e-4) on the fixed batch: the loss finite and falling; ms per step and
+    peak memory. Then the JAX CLI tests' tiny net (64 px, batch 4) for 3
+    steps on the card against the CPU (``_forced_steps``), and the CLI
+    itself on the card on a generated image list: 1 epoch, ``--resume`` for
+    a second, ``--export-weights``, the file loaded into the inference
+    ``Darknet`` on the card."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    from yolo_deepsort_tpu_torch.cfg import parse_model_config
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.train import yolo_cli as TC
+    from yolo_deepsort_tpu_torch.train.trees import to_torch
+    from yolo_deepsort_tpu_torch.utils.checkpoint import load_pytree
+    from yolo_deepsort_tpu_torch.weights import (darknet_from_raw,
+                                                 load_darknet_weights,
+                                                 random_raw_params)
+
+    rng = np.random.default_rng(3)
+    defs = ARCHITECTURES["yolov3"](img_size=416)
+    plan = build_network(defs)
+    params, stats = TC.raw_params_to_train(random_raw_params(plan.defs()),
+                                           plan.defs())
+    params = to_torch(params, dev, trainable=True)
+    stats = [to_torch(stats, dev)]
+    opt = TC.build_optimizer(dict(defs[0], burn_in="0"), params)
+    step = TC.make_detection_train_step(plan)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (YOLO_TRAIN_BATCH, 416, 416, 3))
+                            .astype(np.float32)).to(dev)
+    t, mask = _generated_targets(rng, YOLO_TRAIN_BATCH, 64, 80)
+    t, mask = torch.from_numpy(t).to(dev), torch.from_numpy(mask).to(dev)
+
+    def once():
+        stats[0], loss, _ = step(params, opt, stats[0], imgs, t, mask)
+        return loss
+
+    losses, ms, peak = _timed_steps(once, TRAIN_STEPS)
+    rec = {"losses": losses, "ms": ms, "peak_gib": peak}
+    del params, stats, opt
+
+    # the tiny net, card against CPU
+    cfg = os.path.join(tmp_dir, "tiny.cfg")
+    with open(cfg, "w") as f:
+        f.write(TINY_TRAIN_CFG)
+    tdefs = parse_model_config(cfg)
+    tplan = build_network(tdefs)
+    raw = random_raw_params(tplan.defs())
+    p0, s0 = TC.raw_params_to_train(raw, tplan.defs())
+    timgs = rng.normal(size=(4, 64, 64, 3)).astype(np.float32)
+    tt, tm = _generated_targets(rng, 4, 8, 2, per_image=1)
+    tstep = TC.make_detection_train_step(tplan)
+
+    def fresh(params, opt_state, stats, device):
+        params = to_torch(params, device, trainable=True)
+        opt = TC.build_optimizer(tdefs[0], params)
+        if opt_state is not None:
+            opt.load_state(opt_state)
+        return params, opt, to_torch(stats, device)
+
+    def one(state):
+        params, opt, stats = state
+        stats, loss, _ = tstep(params, opt, stats, timgs, tt, tm)
+        return (params, opt, stats), loss
+
+    rec["tiny"] = _forced_steps(
+        "tiny detector", fresh(p0, None, s0, "cpu"), one,
+        lambda st: fresh(st[0], st[1].state(), st[2], dev))
+
+    # the CLI on the card
+    paths = []
+    os.makedirs(os.path.join(tmp_dir, "images"))
+    os.makedirs(os.path.join(tmp_dir, "labels"))
+    for i in range(8):
+        p = os.path.join(tmp_dir, "images", f"im{i}.png")
+        Image.fromarray(rng.integers(0, 256, (48, 64, 3), np.uint8)).save(p)
+        with open(os.path.join(tmp_dir, "labels", f"im{i}.txt"), "w") as f:
+            f.write("0 0.5 0.5 0.3 0.3\n1 0.2 0.3 0.1 0.2")
+        paths.append(p)
+    lst = os.path.join(tmp_dir, "train.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(paths))
+    ckpt = os.path.join(tmp_dir, "yolo.npz")
+    out = os.path.join(tmp_dir, "out.weights")
+    args = ["--cfg", cfg, "--data", lst, "--batch-size", "4",
+            "--max-targets", "16", "--ckpt", ckpt, "--log-interval", "100"]
+    TC.main(args + ["--epochs", "1"])  # --device: the card by default
+    TC.main(args + ["--epochs", "1", "--resume", "--export-weights", out])
+    ck = load_pytree(ckpt)
+    if int(ck["seen"]) != 16 or int(ck["opt_state"]["count"]) != 4:
+        raise AssertionError(f"yolo CLI: seen {ck['seen']}, count "
+                             f"{ck['opt_state']['count']}")
+    _, raw_out = load_darknet_weights(out, tplan.defs())
+    model = darknet_from_raw(tplan, raw_out).to(dev)
+    with torch.no_grad():
+        dets = model(torch.from_numpy(timgs.clip(0, 1)).to(dev))
+    if dets.shape != (4, 3 * 8 * 8, 7) or not bool(torch.isfinite(dets).all()):
+        raise AssertionError("yolo CLI: the exported weights do not run")
+    return rec
+
+
+def run_reid_training(dev, tmp_dir):
+    """ReID classifier training (``train/reid_train.py``) on the card: the
+    512-d net with a REID_CLASSES-class head at 128 x 64, batch
+    REID_TRAIN_BATCH of N(0, 1) crops and seeded labels, TRAIN_STEPS SGD
+    steps (lr 0.1, momentum 0.9, decay 5e-4) on the fixed batch: the loss
+    finite and falling; ms per step and peak memory. Then 3 steps of a
+    5-class net on 4 crops on the card against the CPU
+    (``_forced_steps``), and the CLI on the card on a generated image
+    folder: train 1 epoch, resume for a second, test, evaluate."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    from yolo_deepsort_tpu_torch.train import reid_cli
+    from yolo_deepsort_tpu_torch.train import reid_train as RT
+    from yolo_deepsort_tpu_torch.train.trees import to_torch
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+
+    rng = np.random.default_rng(4)
+    params, stats = RT.init_train_params(num_classes=REID_CLASSES)
+    params = to_torch(params, dev, trainable=True)
+    stats = [to_torch(stats, dev)]
+    init, step = RT.make_train_step()
+    opt = init(params)
+    x = torch.from_numpy(rng.normal(0, 1, (REID_TRAIN_BATCH, 128, 64, 3))
+                         .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, REID_CLASSES,
+                                           REID_TRAIN_BATCH)).to(dev)
+
+    def once():
+        stats[0], loss, _ = step(params, opt, stats[0], x, labels)
+        return loss
+
+    losses, ms, peak = _timed_steps(once, TRAIN_STEPS)
+    rec = {"losses": losses, "ms": ms, "peak_gib": peak}
+    del params, stats, opt
+
+    p0, s0 = RT.init_train_params(num_classes=5, seed=3)
+    cx = rng.normal(0, 1, (4, 128, 64, 3)).astype(np.float32)
+    cl = np.array([0, 1, 2, 3])
+
+    def fresh(params, bufs, stats, device):
+        params = to_torch(params, device, trainable=True)
+        opt = init(params)
+        for p, buf in zip(tree_leaves(params), bufs):
+            if buf is not None:
+                opt.state[p]["momentum_buffer"] = buf.detach().to(
+                    device).clone()
+        return params, opt, to_torch(stats, device)
+
+    def one(state):
+        params, opt, stats = state
+        stats, loss, _ = step(params, opt, stats, cx, cl)
+        return (params, opt, stats), loss
+
+    def to_card(st):
+        bufs = [st[1].state.get(p, {}).get("momentum_buffer")
+                for p in tree_leaves(st[0])]
+        return fresh(st[0], bufs, st[2], dev)
+
+    rec["tiny"] = _forced_steps("tiny ReID", fresh(p0, [], s0, "cpu"), one,
+                                to_card)
+
+    root = os.path.join(tmp_dir, "reid")
+    for split in ("train", "test", "query", "gallery"):
+        for c in range(3):
+            d = os.path.join(root, split, f"id{c}")
+            os.makedirs(d)
+            for i in range(4):
+                img = np.clip(rng.normal(60 * c + 40, 30, (128, 64, 3)), 0,
+                              255).astype(np.uint8)
+                Image.fromarray(img).save(os.path.join(d, f"{i}.png"))
+    feats = os.path.join(tmp_dir, "feats.npz")
+    common = ["--data-dir", root, "--ckpt", os.path.join(tmp_dir, "r.npz"),
+              "--batch-size", "4", "--log-interval", "100", "--features",
+              feats]
+    reid_cli.main(["train", "--epochs", "1"] + common)
+    reid_cli.main(["train", "--epochs", "2", "--resume"] + common)
+    reid_cli.main(["test"] + common)
+    reid_cli.main(["evaluate"] + common)
+    z = np.load(feats)
+    if z["query"].shape != (12, 512) or not np.allclose(
+            np.linalg.norm(z["query"], axis=1), 1.0, atol=1e-5):
+        raise AssertionError("ReID CLI: query features")
+    return rec
+
+
+TINY_TRAIN_CFG = """[net]
+batch=4
+width=64
+height=64
+channels=3
+learning_rate=0.0005
+burn_in=2
+momentum=0.9
+decay=0.0005
+steps=100000
+scales=.1
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+filters=21
+size=1
+stride=1
+pad=1
+activation=linear
+
+[yolo]
+mask=0,1,2
+anchors=8,8, 16,16, 32,32
+classes=2
+num=3
+jitter=.3
+ignore_thresh=.5
+truth_thresh=1
+random=1
+"""  # the JAX CLI tests' tiny net (tests/test_yolo_cli.py TINY_CFG)
+
+
 MOT_HW = (1080, 1920)
 
 
@@ -3409,12 +4060,13 @@ def _check_dense_calls(seen, tag):
                                  "from its plain version")
 
 
-def _scan_launches(k, fused):
+def _scan_launches(k, fused, conv):
     """The launches of one chunk of K frames through make_scanned_step with
-    a bf16 ReID net: K1 once, the dense crops once, K2 never, and K3 (the
-    fused branch) or K5 (``tracker_step``) once per frame."""
+    a bf16 ReID net: K1 once, the dense crops once, K2 never, K3 (the
+    fused branch) or K5 (``tracker_step``) once per frame, and K7 ``conv``
+    times (one forward of each bf16 net per chunk, a launch per conv)."""
     return _only(letterbox=1, crops_dense=1, tracker=k if fused else 0,
-                 jv_two_stage=0 if fused else k)
+                 jv_two_stage=0 if fused else k, conv=conv)
 
 
 def check_small_scanned(dev):
@@ -3460,7 +4112,7 @@ def check_small_scanned(dev):
             (st_card, (out_c, emit_c)), launched = _counted(
                 lambda: card(st_card, frames_dev))
             tag = f"small scanned step (fused={fused}) chunk {c}"
-            if launched != _scan_launches(k, fused):
+            if launched != _scan_launches(k, fused, n_convs(card_reid)):
                 raise AssertionError(f"{tag}: launches {launched}")
             out_c, emit_c = out_c.cpu(), emit_c.cpu()
             if not (torch.equal(emit_r, emit_c)
@@ -3541,10 +4193,12 @@ def run_scanned_path(dev, setup):
         name = "fused" if fused else "tracker_step"
         # the dense entry at the step's shape: all K x S x max_dets rows
         _check_dense_calls(seen, f"scanned step ({name})")
-        if launched != _scan_launches(K_FRAMES, fused):
+        want = _scan_launches(K_FRAMES, fused,
+                              n_convs(detector) + n_convs(reid))
+        if launched != want:
             raise AssertionError(f"scanned step ({name}): launches per chunk "
                                  f"{launched}, expected "
-                                 f"{_scan_launches(K_FRAMES, fused)}")
+                                 f"{want}")
         if outputs.shape != (K_FRAMES, STREAMS, trk_cfg.max_tracks, 5):
             raise AssertionError(f"scanned step outputs {outputs.shape}")
         if not (bool(torch.isfinite(st.mean).all()) and int(emit.sum())):
@@ -3869,6 +4523,30 @@ def main() -> int:
               f"{r['plan_int8']} {r['tops_int8']:.1f} TOP/s, share "
               f"{r['share_int8']:.3f}", flush=True)
 
+    rounding, small16 = check_bf16_rounding(rng, dev)
+    mark("kernel 7 on the default bf16 path")
+    for net, recs in rounding.items():
+        for (n, hi, wi, ci, co, k, stride, act, f32_out), r in recs.items():
+            held = (f"{r['held']:.3g} of max(|want|, 1) (f32 out)" if f32_out
+                    else f"{r['held']:.3g} bf16 ulps")
+            print(f"kernel conv default path {net} {k}x{k} s{stride} "
+                  f"{hi}x{wi} {ci}->{co} {act} N={n} ({len(r['layers'])} "
+                  f"layers): {held}, max |err| {r['err']:.3g}, kernel "
+                  f"{r['ms']:.4f} ms called, {r['device_ms']:.4f} ms of "
+                  f"device time, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); library bf16 "
+                  f"conv2d+act {r['library_ms']:.4f} ms called, "
+                  f"{r['library_device_ms']:.4f} ms of device time; plan "
+                  f"(BM, BN, stages, split) {r['plan']}", flush=True)
+    print(f"small bf16 nets card (kernel 7) vs CPU (plain): yolov3-tiny-64 "
+          f"detector {small16['detector_k7_launches']} K7 launches, boxes "
+          f"max |err| {small16['boxes']:.3g} px (<= {TOL_BF16_BOXES}), "
+          f"objectness {small16['obj']:.3g} (<= {TOL_BF16_OBJ}), decoded "
+          f"values differing {small16['differ']:.3g} (<= {MAX_BF16_DIFFER});"
+          f" ReID 512-d max |feature err| {small16['reid512']:.3g} (<= "
+          f"{TOL_BF16_REID['512']}), 128-d {small16['reid128']:.3g} (<= "
+          f"{TOL_BF16_REID['128']})", flush=True)
+
     def conv_int8_lines(per_layer, n):
         for name, r in per_layer.items():
             k, stride, hi, wi, ci, co = r["shape"]
@@ -3976,6 +4654,28 @@ def main() -> int:
     mark("multistream")
     quality_launches = run_tracking_quality(dev)
     mark("tracking quality")
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        train_yolo = run_yolo_training(dev, tmp_dir)
+    mark("yolo training")
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        train_reid = run_reid_training(dev, tmp_dir)
+    mark("ReID training")
+    for name, rec, shape, cli in (
+            ("YOLO detection (yolov3-416, full width)", train_yolo,
+             f"batch {YOLO_TRAIN_BATCH} x 416 x 416", "exported"),
+            (f"ReID classifier (512-d, {REID_CLASSES} classes)", train_reid,
+             f"batch {REID_TRAIN_BATCH} x 128 x 64",
+             "tested and evaluated")):
+        print(f"training {name}, {shape}, {TRAIN_STEPS} SGD steps on a fixed "
+              f"generated batch: losses {[round(v, 4) for v in rec['losses']]}"
+              f"; ms per step {[round(v, 3) for v in rec['ms']]} (the first "
+              f"includes cuDNN's first-call set-up), peak device memory "
+              f"{rec['peak_gib']:.3f} GiB; its tiny net's 3 steps card vs "
+              f"CPU: worst loss {rec['tiny']['loss']:.3g} relative (<= "
+              f"{TOL_TRAIN_LOSS}), param update {rec['tiny']['update']:.3g} "
+              f"of its norm (<= {TOL_TRAIN_UPDATE}); the "
+              f"CLI trained, checkpointed, resumed and {cli} on the card",
+              flush=True)
     # the scanned path's counts: its two counted chunks, one per tracker
     # branch, every counter of the port read
     scanned = {name: sum(b[name] for b in scan_launches.values())
@@ -4006,7 +4706,8 @@ def main() -> int:
         "launches_quality_gate": quality_launches[name],
         **results[name][5],
     } for name in meta]
-    kernels.append(conv_kernel_entry(conv, k1_launches["conv"]))
+    kernels.append(conv_kernel_entry(
+        conv, rounding, {"main": launches["conv"], "k1": k1_launches["conv"]}))
     kernels.append(conv_int8_kernel_entry(
         conv8, int8_launches["conv_int8"], int8_launches["conv_int8_k1"],
         chunk_crops, conv8_chunk))

@@ -387,6 +387,71 @@ def test_conv_kernel_vs_plain(cuda_device, shape, mode):
     assert got.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("shape", [
+    # n, h, w, ci, co, k, stride, act, f32 out
+    (16, 128, 64, 8, 64, 3, 1, "relu", False),    # a ReID stem, Ci padded
+    (16, 64, 32, 64, 128, 3, 2, "relu", False),   # conv1 of a down block
+    (16, 32, 16, 128, 128, 3, 1, "linear", True),  # conv2, f32 out
+    (16, 64, 32, 64, 128, 1, 2, "linear", True),  # projection, f32 out
+    (16, 64, 32, 32, 32, 3, 1, "elu", False),     # the 128-d net's ELU
+    (2, 416, 416, 8, 32, 3, 1, "leaky", False),   # yolov3 layer 0, padded
+    (2, 208, 208, 64, 32, 1, 1, "leaky", False),
+])
+def test_conv_kernel_default_path_forms_vs_plain(cuda_device, shape):
+    """The forms the default bf16 forwards give kernel 7: the ReLU and ELU
+    codes within 2 bf16 ulps of the plain version, the f32-output form
+    (mode 3) within 2^-13 of max(|want|, 1), at the ReID nets' and the
+    large early detector layers' shapes."""
+    n, h, w_, ci, co, k, stride, act, f32_out = shape
+    rng = np.random.default_rng(h + ci + co)
+    x = torch.from_numpy(rng.standard_normal((n, h, w_, ci), np.float32)).to(
+        cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((k, k, ci, co), np.float32)
+                          / np.sqrt(k * k * ci)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((co,), np.float32)).to(
+        cuda_device)
+    kw = dict(stride=stride, pad=(k - 1) // 2, act=act,
+              out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    before = conv_kernel.launches
+    got = conv_kernel.conv_bf16(x, w, b, **kw)
+    want = conv_kernel.conv_plain_bf16(x, w, b, **kw)
+    assert conv_kernel.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if f32_out:
+        assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()
+                     ) <= 2.0 ** -13
+    else:
+        assert bf16_ulps(got.float(), want.float()) <= 2
+
+
+def test_bf16_layer_route_pads_and_counts(cuda_device):
+    """``models/layers.conv_layer_bf16`` on the card: a 3-channel input is
+    zero-padded to 8 (weights packed once, padded), one kernel 7 launch a
+    call, and the result equals the plain version on the CPU within 2 bf16
+    ulps; the packed weights are kept until the weights change."""
+    from yolo_deepsort_tpu_torch.models.layers import (Conv2d,
+                                                       conv_layer_bf16,
+                                                       kernel_weights)
+
+    torch.manual_seed(0)
+    conv = Conv2d(3, 16, 3, 1, 1).to(torch.bfloat16)
+    assert conv.bias.dtype == torch.float32
+    x = torch.randn(2, 32, 32, 3).to(torch.bfloat16)
+    want = conv_layer_bf16(conv, x, "leaky")
+    conv = conv.to(cuda_device)
+    before = conv_kernel.launches
+    got = conv_layer_bf16(conv, x.to(cuda_device), "leaky")
+    assert conv_kernel.launches == before + 1
+    assert kernel_weights(conv).ci == 8
+    assert bf16_ulps(got.float().cpu(), want.float()) <= 2
+    packed = kernel_weights(conv)
+    assert kernel_weights(conv) is packed
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    assert kernel_weights(conv) is not packed
+
+
 def test_conv_kernel_refuses_non_contiguous_input(cuda_device):
     x = torch.zeros((2, 128, 8, 8), dtype=torch.bfloat16, device=cuda_device)
     w = torch.zeros((1, 1, 128, 128), dtype=torch.bfloat16,
@@ -401,7 +466,8 @@ def test_k1_step_launch_counts(cuda_device):
     """A small ``make_batched_step`` on the card (yolov3-tiny at 64, bf16,
     cap and crop window, every eligible conv routed, some through the int8
     package): per step K1 1, K2 0, the dense crops 1, K3 1 and K7 once per
-    routed layer."""
+    conv of the bf16 detector and ReID net (the routed layers in their
+    modes, every other one in bf16 mode: the bf16 forwards' default)."""
     from specs.weights_np import random_darknet_weights
     from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
     from yolo_deepsort_tpu_torch.config import DetectorConfig
@@ -466,7 +532,9 @@ def test_k1_step_launch_counts(cuda_device):
         states, (outputs, emit) = step(states, on_card)
         torch.cuda.synchronize()
         got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
-        assert got == [1, 0, 1, 1, len(routed)], got
+        n_convs = sum(isinstance(m, torch.nn.Conv2d)
+                      for net in (detector, reid) for m in net.modules())
+        assert got == [1, 0, 1, 1, n_convs], got
     assert outputs.shape == (s, 16, 5) and emit.shape == (s, 16)
     assert bool(torch.isfinite(states.mean).all())
 

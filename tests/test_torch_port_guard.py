@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: it never imports jax or the JAX package (nor
 cv2, which the machine with the card lacks), chip_smoke.py refuses to run
 without a CUDA device, a kernel wrapper handed a non-CPU tensor launches its
-kernel or raises -- it never takes the plain version -- and a facade asked
-for a CUDA device that does not exist raises."""
+kernel or raises -- it never takes the plain version -- and a facade or a
+training CLI asked for a CUDA device that does not exist raises."""
 
 import os
 import subprocess
@@ -20,8 +20,11 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import yolo_deepsort_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-missing = {"yolo_deepsort_tpu_torch.utils." + m
-           for m in ("mot", "metrics", "profiling")} - set(names)
+missing = {"yolo_deepsort_tpu_torch." + m
+           for m in ("utils.mot", "utils.metrics", "utils.profiling",
+                     "data.datasets", "data.letterbox_np", "train.yolo_loss",
+                     "train.yolo_cli", "train.reid_train", "train.reid_cli",
+                     "train.trees", "models.layers")} - set(names)
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
@@ -253,3 +256,24 @@ def test_native_frame_pool_build_failure_raises(monkeypatch, tmp_path):
     (tmp_path / "missing.cpp").write_text("this is not C++")
     with pytest.raises(RuntimeError, match="native frame_ring"):
         native.FramePool(1, 8, 8)
+
+
+@pytest.mark.parametrize("cli", ["yolo", "reid"])
+def test_training_clis_default_to_the_card(cli, tmp_path):
+    """Both training CLIs take ``--device cuda`` by default: without a card
+    they raise before reading any data; ``--device cpu`` is the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from yolo_deepsort_tpu_torch.train import reid_cli, yolo_cli
+
+    missing = str(tmp_path / "missing")
+    if cli == "yolo":
+        argv = ["--cfg", missing, "--data", missing]
+        main = yolo_cli.main
+    else:
+        argv = ["train", "--data-dir", missing]
+        main = reid_cli.main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(FileNotFoundError):  # the CPU is taken: it reads
+        main(argv + ["--device", "cpu"])

@@ -8,19 +8,14 @@ that tracks confirm, K=3 frames per chunk, max_tracks 16, max_dets 8; one
 detection threshold halfway between two objectness values, so the
 frameworks' last-bit differences flip no candidate.
 
-bf16: the two frameworks' bf16 detectors round at other points (the
-reference adds the bias and activates in f32 and rounds once; the port's
-bf16 conv rounds its output and the activation rounds again). That moves
-decoded boxes by up to 0.016 px of the 64-px input and can rank two
-candidates a bf16 ulp apart in score the other way round
-(``test_bf16_detectors_round_apart`` states the gap). So the bf16 cases
-hand the JAX step the port's bf16 detector output in place of its own
-forward (its ``network_apply``, replaced for the call): everything after
-the forward -- NMS, the class filter, the bf16 dense crops, the bf16 ReID
-embed and the tracker -- is the reference's own. One more bf16 case keeps
-both frameworks' own forwards end to end
-(``test_scanned_step_bf16_own_forwards_match_jax``), with the threshold in
-the widest gap of the objectness ranks so that no candidate flips.
+bf16: each framework runs its own bf16 forward. Both round where the
+reference rounds (bf16 operands, f32 sums, f32 bias and activation, one
+rounding per conv); what is left between them is the order of the f32
+sums, which flips a bf16 rounding now and then
+(``test_bf16_detectors_round_apart`` states the gap). Every bf16 case uses
+the setup's threshold but one, which keeps both forwards at a threshold in
+the widest gap of the objectness ranks
+(``test_scanned_step_bf16_own_forwards_match_jax``).
 
 Tolerances, per frame, f32 and bf16 alike:
 * track ids, emit and the state's discrete fields: exactly equal;
@@ -103,33 +98,26 @@ def _assert_rows(t_out, t_emit, j_out, j_emit, tag):
                                err_msg=tag)
 
 
-def _jax_chunks(su, j_det, j_trk, dtype, id_sets, forward=None):
+def _jax_chunks(su, j_det, j_trk, dtype, id_sets):
     """CHUNKS chunks through the JAX package's make_scanned_step, one
     compile for every entry of ``id_sets`` (class-id arrays of one length,
     passed traced as its ``tracked_class_ids``): {key: [(states, outputs,
     emit)] per chunk}. Its tracker branch is ``tracker_step`` (its fused
     kernel runs in Pallas interpret mode on the CPU, and the JAX suite
-    holds the two equal). ``forward``: decoded rows the step's forward
-    gives in place of its own (module docstring)."""
+    holds the two equal)."""
     chunk = _chunk(su)
-    saved = JS.network_apply
-    if forward is not None:
-        JS.network_apply = lambda *args, **kwargs: jnp.asarray(forward)
-    try:
-        step = jax.jit(lambda ids, *args: JS.make_scanned_step(
-            su["jplan"], j_det, j_trk, (H, W_), K, tracked_class_ids=ids,
-            compute_dtype=(jnp.bfloat16 if dtype == "bf16" else jnp.float32),
-            donate_state=False, use_fused_tracker=False).__wrapped__(*args))
-        runs = {}
-        for key, ids in id_sets.items():
-            st, runs[key] = JS.init_stream_states(j_trk, S), []
-            for _ in range(CHUNKS):
-                st, (rows, emit) = step(jnp.asarray(ids, jnp.int32),
-                                        su["folded"], su["j_reid"], st,
-                                        jnp.asarray(chunk))
-                runs[key].append((st, np.asarray(rows), np.asarray(emit)))
-    finally:
-        JS.network_apply = saved
+    step = jax.jit(lambda ids, *args: JS.make_scanned_step(
+        su["jplan"], j_det, j_trk, (H, W_), K, tracked_class_ids=ids,
+        compute_dtype=(jnp.bfloat16 if dtype == "bf16" else jnp.float32),
+        donate_state=False, use_fused_tracker=False).__wrapped__(*args))
+    runs = {}
+    for key, ids in id_sets.items():
+        st, runs[key] = JS.init_stream_states(j_trk, S), []
+        for _ in range(CHUNKS):
+            st, (rows, emit) = step(jnp.asarray(ids, jnp.int32),
+                                    su["folded"], su["j_reid"], st,
+                                    jnp.asarray(chunk))
+            runs[key].append((st, np.asarray(rows), np.asarray(emit)))
     return runs
 
 
@@ -138,8 +126,7 @@ def jax_scanned(scan_setup):
     """get(dtype) -> {filtered: [(states, outputs, emit)] per chunk}, the
     JAX step run once per dtype. Unfiltered is every class id; the filter
     is ``classes`` repeated to the same length, so both share a compile.
-    bf16: the step's forward gives the port's bf16 detector output (module
-    docstring)."""
+    bf16: the JAX step's own bf16 forward (module docstring)."""
     su, runs = scan_setup, {}
     _, _, j_det, j_trk = _cfgs(su["thr"])
     n_cls = su["j32"].shape[-1] - 5
@@ -147,14 +134,7 @@ def jax_scanned(scan_setup):
 
     def get(dtype):
         if dtype not in runs:
-            forward = None
-            if dtype == "bf16":
-                with torch.no_grad():
-                    forward = su["det16"](letterbox_batch_fused(
-                        torch.from_numpy(_chunk(su).reshape(K * S, H, W_, 3)),
-                        64, torch.bfloat16)).numpy()
-            runs[dtype] = _jax_chunks(su, j_det, j_trk, dtype, id_sets,
-                                      forward)
+            runs[dtype] = _jax_chunks(su, j_det, j_trk, dtype, id_sets)
         return runs[dtype]
 
     return get
@@ -372,10 +352,9 @@ def test_scanned_step_bf16_own_forwards_match_jax(scan_setup):
     chunks. The threshold (``_rank_safe_threshold``) lies in a gap of the
     objectness ranks where both forwards keep the same candidates in the
     same NMS order. Ids, emit and the discrete state exactly equal, boxes
-    within 1 px; the Kalman means within 0.05 px (measured 0.016: the
-    bf16 forwards' decoded boxes differ by up to 0.05 px of the 64-px
-    input, ``test_bf16_detectors_round_apart``, which the frame scale of 2
-    and the filter carry into the means)."""
+    within 1 px, the Kalman means as in the other cases (rtol 2e-4, atol
+    2e-3; measured exactly equal: the rows that differ in the last bit,
+    ``test_bf16_detectors_round_apart``, are not among the kept ones)."""
     su = scan_setup
     with torch.no_grad():
         t16 = su["det16"](letterbox_batch_fused(
@@ -393,29 +372,32 @@ def test_scanned_step_bf16_own_forwards_match_jax(scan_setup):
         st, (out, emit) = step(st, torch.from_numpy(_chunk(su)))
         tag = f"bf16 own forwards chunk {c}"
         _assert_rows(out, emit, j_out, j_emit, tag)
-        for name in DISCRETE:
-            np.testing.assert_array_equal(
-                getattr(st, name).numpy(), np.asarray(getattr(j_st, name)),
-                err_msg=f"{tag}: {name}")
-        np.testing.assert_allclose(st.mean.numpy(), np.asarray(j_st.mean),
-                                   rtol=0, atol=0.05, err_msg=tag)
+        _assert_states(st, j_st, tag)
         emitted += int(emit.sum())
     assert emitted > 0
 
 
 def test_bf16_detectors_round_apart(scan_setup):
-    """The gap the bf16 cases above keep out of the step's comparison: the
-    two frameworks' bf16 forwards of the same frames, decoded boxes within
-    0.05 px of the 64-px input and objectness within 2e-3 (measured 0.016
-    px and 5e-4), and both within the bf16 rounding of the f32 forward
+    """What is left between the two frameworks' bf16 forwards of the same
+    frames now that both round where the reference rounds: the order of
+    the f32 sums (oneDNN's conv against XLA's), which now and then flips a
+    bf16 rounding, and a flip travels on through the layers after it.
+    Bounds: decoded boxes within 1e-3 px of the 64-px input (measured
+    3.7e-4; 0.0154 before the port's bf16 conv summed in f32), objectness
+    within 5e-4 (measured 2.4e-4; 4.8e-4 before: one bf16 ulp of a head
+    output in [0.25, 0.5) through the sigmoid is up to 4.9e-4, which a
+    single flip gives, so no rounding point brings this bound lower), at
+    most 5% of the decoded values differing at all (measured 3.3%; 54%
+    before); and both forwards within the bf16 rounding of the f32 forward
     (0.2 px, 1e-2)."""
     su = scan_setup
     j16, j32 = su["j16"], su["j32"]
     with torch.no_grad():
         t16 = su["det16"](letterbox_batch_fused(
             torch.from_numpy(su["frames"]), 64, torch.bfloat16)).numpy()
-    for got, want, box, obj in ((t16, j16, 0.05, 2e-3),
+    for got, want, box, obj in ((t16, j16, 1e-3, 5e-4),
                                 (t16, j32, 0.2, 1e-2),
                                 (j16, j32, 0.2, 1e-2)):
         assert np.abs(got[..., :4] - want[..., :4]).max() <= box
         assert np.abs(got[..., 4] - want[..., 4]).max() <= obj
+    assert (t16 != j16).mean() <= 0.05

@@ -36,7 +36,11 @@
 // those columns of one row after another, summed; it applies (int8: *
 // scale[c]) + bias[c] and the activation in f32 and writes bf16 NHWC: one
 // 16-byte store when Co is a multiple of 8, masked 2-byte stores otherwise
-// (Co = 255, the yolo heads).
+// (Co = 255, the yolo heads). Mode 3 is mode 0 with an f32 output: the
+// same epilogue without the rounding, two 16-byte stores (the ReID blocks'
+// second conv and projection shortcut, whose sum with the shortcut rounds
+// once, as the reference's does). Activations: linear, leaky, mish (the
+// detectors), ReLU and ELU (the ReID nets).
 //
 // Built with --fmad=false: the f32 epilogue rounds as the plain PyTorch
 // version does (a multiply, then an add), so the int8 modes, whose int32
@@ -45,10 +49,12 @@
 #include "conv_backbone.cuh"
 
 // mode 0: bf16 x (N, Hi, Wi, Ci), bf16 w; mode 1: int8 w, bf16 x quantized on
-// the way in; mode 2: int8 w, float x. w (Co, ldw) is the weights packed
-// K-major: row co holds its k * k * Ci values tap-major, zero up to the
-// pitch ldw (16 bytes' worth of elements divide it). bias (Co,) f32; scale
-// (Co,) f32 and xinv in the int8 modes; out (N, Ho, Wo, Co) bf16. bm, bn,
+// the way in; mode 2: int8 w, float x; mode 3: mode 0 with f32 out. w (Co,
+// ldw) is the weights packed K-major: row co holds its k * k * Ci values
+// tap-major, zero up to the pitch ldw (16 bytes' worth of elements divide
+// it). bias (Co,) f32; scale (Co,) f32 and xinv in the int8 modes; out (N,
+// Ho, Wo, Co) bf16 (f32 in mode 3); act 0-4 (linear, leaky, mish, ReLU,
+// ELU). bm, bn,
 // stages, split: the tile plan. Ci must be a multiple of 8 (16-byte gathers
 // of activation rows).
 extern "C" int ydt_conv(const void* x, const void* w, const void* bias,
@@ -57,9 +63,12 @@ extern "C" int ydt_conv(const void* x, const void* w, const void* bias,
                         int stride, int pad, int act, int mode, int ldw,
                         int bm, int bn, int stages, int split,
                         void* stream) {
+    const bool f32_out = mode == 3;
+    if (f32_out) mode = 0;
     const int es = mode == 0 ? 2 : 1;
     if (n <= 0 || ci <= 0 || co <= 0 || ho <= 0 || wo <= 0 || (ci % 8) != 0
-        || (k != 1 && k != 3) || mode < 0 || mode > 2 || ldw < k * k * ci
+        || (k != 1 && k != 3) || mode < 0 || mode > 2 || act < 0 || act > 4
+        || ldw < k * k * ci
         || (ldw * es) % 16 != 0 || (bm != 64 && bm != 128))
         return (int)cudaErrorInvalidValue;
     const conv_ring::Geom g = conv_ring::make_geom(
@@ -67,12 +76,11 @@ extern "C" int ydt_conv(const void* x, const void* w, const void* bias,
         es);
     const float* b = static_cast<const float*>(bias);
     const float* s = static_cast<const float*>(scale);
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     using namespace conv_backbone;
     const bool tall = bm == 128;
-    const BackboneEpilogue<float> ef{b, s, o, co, act};
-    const BackboneEpilogue<int> ei{b, s, o, co, act};
+    const BackboneEpilogue<float> ef{b, s, out, co, act, f32_out};
+    const BackboneEpilogue<int> ei{b, s, out, co, act, false};
     cudaError_t err;
     if (mode == 0)
         err = tall ? launch_bf16<128>(x, w, g, bn, ef, st)

@@ -13,7 +13,9 @@
 
 namespace conv_backbone {
 
-enum Act { ACT_LINEAR = 0, ACT_LEAKY = 1, ACT_MISH = 2 };
+// ReLU and ELU are the ReID nets' (deep/model.py and original_model.py)
+enum Act { ACT_LINEAR = 0, ACT_LEAKY = 1, ACT_MISH = 2, ACT_RELU = 3,
+           ACT_ELU = 4 };
 
 __device__ __forceinline__ float activate(float y, int act) {
     if (act == ACT_LEAKY) return y > 0.0f ? y : 0.1f * y;
@@ -21,6 +23,8 @@ __device__ __forceinline__ float activate(float y, int act) {
         float sp = fmaxf(y, 0.0f) + log1pf(expf(-fabsf(y)));  // softplus
         return y * tanhf(sp);
     }
+    if (act == ACT_RELU) return y > 0.0f ? y : 0.0f;
+    if (act == ACT_ELU) return y > 0.0f ? y : expm1f(y);
     return y;
 }
 
@@ -31,8 +35,10 @@ struct BackboneEpilogue {  // the name tells kernel 7 in a profile
     static constexpr int NV = 8;
     const float* bias;
     const float* scale;
-    __nv_bfloat16* out;
+    void* out;   // bf16 NHWC, or f32 NHWC where f32_out
     int co, act;
+    bool f32_out;  // bf16 mode only: act(sum + bias) unrounded, for a
+                   // caller that adds a shortcut in f32 before it rounds
 
     struct Cols {
         float bias[8], scale[8];
@@ -57,15 +63,33 @@ struct BackboneEpilogue {  // the name tells kernel 7 in a profile
 
     __device__ __forceinline__ void store(int m, int col, const A (&v)[8],
                                           const Cols& c, const Pre&) const {
-        unsigned short h[8];
+        float y[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-            float y = (float)v[e];
-            if constexpr (conv_ring::IsInt<A>::value) y = y * c.scale[e];
-            y = activate(y + c.bias[e], act);
-            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+            y[e] = (float)v[e];
+            if constexpr (conv_ring::IsInt<A>::value) y[e] = y[e] * c.scale[e];
+            y[e] = activate(y[e] + c.bias[e], act);
         }
-        __nv_bfloat16* dst = out + (long long)m * co + col;
+        if (f32_out) {
+            float* dst = static_cast<float*>(out) + (long long)m * co + col;
+            if ((co % 8) == 0) {
+                reinterpret_cast<float4*>(dst)[0] =
+                    make_float4(y[0], y[1], y[2], y[3]);
+                reinterpret_cast<float4*>(dst)[1] =
+                    make_float4(y[4], y[5], y[6], y[7]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                    if (col + e < co) dst[e] = y[e];
+            }
+            return;
+        }
+        unsigned short h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(y[e]));
+        __nv_bfloat16* dst =
+            static_cast<__nv_bfloat16*>(out) + (long long)m * co + col;
         if ((co % 8) == 0) {
             uint4 u;
             u.x = h[0] | ((unsigned int)h[1] << 16);

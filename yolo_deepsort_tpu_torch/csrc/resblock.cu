@@ -116,7 +116,7 @@ extern "C" int ydt_resblock_chain(
         } else {
             const conv_backbone::BackboneEpilogue<float> e1{
                 bias1 + (long long)b * cm, nullptr,
-                static_cast<__nv_bfloat16*>(mid), cm, act};
+                static_cast<__nv_bfloat16*>(mid), cm, act, false};
             err = RESBLOCK_BY_BM(conv_backbone::launch_bf16, bm1, src, wa, g1,
                                  bn1, e1, st);
             if (err != cudaSuccess) return (int)err;

@@ -11,6 +11,11 @@ reference's: NHWC input in [0, 1], (N, boxes, 5+C) decoded output.
 Internally the convolutions run NCHW, and an NHWC input is handed to them
 as its channels_last NCHW view (the same bytes), so a channels_last model
 reads the letterbox kernel's output without a copy.
+
+A bf16 model rounds where the reference's bf16 forward rounds: each conv
+sums in f32, adds its f32 bias, activates in f32 and rounds to bf16 once
+(``models/layers.conv_layer_bf16``: kernel 7 on the card, its plain
+version on the CPU). A float32 model runs the library conv.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode import yolo_decode
+from .layers import Conv2d, conv_layer_bf16
 
 
 def conv_layer_shapes(module_defs: Sequence[dict], in_channels: int = 3
@@ -140,9 +146,10 @@ def _activate(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 class Darknet(nn.Module):
-    """The detector of ``plan``. Conv layers are ``nn.Conv2d`` with bias (BN
-    folded); load weights with ``load_params`` (see ``weights.py``). Cast
-    the module to the compute dtype and channels_last with ``.to``."""
+    """The detector of ``plan``. Conv layers are ``layers.Conv2d`` with
+    bias (BN folded; the bias stays float32 in a bf16 model); load weights
+    with ``load_params`` (see ``weights.py``). Cast the module to the
+    compute dtype and channels_last with ``.to``."""
 
     def __init__(self, plan: NetworkPlan):
         super().__init__()
@@ -155,7 +162,7 @@ class Darknet(nn.Module):
             mdef = self._defs[idx]
             stride = int(mdef.get("stride", 1))
             pad = (k - 1) // 2 if int(mdef.get("pad", 0)) else 0
-            self.convs[str(idx)] = nn.Conv2d(ic, oc, k, stride, pad, bias=True)
+            self.convs[str(idx)] = Conv2d(ic, oc, k, stride, pad, bias=True)
 
     @torch.no_grad()
     def load_params(self, params: Dict[int, Dict[str, torch.Tensor]]) -> None:
@@ -173,11 +180,13 @@ class Darknet(nn.Module):
         feature maps, decoded rows for yolo layers).
 
         ``conv_impl(x, w, b, stride, pad, act, layer_idx)`` may claim a conv
-        layer (conv + bias + activation fused, e.g. the tensor-core kernel
-        of ``ops/conv_kernel.py``) by returning its NHWC output, or return
-        None for the library conv. It sees the reference's layouts: ``x``
-        NHWC and ``w`` HWIO, both views of the module's own tensors (of a
-        channels_last model's memory as it lies, so nothing is copied).
+        layer (conv + bias + activation fused, e.g. the int8 mode of the
+        tensor-core kernel of ``ops/conv_kernel.py``) by returning its NHWC
+        output, or return None for the default: ``conv_layer_bf16`` in a
+        bf16 model, the library conv in a float32 one. It sees the
+        reference's layouts: ``x`` NHWC and ``w`` HWIO, both views of the
+        module's own tensors (of a channels_last model's memory as it lies,
+        so nothing is copied).
 
         ``block_impl(x, convs, layer_idx)`` is consulted first at every
         module index and may claim a SPAN of modules starting there (e.g.
@@ -218,7 +227,10 @@ class Darknet(nn.Module):
                                     conv.padding[0], act, i)
                     if out is not None:
                         out = out.permute(0, 3, 1, 2).to(dtype)
-                if out is None:
+                if out is None and dtype == torch.bfloat16:
+                    out = conv_layer_bf16(conv, prev.permute(0, 2, 3, 1),
+                                          act).permute(0, 3, 1, 2)
+                elif out is None:
                     out = _activate(conv(prev), act)
             elif t == "maxpool":
                 k, stride = int(mdef["size"]), int(mdef["stride"])

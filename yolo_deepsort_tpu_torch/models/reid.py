@@ -9,11 +9,21 @@ Input (N, 128, 64, 3) NHWC crops, already /255 and ImageNet-normalized.
   first block of a channel-changing stage has stride 2 and a 1x1
   projection shortcut), ReLU after the residual add
   global average pool -> L2 normalize.
+With ``num_classes`` it carries the classifier head (fc1 512 -> 256,
+BN1d, ReLU, fc2; ``forward(classify=True)`` gives its logits, in float32).
 ``OriginalReIDNet``, deep/original_model.py (the mars-small128 layout),
 (N, 128) features: two ELU stem convs 3->32->32 + maxpool, three stages of
 2 ELU BasicBlocks (32->32, 32->64, 64->128), the NCHW flatten of the
 (128, 16, 8) map, a dense 16384 -> 128 layer in float32, L2 normalize.
 BN is folded into every conv (weight and bias).
+
+A bf16 net rounds where the reference's ``reid_apply`` / ``_original_apply``
+round: each conv sums in f32 and adds its f32 bias; the stems and each
+block's first conv activate in f32 and round once (kernel 7's ReLU and ELU
+codes on the card, ``models/layers.conv_layer_bf16``); a block's second
+conv and its projection shortcut stay f32 (kernel 7's f32-output form),
+``act(y + shortcut)`` is taken in f32 (an identity shortcut is the bf16
+input, exact in f32) and rounded once.
 
 The loaders are numpy copies of the reference package's: the reference's
 ``ckpt.t7`` state-dicts (either layout) and the package's own ``.npz``
@@ -23,12 +33,15 @@ training checkpoints map to the same folded HWIO param trees.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.conv_kernel import apply_act
+from .layers import Conv2d, KeepsF32, Linear, conv_layer_bf16
 
 BN_EPS = 1e-5
 STAGES = [(64, 64, False), (64, 128, True), (128, 256, True), (256, 512, True)]
@@ -37,10 +50,12 @@ ORIGINAL_STAGES = [(32, 32, False), (32, 64, True), (64, 128, True)]
 ORIGINAL_FEAT_DIM = 128
 
 
-def random_reid_params(seed: int = 0) -> Dict:
+def random_reid_params(seed: int = 0,
+                       num_classes: Optional[int] = None) -> Dict:
     """Random folded params, HWIO -- a numpy twin of the reference
-    package's ``random_reid_params`` without its classifier head (same
-    generator, same draw order, so the same seed gives the same arrays)."""
+    package's ``random_reid_params`` (same generator, same draw order, so
+    the same seed gives the same arrays); ``num_classes`` adds the
+    classifier head (fc1 512 -> 256, BN1d, fc2 256 -> classes)."""
     rng = np.random.default_rng(seed)
 
     def conv(ci, co, k):
@@ -62,6 +77,18 @@ def random_reid_params(seed: int = 0) -> Dict:
                          else None),
             })
         params["layers"].append(blocks)
+    if num_classes:
+        params["classifier"] = {
+            "fc1_w": rng.normal(0, 0.05, (512, 256)).astype(np.float32),
+            "fc1_b": np.zeros(256, np.float32),
+            "bn_w": np.ones(256, np.float32),
+            "bn_b": np.zeros(256, np.float32),
+            "bn_m": np.zeros(256, np.float32),
+            "bn_v": np.ones(256, np.float32),
+            "fc2_w": rng.normal(0, 0.05, (256, num_classes)).astype(
+                np.float32),
+            "fc2_b": np.zeros(num_classes, np.float32),
+        }
     return params
 
 
@@ -222,21 +249,41 @@ def load_reid_checkpoint(path: str | os.PathLike) -> Dict:
     return params_from_state_dict(sd)
 
 
+_ACTS = {"relu": F.relu, "elu": F.elu}
+
+
 class BasicBlock(nn.Module):
     def __init__(self, ci: int, co: int, downsample: bool,
-                 act: Callable = F.relu):
+                 act: str = "relu"):
         super().__init__()
         stride = 2 if downsample and ci != co else 1
-        self.act = act
-        self.conv1 = nn.Conv2d(ci, co, 3, stride, 1)
-        self.conv2 = nn.Conv2d(co, co, 3, 1, 1)
-        self.down = nn.Conv2d(ci, co, 1, stride, 0) if downsample else None
+        self.act_name = act
+        self.act = _ACTS[act]
+        self.conv1 = Conv2d(ci, co, 3, stride, 1)
+        self.conv2 = Conv2d(co, co, 3, 1, 1)
+        self.down = Conv2d(ci, co, 1, stride, 0) if downsample else None
 
     def forward(self, x):
+        """float32 NCHW (a bf16 net calls ``forward_bf16``)."""
         y = self.act(self.conv1(x))
         y = self.conv2(y)
         shortcut = self.down(x) if self.down is not None else x
         return self.act(y + shortcut)
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, Ci) bf16 NHWC -> (N, Ho, Wo, Co) bf16 NHWC: conv2 and
+        the shortcut summed in f32, activated, rounded once."""
+        y = conv_layer_bf16(self.conv1, x, self.act_name)
+        y = conv_layer_bf16(self.conv2, y, "linear", torch.float32)
+        shortcut = (x.float() if self.down is None else
+                    conv_layer_bf16(self.down, x, "linear", torch.float32))
+        return apply_act(y + shortcut, self.act_name).to(torch.bfloat16)
+
+
+def _maxpool_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-2 pad-1 max pool of an NHWC tensor, NHWC contiguous."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(
+        0, 2, 3, 1).contiguous()
 
 
 def _put_conv(conv: nn.Conv2d, p) -> None:
@@ -259,31 +306,85 @@ def _put_blocks(blocks: nn.Sequential, layers) -> None:
             _put_conv(mod.down, p["down"])
 
 
-class ReIDNet(nn.Module):
-    """The 512-d ReID Net; load folded params with ``load_params``."""
+class ReIDClassifier(KeepsF32, nn.Module):
+    """The classifier head of the reference Net in eval mode: fc1 512 ->
+    256, BatchNorm1d on its running statistics, ReLU, fc2 -> classes, in
+    float32 whatever the net's dtype (as ``reid_apply(classify=True)``)."""
 
-    def __init__(self):
+    F32 = ("bn_w", "bn_b", "bn_m", "bn_v")
+
+    def __init__(self, num_classes: int):
         super().__init__()
-        self.stem = nn.Conv2d(3, 64, 3, 1, 1)
+        self.fc1 = Linear(FEAT_DIM, 256)
+        self.fc2 = Linear(256, num_classes)
+        for name, v in (("bn_w", 1.0), ("bn_b", 0.0), ("bn_m", 0.0),
+                        ("bn_v", 1.0)):
+            self.register_buffer(name, torch.full((256,), v))
+
+    @torch.no_grad()
+    def load_params(self, c: Dict) -> None:
+        """The folded tree's ``classifier`` entry: fc weights (in, out)."""
+        for lin, w, b in ((self.fc1, "fc1_w", "fc1_b"),
+                          (self.fc2, "fc2_w", "fc2_b")):
+            lin.weight.copy_(torch.as_tensor(
+                np.ascontiguousarray(np.asarray(c[w], np.float32).T)))
+            lin.bias.copy_(torch.as_tensor(np.asarray(c[b], np.float32)))
+        for name in ("bn_w", "bn_b", "bn_m", "bn_v"):
+            getattr(self, name).copy_(torch.as_tensor(
+                np.asarray(c[name], np.float32)))
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        """(N, 512) float32 pooled features -> (N, classes) logits."""
+        h = F.linear(feat, self.fc1.weight, self.fc1.bias)
+        scale = self.bn_w / torch.sqrt(self.bn_v + BN_EPS)
+        h = torch.relu((h - self.bn_m) * scale + self.bn_b)
+        return F.linear(h, self.fc2.weight, self.fc2.bias)
+
+
+class ReIDNet(nn.Module):
+    """The 512-d ReID Net; load folded params with ``load_params``.
+    ``num_classes`` adds the classifier head (``forward(classify=True)``)."""
+
+    def __init__(self, num_classes: Optional[int] = None):
+        super().__init__()
+        self.stem = Conv2d(3, 64, 3, 1, 1)
         blocks = []
         for ci, co, down in STAGES:
             blocks.append(BasicBlock(ci, co, down or ci != co))
             blocks.append(BasicBlock(co, co, False))
         self.blocks = nn.Sequential(*blocks)
+        self.classifier = ReIDClassifier(num_classes) if num_classes else None
 
     @torch.no_grad()
     def load_params(self, params: Dict) -> None:
-        """Copy the reference's folded HWIO param tree into the module."""
+        """Copy the reference's folded HWIO param tree into the module (its
+        classifier head too when both have one)."""
         _put_conv(self.stem, params["stem"])
         _put_blocks(self.blocks, params["layers"])
+        if (self.classifier is None) != ("classifier" not in params):
+            raise ValueError("classifier head layout mismatch")
+        if self.classifier is not None:
+            self.classifier.load_params(params["classifier"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 128, 64, 3) NHWC -> (N, 512) float32, L2-normalized."""
-        dtype = self.stem.weight.dtype
-        out = F.relu(self.stem(x.to(dtype).permute(0, 3, 1, 2)))
-        out = F.max_pool2d(out, 3, 2, 1)
-        out = self.blocks(out)
-        feat = out.float().mean((2, 3))
+    def forward(self, x: torch.Tensor, classify: bool = False
+                ) -> torch.Tensor:
+        """(N, 128, 64, 3) NHWC -> (N, 512) float32, L2-normalized; with
+        ``classify`` the classifier head's (N, classes) logits."""
+        if self.stem.weight.dtype == torch.bfloat16:
+            out = _maxpool_nhwc(conv_layer_bf16(self.stem, x, "relu"))
+            for block in self.blocks:
+                out = block.forward_bf16(out)
+            feat = out.float().mean((1, 2))
+        else:
+            out = F.relu(self.stem(x.float().permute(0, 3, 1, 2)))
+            out = F.max_pool2d(out, 3, 2, 1)
+            out = self.blocks(out)
+            feat = out.float().mean((2, 3))
+        if classify:
+            if self.classifier is None:
+                raise ValueError("classify needs the classifier head "
+                                 "(ReIDNet(num_classes=...))")
+            return self.classifier(feat)
         norm = feat.norm(dim=1, keepdim=True)
         return feat / norm.clamp(min=1e-12)
 
@@ -295,14 +396,14 @@ class OriginalReIDNet(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.stem = nn.Conv2d(3, 32, 3, 1, 1)
-        self.stem2 = nn.Conv2d(32, 32, 3, 1, 1)
+        self.stem = Conv2d(3, 32, 3, 1, 1)
+        self.stem2 = Conv2d(32, 32, 3, 1, 1)
         blocks = []
         for ci, co, down in ORIGINAL_STAGES:
-            blocks.append(BasicBlock(ci, co, down or ci != co, F.elu))
-            blocks.append(BasicBlock(co, co, False, F.elu))
+            blocks.append(BasicBlock(ci, co, down or ci != co, "elu"))
+            blocks.append(BasicBlock(co, co, False, "elu"))
         self.blocks = nn.Sequential(*blocks)
-        self.dense = nn.Linear(128 * 16 * 8, ORIGINAL_FEAT_DIM)
+        self.dense = Linear(128 * 16 * 8, ORIGINAL_FEAT_DIM)  # stays f32
 
     @torch.no_grad()
     def load_params(self, params: Dict) -> None:
@@ -314,15 +415,27 @@ class OriginalReIDNet(nn.Module):
         self.dense.bias.copy_(torch.as_tensor(np.asarray(
             params["dense"]["b"])))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 128, 64, 3) NHWC -> (N, 128) float32, L2-normalized."""
-        dtype = self.stem.weight.dtype
-        out = F.elu(self.stem(x.to(dtype).permute(0, 3, 1, 2)))
-        out = F.elu(self.stem2(out))
-        out = F.max_pool2d(out, 3, 2, 1)
-        out = self.blocks(out)
+    def forward(self, x: torch.Tensor, classify: bool = False
+                ) -> torch.Tensor:
+        """(N, 128, 64, 3) NHWC -> (N, 128) float32, L2-normalized. The
+        layout has no classifier head: ``classify`` raises, as the
+        reference's does."""
+        if classify:
+            raise ValueError("classify mode is not supported for the "
+                             "original_model.py layout (its classifier head "
+                             "is not loaded)")
+        if self.stem.weight.dtype == torch.bfloat16:
+            out = conv_layer_bf16(self.stem, x, "elu")
+            out = _maxpool_nhwc(conv_layer_bf16(self.stem2, out, "elu"))
+            for block in self.blocks:
+                out = block.forward_bf16(out)
+            out = out.permute(0, 3, 1, 2)
+        else:
+            out = F.elu(self.stem(x.float().permute(0, 3, 1, 2)))
+            out = F.elu(self.stem2(out))
+            out = F.max_pool2d(out, 3, 2, 1)
+            out = self.blocks(out)
         flat = out.float().flatten(1)  # NCHW order: (N, 128 * 16 * 8)
-        feat = F.linear(flat, self.dense.weight.float(),
-                        self.dense.bias.float())
+        feat = F.linear(flat, self.dense.weight, self.dense.bias)
         norm = feat.norm(dim=1, keepdim=True)
         return feat / norm.clamp(min=1e-12)

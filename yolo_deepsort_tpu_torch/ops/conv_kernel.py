@@ -2,12 +2,19 @@
 ``csrc/conv.cu``), in bf16 and in W8A8 int8.
 
 Replaces the TPU kernel ``yolo_deepsort_tpu/ops/pallas_conv.py``
-(``_conv_kernel`` via ``conv_mxu_bf16`` / ``conv_mxu_int8``), with its routing
-policy (``backbone_conv_eligible``, ``make_backbone_conv_impl``,
-``load_conv_whitelist``). Bound on the H100 by operations (hundreds to
-thousands per byte moved at the backbone's 3x3 shapes; by bytes at the 1x1
-ones). The design is an implicit GEMM -- rows N*Ho*Wo, columns Co, depth
-k*k*Ci flat over taps and channels -- one output tile per block (or per
+(``_conv_kernel`` via ``conv_mxu_bf16`` / ``conv_mxu_int8``), with its
+routing policy (``backbone_conv_eligible``, ``make_backbone_conv_impl``,
+``load_conv_whitelist``). In bf16 it is also the default conv of every bf16
+net of the port (``models/layers.conv_layer_bf16``): its f32 sums, f32 bias
+and activation and one rounding are where the reference's bf16 forward
+rounds, so every conv layer of a bf16 ``Darknet`` and ReID net runs here on
+the card, whatever ``backbone_conv_eligible`` (the route's speed policy)
+says. Activations: linear, leaky, mish, and the ReID nets' ReLU and ELU;
+``out_dtype=torch.float32`` gives the f32-output form (no rounding, for a
+residual sum that rounds after its add). Bound on the H100 by operations
+(hundreds to thousands per byte moved at the backbone's 3x3 shapes; by bytes
+at the 1x1 ones). The design is an implicit GEMM -- rows N*Ho*Wo, columns Co,
+depth k*k*Ci flat over taps and channels -- one output tile per block (or per
 cluster of blocks that share its depth), with the padding, the ragged edges
 and stride 2 handled by index and zero fill in the gather. The main loop is
 ``csrc/conv_mainloop.cuh``, shared with kernel 8: producer warps keep a
@@ -15,8 +22,8 @@ multi-stage ring of swizzled tiles in shared memory full with asynchronous
 copies, consumer warpgroups run ``wgmma`` on what has arrived, ``mbarrier``s
 hand stages back and forth, and no block-wide barrier sits in the loop. Bias
 and activation are fused into the bf16 NHWC store (see the notes at the top
-of both files). The tile plan of a shape comes from
-``ops/conv_plan.py`` ``plan_conv_tiles``.
+of both files). The tile plan of a shape comes from ``ops/conv_plan.py``
+``plan_conv_tiles``.
 
 Layouts are the reference's: ``x`` (N, Hi, Wi, Ci) NHWC, ``w`` (k, k, Ci, Co)
 HWIO; ``b`` (Co,) f32; int8 mode adds ``scale`` (Co,) f32 = xscale * wscale
@@ -55,7 +62,8 @@ from .conv_plan import (ConvPlan, as_hwio, kernel_weights,
 
 launches = 0  # kernel launches; only the launch below adds to it
 
-_ACT_CODES = {"linear": 0, "": 0, "leaky": 1, "mish": 2}
+# relu and elu are the ReID nets' (their stems and each block's first conv)
+_ACT_CODES = {"linear": 0, "": 0, "leaky": 1, "mish": 2, "relu": 3, "elu": 4}
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -63,6 +71,10 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
         return torch.where(y > 0, y, 0.1 * y)
     if act == "mish":
         return y * torch.tanh(torch.logaddexp(torch.zeros_like(y), y))
+    if act == "relu":
+        return torch.relu(y)
+    if act == "elu":  # jax.nn.elu's form, as the kernel's expm1f
+        return torch.where(y > 0, y, torch.expm1(y))
     if act in ("linear", ""):
         return y
     raise ValueError(f"unknown activation {act!r}")
@@ -95,14 +107,23 @@ def _conv_nhwc(x, w_hwio, stride, pad):
 
 
 def conv_plain_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
-                    act: str = "leaky") -> torch.Tensor:
+                    act: str = "leaky",
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Plain version of the bf16 mode: operands rounded to bf16, products
-    and sums in f32, + bias, activation, rounded to bf16."""
+    and sums in f32, + bias, activation, rounded to bf16 (``out_dtype``
+    float32: not rounded, the f32-output form)."""
     _geometry(x, w, stride, pad)
+    _check_out_dtype(out_dtype)
     y = _conv_nhwc(x.to(torch.bfloat16).float(),
                    as_hwio(w).to(torch.bfloat16).float(), stride, pad)
     y = apply_act(y + b.float(), act)
-    return y.to(torch.bfloat16).contiguous()
+    return y.to(out_dtype).contiguous()
+
+
+def _check_out_dtype(out_dtype):
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv (bf16 mode): out_dtype must be bfloat16 or "
+                         f"float32, got {out_dtype}")
 
 
 def quantize_activations(x: torch.Tensor, xinv: float) -> torch.Tensor:
@@ -130,15 +151,18 @@ def conv_plain_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
 
 
 def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
+    """``mode``: 0 bf16, 1 int8 with bf16 x, 2 int8 with f32 x, 3 bf16 with
+    an f32 output."""
     n, hi, wi, ci, ho, wo, co, k = _geometry(x, w, stride, pad)
     tensors = (x, b) + (() if scale is None else (scale,))
     build.require_cuda("conv", *tensors)
     build.require_cuda("conv", weight_tensor(w),
                        contiguous=False)  # packing takes any layout
     lib = build.load()  # raises before anything asks the card
+    bf16 = mode in (0, 3)
     packed, plan = kernel_weights(
-        w, torch.bfloat16 if mode == 0 else torch.int8, plan, x.device,
-        n * ho * wo, quantizing=mode != 0)
+        w, torch.bfloat16 if bf16 else torch.int8, plan, x.device,
+        n * ho * wo, quantizing=not bf16)
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
     if ci % 8:
@@ -149,7 +173,8 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
     if scale is not None and (scale.dtype != torch.float32
                               or tuple(scale.shape) != (co,)):
         raise ValueError("conv kernel: scale must be (Co,) float32")
-    out = torch.empty((n, ho, wo, co), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((n, ho, wo, co), device=x.device,
+                      dtype=torch.float32 if mode == 3 else torch.bfloat16)
     err = lib.ydt_conv(
         x.data_ptr(), packed.data.data_ptr(), b.data_ptr(),
         None if scale is None else scale.data_ptr(), float(xinv),
@@ -164,15 +189,19 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
 
 
 def conv_bf16_cuda(x, w, b, *, stride=1, pad=1, act="leaky",
-                   plan: Optional[ConvPlan] = None):
+                   plan: Optional[ConvPlan] = None,
+                   out_dtype: torch.dtype = torch.bfloat16):
     """Launch the kernel in bf16 mode: contiguous bf16 NHWC ``x`` and bf16
     weights (HWIO or packed) on the card (a ``torch.cat`` result must be
     contiguous in channels_last; anything else raises). ``plan`` forces a
-    tile plan in place of the planner's."""
+    tile plan in place of the planner's; ``out_dtype`` float32 takes the
+    f32-output form (mode 3)."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"conv kernel (bf16): expected bfloat16 x, got "
                          f"{x.dtype}")
-    return _launch(x, w, b, None, 0.0, stride, pad, act, 0, plan)
+    _check_out_dtype(out_dtype)
+    return _launch(x, w, b, None, 0.0, stride, pad, act,
+                   3 if out_dtype == torch.float32 else 0, plan)
 
 
 def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky",
@@ -188,12 +217,16 @@ def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky",
 
 
 def conv_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
-              act: str = "leaky") -> torch.Tensor:
-    """bf16 conv + bias + activation, f32 accumulation; bf16 NHWC. The
-    kernel for CUDA tensors, ``conv_plain_bf16`` for CPU tensors."""
+              act: str = "leaky",
+              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """bf16 conv + bias + activation, f32 accumulation; bf16 NHWC (or the
+    unrounded f32 with ``out_dtype=torch.float32``). The kernel for CUDA
+    tensors, ``conv_plain_bf16`` for CPU tensors."""
     if x.device.type == "cpu":
-        return conv_plain_bf16(x, w, b, stride=stride, pad=pad, act=act)
-    return conv_bf16_cuda(x, w, b, stride=stride, pad=pad, act=act)
+        return conv_plain_bf16(x, w, b, stride=stride, pad=pad, act=act,
+                               out_dtype=out_dtype)
+    return conv_bf16_cuda(x, w, b, stride=stride, pad=pad, act=act,
+                          out_dtype=out_dtype)
 
 
 def conv_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,

@@ -163,8 +163,14 @@ def darknet_from_raw(plan: NetworkPlan, raw: Dict) -> Darknet:
 
 def reid_from_params(params: Dict) -> torch.nn.Module:
     """A float32 CPU ReID net from a folded HWIO param tree: the 128-d
-    ``OriginalReIDNet`` when it carries the dense head, else ``ReIDNet``."""
-    model = OriginalReIDNet() if "dense" in params else ReIDNet()
+    ``OriginalReIDNet`` when it carries the dense head, else ``ReIDNet``
+    (with its classifier head when the tree has one)."""
+    if "dense" in params:
+        model = OriginalReIDNet()
+    else:
+        head = params.get("classifier")
+        model = ReIDNet(None if head is None
+                        else int(np.shape(head["fc2_w"])[1]))
     model.load_params(params)
     return model.eval()
 
