@@ -163,6 +163,29 @@ which ends the run with a non-zero exit code when it fails:
    native frame pool (g++ at first use) in place of video decoders; one
    stream ends early, and the ``with_validity`` step must leave its state
    untouched and emit nothing for it.
+7b. cross-camera global ids (``run_global_ids``): (a)
+   ``MultiStreamTracker(global_ids=True, global_id_every=2)`` with the
+   same producers, model, weights and threshold over 8 x 1080p streams of
+   one frame: per step K1 1, the dense crops 1, K7 95, K3 1, one readback,
+   every emitted id > 0, and after every step the card's gid table equals,
+   bit for bit, the one-rank step (``assign_provisional_gids`` between
+   rounds) run on the CPU over a CPU copy of the card's states; fewer
+   global ids than live tracks (every camera sees the same objects, so
+   aliasing is the designed outcome); (b) the reference's handoff and
+   no-aliasing scenes at the served tracker sizes (T 128, nn_budget 100,
+   F 512, 8 cameras) through kernel 3 and the gid step on the card, every
+   frame's table equal to the CPU's, the handoff keeping gid 1 and no two
+   live tracks sharing one; (c) a real NCCL process group of one rank
+   (``init_process_group("nccl", world_size=1)`` over a local store):
+   through it the gid step and the matcher equal the mesh without a group
+   bit for bit -- an NCCL that cannot start fails the run, there is no
+   gloo fallback; (d) the gid step's device ms (CUDA events) and peak
+   memory at S = 8 and 16 beside its bound (its f32 products over 67
+   TFLOP/s), the matcher's at D = 64, and ``MultiStreamTracker`` ms per
+   step with global ids off and on in alternated blocks (off, on, on,
+   off, on, off, off, on), each stream's ring holding all its frames, and
+   one more block off with the default ring of 8, where the producers
+   spin on full rings, with the card's name and power limit.
 8. tracking quality (``run_tracking_quality``): 4 streams of the reference's
    synthetic MOT scene (``mot_scene``: 120 frames, 8 objects, seeds 0-3)
    through kernel 3 and kernel 5 on the card and ``tracker_step`` on the
@@ -188,7 +211,8 @@ Each of paths 4-8 is run with the launch counters set to 0 just before it
 and read just after (the ``kernels`` line: ``launches`` from path 4,
 ``launches_k1_path``, ``launches_scanned_path`` from 4f -- its counted
 chunk of each tracker branch, every counter of the port read -- and
-``launches_quality_gate`` from 8, likewise). Prints frames/s and per-stage times,
+``launches_quality_gate`` from 8, likewise, ``launches_global_ids_path``
+from 7b's counted run). Prints frames/s and per-stage times,
 the facades' ms per call, a JSON line of per-kernel results, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -234,6 +258,16 @@ CONV_ROUTE = {
 }
 N_ROUTED = len(CONV_ROUTE["bf16"]) + len(CONV_ROUTE["int8"])
 MST_FRAMES, MST_SHORT = 6, 3  # frames per stream; the last stream's
+# the global-id phase (``run_global_ids``): frames per stream of the
+# full-width run and the gid rounds' cadence; the timed blocks (global ids
+# off or on, alternated twice over), steps timed in each after the warm
+# ones; the reference's scenes'
+# frames; the matcher's queries per stream; calls per device timing
+GID_FRAMES, GID_EVERY = 8, 2
+GID_TIMED_STEPS, GID_WARM_STEPS = 20, 3
+GID_BLOCKS = (False, True, True, False, True, False, False, True)  # on?
+GID_HANDOFF_FRAMES, GID_NO_ALIAS_FRAMES = 16, 6
+GID_MATCH_DETS, GID_REPS = 64, 10
 
 # The int8-resident ReID embed (kernel 8). One embed runs 15 quantized convs
 # in nine shape classes: (layers, k, stride, input map h, w, Ci, Co). A
@@ -2811,18 +2845,15 @@ def probe_kernel_entry(rec, launches, io, ops):
     }
 
 
-def run_multistream(dev, tmp_dir):
-    """``MultiStreamTracker``'s loop at full width without cv2: producer
-    threads push seeded 1080p frames into the port's ``FramePool`` (built
-    with g++ at first use), the last stream ends early, and the
-    ``with_validity`` step must leave an invalid stream's state untouched
-    and emit nothing for it. One readback per step."""
-    import torch
-
+def seeded_streams(model, frame, thr, counts, **kw):
+    """A ``MultiStreamTracker`` (yolov3-416 bf16, seeded ReID weights) over
+    len(counts) streams whose producers push ``frame`` counts[i] times into
+    the native frame pool in place of a video decoder; ``kw`` goes to the
+    constructor."""
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
     from yolo_deepsort_tpu_torch.models.reid import random_reid_params
     from yolo_deepsort_tpu_torch.runtime.multistream import MultiStreamTracker
 
-    model, frame, thr = facade_model(dev, tmp_dir)
     frame_bgr = np.ascontiguousarray(frame[:, :, ::-1])
 
     class SeededStreams(MultiStreamTracker):
@@ -2835,13 +2866,23 @@ def run_multistream(dev, tmp_dir):
             finally:
                 self.pool.mark_finished(stream)
 
-    from yolo_deepsort_tpu_torch.config import DetectorConfig
+    return SeededStreams(model, [str(n) for n in counts],
+                         random_reid_params(0), (FRAME_H, FRAME_W),
+                         det_config=DetectorConfig(img_size=416,
+                                                   conf_thres=thr), **kw)
 
+
+def run_multistream(dev, tmp_dir):
+    """``MultiStreamTracker``'s loop at full width without cv2: producer
+    threads push seeded 1080p frames into the port's ``FramePool`` (built
+    with g++ at first use), the last stream ends early, and the
+    ``with_validity`` step must leave an invalid stream's state untouched
+    and emit nothing for it. One readback per step."""
+    import torch
+
+    model, frame, thr = facade_model(dev, tmp_dir)
     counts = [MST_FRAMES] * (STREAMS - 1) + [MST_SHORT]
-    mst = SeededStreams(model, [str(n) for n in counts],
-                        random_reid_params(0), (FRAME_H, FRAME_W),
-                        det_config=DetectorConfig(img_size=416,
-                                                  conf_thres=thr))
+    mst = seeded_streams(model, frame, thr, counts)
     fields = ("mean", "cov", "track_id", "state", "hits", "age",
               "time_since_update", "gallery", "gallery_head",
               "gallery_count", "next_id")
@@ -2881,6 +2922,392 @@ def run_multistream(dev, tmp_dir):
           f"untouched and emitted nothing for it, {rows} rows emitted, 1 "
           f"readback per step, {dt / steps * 1e3:.2f} ms per step "
           f"(host clock, decode threads included)", flush=True)
+
+
+def _cpu_copy(states):
+    """A CPU copy of a ``TrackerState`` or ``GlobalIDState``."""
+    if dataclasses.is_dataclass(states):
+        return type(states)(**{f.name: getattr(states, f.name).cpu()
+                               for f in dataclasses.fields(states)})
+    return type(states)(*(t.cpu() for t in states))
+
+
+def _check_gids(got, want, tag):
+    """The card's table ``got`` equals the CPU's ``want`` bit for bit."""
+    import torch
+
+    got = _cpu_copy(got)
+    for name in ("gid", "owner"):
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: the card's {name} table differs "
+                                 f"from the CPU's at "
+                                 f"{int((a != b).sum())} lanes")
+
+
+def gid_full_width(model, frame, thr):
+    """Part 1 of ``run_global_ids``: ``MultiStreamTracker(global_ids=True,
+    global_id_every=GID_EVERY)`` over STREAMS x 1080p streams of one frame,
+    counted. Every step: emitted ids > 0, and the card's table equals the
+    one-rank step (or ``assign_provisional_gids`` between rounds) run on
+    the CPU over a CPU copy of the card's states and previous table."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        assign_provisional_gids,
+        init_global_ids,
+        make_global_id_step,
+        make_stream_mesh,
+    )
+    from yolo_deepsort_tpu_torch.tracking.tracker import STATE_CONFIRMED
+    from yolo_deepsort_tpu_torch.weights import reid_from_params
+
+    cpu_step = make_global_id_step(make_stream_mesh(1, device="cpu"),
+                                   TrackerConfig(), STREAMS)
+    mst = seeded_streams(model, frame, thr, [GID_FRAMES] * STREAMS,
+                         global_ids=True, global_id_every=GID_EVERY)
+
+    def drive():
+        prev = init_global_ids(mst.trk_cfg, STREAMS, "cpu")
+        steps = rows = rounds = 0
+        for outputs, emit, _ in mst.run():
+            ids = outputs[emit][:, 4]
+            if (ids <= 0).any():
+                raise AssertionError(f"step {steps} emitted ids {ids}")
+            states = _cpu_copy(mst.states)
+            if steps % GID_EVERY == 0:
+                want = cpu_step(states, prev)
+                rounds += 1
+            else:
+                want = assign_provisional_gids(states.track_id, prev,
+                                               n_streams_total=STREAMS)
+            _check_gids(mst.gid_state, want, f"full width, step {steps}")
+            prev = want
+            steps += 1
+            rows += len(ids)
+        return steps, rows, rounds, states, prev
+
+    (steps, rows, rounds, states, gids), launched = _counted(drive)
+    mst.close()
+    per_step = (n_convs(model.module)
+                + n_convs(reid_from_params(random_reid_params(0))))
+    want = _only(letterbox=steps, crops_dense=steps, conv=per_step * steps,
+                 tracker=steps)
+    if launched != want:
+        raise AssertionError(f"global ids: launches {launched}, want {want}")
+    live = gids.gid[states.state == STATE_CONFIRMED]
+    unique = len(set(live.tolist()))
+    if (mst.host_readbacks != steps or rows == 0 or len(live) == 0
+            or not unique < len(live)):
+        raise AssertionError(f"global ids: {mst.host_readbacks} readbacks in "
+                             f"{steps} steps, {rows} rows, {len(live)} live "
+                             f"tracks with {unique} global ids")
+    return dict(steps=steps, rows=rows, rounds=rounds, live=len(live),
+                unique=unique, launches=launched)
+
+
+def gid_scene_inputs(scene, cfg, n, t, rng, feats):
+    """Frame ``t`` of the reference's two scenes (tests/test_parallel_train
+    .py, ``test_global_id_handoff_across_cameras`` and
+    ``test_global_id_no_false_aliasing``) at ``cfg``'s sizes: numpy (tlwh,
+    conf, feat, mask). Handoff: camera 0 sees the object for t < 10,
+    camera n - 1 from t >= 8, each feature its appearance plus noise of
+    the reference's norm (sigma 0.02 at 32 dims, scaled by sqrt(32 / F));
+    no aliasing: two objects of distinct appearance on every camera."""
+    d, f = cfg.max_dets, cfg.feat_dim
+    tlwh = np.zeros((n, d, 4), np.float32)
+    conf = np.zeros((n, d), np.float32)
+    feat = np.zeros((n, d, f), np.float32)
+    mask = np.zeros((n, d), bool)
+    if scene == "handoff":
+        sigma = 0.02 * np.sqrt(32 / f)
+        for cam, on, box in ((0, t < 10, [200 + 5 * t, 300, 40, 80]),
+                             (n - 1, t >= 8, [100 + 5 * t, 400, 40, 80])):
+            if on:
+                tlwh[cam, 0], conf[cam, 0], mask[cam, 0] = box, 0.9, True
+                v = feats + rng.normal(0, sigma, f)
+                feat[cam, 0] = v / np.linalg.norm(v)
+    else:
+        for s in range(n):
+            for j in range(2):
+                tlwh[s, j] = [150 + 300 * j + 4 * t, 300, 40, 80]
+                conf[s, j], feat[s, j], mask[s, j] = 0.9, feats[s, j], True
+    return tlwh, conf, feat, mask
+
+
+def gid_scene(dev, scene):
+    """Part 2 of ``run_global_ids``: one of the reference's scenes at the
+    served tracker sizes (``TrackerConfig()``: T 128, nn_budget 100, F 512,
+    D 64), STREAMS cameras, through the fused tracker step on the card
+    (kernel 3) and the global-id step after every frame; every frame's
+    table equals the CPU's on a CPU copy of the card's states. Then the
+    scene's claim. -> (states, table) on the card after the last frame,
+    and the live tracks' gids."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_global_ids,
+        init_stream_states,
+        make_global_id_step,
+        make_stream_mesh,
+    )
+    from yolo_deepsort_tpu_torch.tracking.tracker import STATE_CONFIRMED
+    from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
+        tracker_step_fused_batched,
+    )
+
+    cfg, n = TrackerConfig(), STREAMS
+    step = make_global_id_step(make_stream_mesh(1, device=dev), cfg, n)
+    cpu_step = make_global_id_step(make_stream_mesh(1, device="cpu"), cfg, n)
+    rng = np.random.default_rng(0 if scene == "handoff" else 3)
+    if scene == "handoff":
+        feats = rng.normal(size=cfg.feat_dim)
+        feats /= np.linalg.norm(feats)
+        frames = GID_HANDOFF_FRAMES
+    else:
+        feats = rng.normal(size=(n, 2, cfg.feat_dim))
+        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+        frames = GID_NO_ALIAS_FRAMES
+    states = init_stream_states(cfg, n, dev)
+    gids = init_global_ids(cfg, n, dev)
+    for t in range(frames):
+        inputs = gid_scene_inputs(scene, cfg, n, t, rng, feats)
+        states, _, _ = tracker_step_fused_batched(
+            cfg, states, *(torch.from_numpy(a).to(dev) for a in inputs),
+            (720, 1280))
+        prev = _cpu_copy(gids)
+        gids = step(states, gids)
+        _check_gids(gids, cpu_step(_cpu_copy(states), prev),
+                    f"{scene} scene, frame {t}")
+    g, trk = gids.gid.cpu(), states.state.cpu()
+    live = g[trk == STATE_CONFIRMED].tolist()
+    if scene == "handoff":
+        lane = int(torch.argmax((trk[n - 1] == STATE_CONFIRMED).int()))
+        if trk[n - 1, lane] != STATE_CONFIRMED or g[n - 1, lane] != 1:
+            raise AssertionError(f"no handoff: camera {n - 1}'s gids "
+                                 f"{g[n - 1].tolist()}")
+    elif len(live) != 2 * n or len(set(live)) != 2 * n:
+        raise AssertionError(f"false aliasing: live gids {sorted(live)}")
+    return states, gids, live
+
+
+def gid_queries(states, d, seed):
+    """(S, d, F) unit queries on the states' device, seeded: the first half
+    gallery slot 0 of random lanes plus a little noise (a match exists),
+    the rest random."""
+    import torch
+
+    s, t, _, f = states.gallery.shape
+    gen = torch.Generator(device=states.gallery.device).manual_seed(seed)
+    dev = states.gallery.device
+    lanes = torch.randint(0, t, (s, d), generator=gen, device=dev)
+    rows = torch.gather(states.gallery, 1,
+                        lanes[..., None, None].expand(s, d, 1, f))[:, :, 0]
+    noise = torch.randn((s, d, f), generator=gen, device=dev)
+    q = torch.where((torch.arange(d, device=dev) < d // 2)[None, :, None],
+                    rows + 0.01 * noise, noise)
+    return torch.nn.functional.normalize(q, dim=-1)
+
+
+def gid_nccl(dev, cases):
+    """Part 3 of ``run_global_ids``: a real NCCL process group of one rank
+    over a local store. Through it the global-id step and the matcher must
+    equal the mesh without a group bit for bit. An NCCL that cannot start
+    fails the phase (no gloo fallback)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        make_cross_camera_matcher,
+        make_global_id_step,
+        make_stream_mesh,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        grouped = make_stream_mesh(device=dev)
+        plain = make_stream_mesh(1, device=dev)
+        if grouped.group is None or dist.get_backend(grouped.group) != "nccl":
+            raise AssertionError("the mesh did not take the NCCL group")
+        cfg = TrackerConfig()
+        checked = 0
+        for tag, states, gids in cases:
+            a = make_global_id_step(grouped, cfg, STREAMS)(states, gids)
+            b = make_global_id_step(plain, cfg, STREAMS)(states, gids)
+            _check_gids(a, _cpu_copy(b), f"NCCL group vs none, {tag}")
+            q = gid_queries(states, GID_MATCH_DETS, checked)
+            qmask = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+            ids_a, d_a = make_cross_camera_matcher(grouped, cfg)(states, q,
+                                                                 qmask)
+            ids_b, d_b = make_cross_camera_matcher(plain, cfg)(states, q,
+                                                               qmask)
+            if not (torch.equal(ids_a, ids_b) and torch.equal(d_a, d_b)):
+                raise AssertionError(f"NCCL group vs none, matcher, {tag}")
+            checked += 1
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    return checked
+
+
+def gid_step_timings(dev):
+    """Part 4 of ``run_global_ids``, the device side: the global-id step's
+    device ms (CUDA events, GID_REPS calls) and peak memory on a mesh of
+    one rank at S = 8 and 16 streams of the served sizes, every lane a
+    confirmed track with a full gallery (the work is dense: the same at
+    any fill), and the matcher's at S = 8, D = GID_MATCH_DETS queries."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.config import TrackerConfig
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_global_ids,
+        init_stream_states,
+        make_cross_camera_matcher,
+        make_global_id_step,
+        make_stream_mesh,
+    )
+    from yolo_deepsort_tpu_torch.tracking.tracker import STATE_CONFIRMED
+
+    cfg = TrackerConfig()
+    t, b, f = cfg.max_tracks, cfg.nn_budget, cfg.feat_dim
+    mesh = make_stream_mesh(1, device=dev)
+    out = {}
+    for s in (8, 16):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        states = dataclasses.replace(
+            init_stream_states(cfg, s, dev),
+            gallery=torch.nn.functional.normalize(torch.randn(
+                (s, t, b, f), generator=gen, device=dev), dim=-1),
+            state=torch.full((s, t), STATE_CONFIRMED, dtype=torch.int32,
+                             device=dev),
+            track_id=torch.arange(1, t + 1, dtype=torch.int32,
+                                  device=dev).expand(s, t).contiguous(),
+            gallery_head=torch.randint(0, b, (s, t), generator=gen,
+                                       device=dev, dtype=torch.int32),
+            gallery_count=torch.full((s, t), b, dtype=torch.int32,
+                                     device=dev))
+        gids = init_global_ids(cfg, s, dev)
+        step = make_global_id_step(mesh, cfg, s)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(states, gids)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(lambda: step(states, gids), GID_REPS)
+        q = s * t
+        bound = roofline(nbytes(states.gallery), 2.0 * s * t * b * f * q,
+                         "f32")
+        rec = dict(ms=ms, peak_gib=peak / 2 ** 30, bound=bound,
+                   sims_gib=s * t * b * q * 4 / 2 ** 30)
+        if s == 8:
+            match = make_cross_camera_matcher(mesh, cfg)
+            qf = gid_queries(states, GID_MATCH_DETS, 1)
+            qmask = torch.ones(qf.shape[:2], dtype=torch.bool, device=dev)
+            rec["match_ms"] = cuda_ms(lambda: match(states, qf, qmask),
+                                      GID_REPS)
+            qm = s * GID_MATCH_DETS
+            rec["match_bound"] = roofline(nbytes(states.gallery, qf),
+                                          2.0 * s * t * b * f * qm, "f32")
+        out[s] = rec
+        del states, gids
+    return out
+
+
+def gid_step_ms(model, frame, thr):
+    """Part 4 of ``run_global_ids``, end to end: ``MultiStreamTracker`` ms
+    per step (host clock between yields, the first GID_WARM_STEPS left
+    out) with global ids off and on, in the alternated blocks of
+    GID_BLOCKS; -> {"off": [...], "on": [...], "spin": [...]}, each block's
+    median. Each stream's ring holds all of its frames, so the producers
+    push them and exit. The last block ("spin", global ids off) keeps the
+    default ring of 8: a producer that finds its ring full loops on
+    ``push`` and the GIL while the consumer steps."""
+    import time as _time
+
+    n = GID_WARM_STEPS + GID_TIMED_STEPS
+    res = {"off": [], "on": [], "spin": []}
+    for on, key, depth in ([(on, "on" if on else "off", n)
+                            for on in GID_BLOCKS] + [(False, "spin", 8)]):
+        mst = seeded_streams(model, frame, thr, [n] * STREAMS,
+                             ring_depth=depth, global_ids=on,
+                             global_id_every=GID_EVERY)
+        times, last = [], None
+        for i, _ in enumerate(mst.run()):
+            now = _time.perf_counter()
+            if i >= GID_WARM_STEPS:
+                times.append((now - last) * 1e3)
+            last = now
+        mst.close()
+        res[key].append(float(np.median(times)))
+    return res
+
+
+def run_global_ids(dev, tmp_dir, card):
+    """The cross-camera global-ID path (``parallel/streams.py``
+    ``make_global_id_step``, ``make_cross_camera_matcher``; the stream mesh
+    of ``parallel/mesh.py``), four parts: the full-width
+    ``MultiStreamTracker(global_ids=True)`` run (counted), the reference's
+    two scenes at the served tracker sizes, a real NCCL group of one rank,
+    and the timings. -> the counted run's launches."""
+    model, frame, thr = facade_model(dev, tmp_dir)
+    full = gid_full_width(model, frame, thr)
+    print(f"global ids (MultiStreamTracker(global_ids=True, global_id_every="
+          f"{GID_EVERY}), yolov3-416 bf16, {STREAMS} x {FRAME_H}p, one frame "
+          f"on every stream): {full['steps']} steps, {full['rounds']} gid "
+          f"rounds, every table equal to the CPU's one-rank step on the "
+          f"card's states bit for bit, {full['rows']} rows emitted with ids "
+          f"> 0, 1 readback per step, {full['live']} live tracks under "
+          f"{full['unique']} global ids; launches per step K1 1, dense "
+          f"crops 1, K7 {full['launches']['conv'] // full['steps']}, K3 1",
+          flush=True)
+    cases = []
+    for scene in ("handoff", "no_aliasing"):
+        states, gids, live = gid_scene(dev, scene)
+        cases.append((scene, states, gids))
+        print(f"global ids, {scene} scene ({STREAMS} cameras, T 128, "
+              f"nn_budget 100, F 512, kernel 3): every frame's table equal "
+              f"to the CPU's bit for bit; "
+              + ("camera 7's track took gid 1" if scene == "handoff" else
+                 f"{len(live)} live tracks, {len(set(live))} global ids"),
+              flush=True)
+    checked = gid_nccl(dev, cases)
+    print(f"global ids through a real NCCL group of one rank: the gid step "
+          f"and the matcher ({GID_MATCH_DETS} queries a stream) equal the "
+          f"mesh without a group bit for bit ({checked} cases)", flush=True)
+    del cases
+    timings = gid_step_timings(dev)
+    for s, r in timings.items():
+        extra = ("" if "match_ms" not in r else
+                 f"; matcher at D = {GID_MATCH_DETS}: {r['match_ms']:.4f} ms "
+                 f"of device time, bound {r['match_bound'][0]:.4f} ms "
+                 f"({r['match_bound'][1]})")
+        print(f"global-id step at S = {s} (T 128, nn_budget 100, F 512, "
+              f"f32 products, TF32 off): {r['ms']:.4f} ms of device time, "
+              f"peak memory {r['peak_gib']:.4f} GiB above its inputs "
+              f"(the similarities alone {r['sims_gib']:.4f} GiB), bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){extra} ({card})",
+              flush=True)
+    ms = gid_step_ms(model, frame, thr)
+    print(f"MultiStreamTracker ms per step ({STREAMS} x {FRAME_H}p, "
+          f"yolov3-416 bf16, host clock, rings holding every frame, medians "
+          f"of {GID_TIMED_STEPS} steps, blocks alternated): global ids "
+          f"off {[round(v, 4) for v in ms['off']]}, on (every {GID_EVERY} "
+          f"steps) {[round(v, 4) for v in ms['on']]}; off with rings of 8, "
+          f"the producers spinning on full rings: "
+          f"{[round(v, 4) for v in ms['spin']]} ({card})", flush=True)
+    return full["launches"]
 
 
 def jv_problem(rng, s, r, c):
@@ -4651,7 +5078,9 @@ def main() -> int:
         launches["jv_two_stage"] = run_facades(dev, tmp_dir)
         mark("JV ops, facades")
         run_multistream(dev, tmp_dir)
-    mark("multistream")
+        mark("multistream")
+        gid_launches = run_global_ids(dev, tmp_dir, card)
+    mark("global ids")
     quality_launches = run_tracking_quality(dev)
     mark("tracking quality")
     with tempfile.TemporaryDirectory() as tmp_dir:
@@ -4719,6 +5148,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches_scanned_path"] = scanned[entry["name"]]
         entry["launches_quality_gate"] = quality_launches[entry["name"]]
+        entry["launches_global_ids_path"] = gid_launches[entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")

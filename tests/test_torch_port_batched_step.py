@@ -358,7 +358,7 @@ def _write_clip(path, n, h, w, seed):
 
 def test_multistream_tracker_matches_jax(tmp_path):
     """Two short videos, the second ending early, through both
-    ``MultiStreamTracker``s. Which streams a step finds ready depends on the
+    ``MultiStreamTracker``s, then again with ``global_ids=True``. Which streams a step finds ready depends on the
     decoder threads' timing, but a stream's state moves only on its own
     valid steps, so per stream the sequence of valid steps' rows is
     compared: the same tracks with the same ids on every frame, boxes within
@@ -418,8 +418,57 @@ def test_multistream_tracker_matches_jax(tmp_path):
                                        err_msg=tag)
     assert sum(len(r) for rows in got for r in rows) > 0, "rows were emitted"
     assert set(port.stats()) == set(ref.stats()) == {"dropped"}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MultiStreamTracker(port.model, [str(p1)], random_reid_params(0),
-                           (h, w), global_ids=True)
     ref.close()
     port.close()
+
+    # global_ids=True: a gid round reads every stream's state at once, so
+    # each clip is decoded whole into its ring before the first pop (no
+    # thread timing decides what a step sees): both trackers take the same
+    # (frames, valid) sequence, 4 steps of both streams, then 3 of one
+    kw.update(ring_depth=8, global_ids=True, global_id_every=2)
+    ref = _prefilled(JMST)(JA.Darknet("yolov3-tiny", img_size=96),
+                           [str(p1), str(p2)], j_reid_params(0), (h, w),
+                           **kw)
+    port = _prefilled(MultiStreamTracker)(
+        PA.Darknet("yolov3-tiny", img_size=96, device="cpu"),
+        [str(p1), str(p2)], random_reid_params(0), (h, w), **kw)
+    steps = []
+    for mst in (ref, port):
+        mst.prefill()
+        steps.append([(np.asarray(o), np.asarray(e), v,
+                       np.asarray(mst.gid_state.gid),
+                       np.asarray(mst.gid_state.owner))
+                      for o, e, v in mst.run(max_steps=40)])
+    assert port.host_readbacks == len(steps[1]), "one readback per step"
+    assert [v.tolist() for *_, v, _, _ in steps[1]] == (
+        [[True, True]] * 4 + [[True, False]] * 3)
+    shown = 0
+    for f, (want, got) in enumerate(zip(*steps, strict=True)):
+        np.testing.assert_array_equal(got[3], want[3], err_msg=f"gid {f}")
+        np.testing.assert_array_equal(got[4], want[4], err_msg=f"owner {f}")
+        np.testing.assert_array_equal(got[1], want[1], err_msg=f"emit {f}")
+        for s in range(2):
+            a, b = got[0][s][got[1][s]], want[0][s][want[1][s]]
+            np.testing.assert_array_equal(a[:, 4], b[:, 4],
+                                          err_msg=f"stream {s} step {f}")
+            np.testing.assert_allclose(a[:, :4], b[:, :4], atol=1)
+            assert (a[:, 4] > 0).all()
+            shown += len(a)
+    assert shown > 0, "rows with global ids were emitted"
+    ref.close()
+    port.close()
+
+
+def _prefilled(cls):
+    """``cls`` with a ``prefill()`` that decodes every clip whole into its
+    ring (the ring must hold the clip) and no decoder threads."""
+
+    class Prefilled(cls):
+        def prefill(self):
+            for i, path in enumerate(self.paths):
+                cls._decoder(self, i, path)
+
+        def _decoder(self, stream, path):
+            pass
+
+    return Prefilled

@@ -219,7 +219,8 @@ def test_facade_on_a_missing_cuda_device_raises(facade):
 
 
 @pytest.mark.parametrize("entry", ["Darknet", "init_tracker_state",
-                                   "init_stream_states", "DeepSort"])
+                                   "init_stream_states", "DeepSort",
+                                   "make_stream_mesh", "init_global_ids"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the CUDA card: without one the entry point
     raises, and only an explicit ``device="cpu"`` takes the CPU."""
@@ -227,7 +228,11 @@ def test_entry_points_default_to_the_card(entry):
         pytest.skip("a CUDA device is present")
     from yolo_deepsort_tpu_torch import api
     from yolo_deepsort_tpu_torch.config import TrackerConfig
-    from yolo_deepsort_tpu_torch.parallel.streams import init_stream_states
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        init_global_ids,
+        init_stream_states,
+        make_stream_mesh,
+    )
     from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
 
     cfg = TrackerConfig(max_tracks=8, max_dets=4, nn_budget=2, feat_dim=8)
@@ -239,6 +244,9 @@ def test_entry_points_default_to_the_card(entry):
         "init_stream_states": lambda **kw: init_stream_states(
             cfg, 2, **kw).mean.device,
         "DeepSort": lambda **kw: api.DeepSort(**kw).device,
+        "make_stream_mesh": lambda **kw: make_stream_mesh(**kw).device,
+        "init_global_ids": lambda **kw: init_global_ids(
+            cfg, 2, **kw).gid.device,
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
@@ -277,3 +285,26 @@ def test_training_clis_default_to_the_card(cli, tmp_path):
         main(argv)
     with pytest.raises(FileNotFoundError):  # the CPU is taken: it reads
         main(argv + ["--device", "cpu"])
+
+
+def test_stream_mesh_of_several_ranks_needs_a_group():
+    """No quiet fallback to one rank: more than one device without an
+    initialized process group raises, on the card and on the CPU."""
+    from yolo_deepsort_tpu_torch.parallel.mesh import make_stream_mesh
+
+    for device in (None, "cpu"):
+        with pytest.raises(ValueError, match="process group"):
+            make_stream_mesh(2, device=device)
+    mesh = make_stream_mesh(1, device="cpu")
+    assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
+
+
+def test_dryrun_tool_defaults_to_the_card():
+    """The multi-rank dryrun takes ``--device cuda`` (NCCL) by default:
+    without a card it raises before it joins any process group."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from yolo_deepsort_tpu_torch.tools import dryrun_multihost
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multihost.main(["--num-processes", "1", "--process-id", "0"])

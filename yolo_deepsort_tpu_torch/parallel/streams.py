@@ -1,7 +1,7 @@
 """Multi-stream serving steps: the bucketed chunked detect -> track step,
-the monolithic chunk step it is measured against, and the single-frame
-low-latency step (port of the single-device part of
-yolo_deepsort_tpu/parallel/streams.py).
+the monolithic chunk step it is measured against, the single-frame
+low-latency step, and the stream mesh's sharded step and cross-camera
+global ids (port of yolo_deepsort_tpu/parallel/streams.py).
 
 A chunk is K frames of S streams, (K, S, H, W, 3) uint8 on the device.
 
@@ -33,6 +33,15 @@ the backbone's residual chains through the fused chain kernel (kernel 9,
 (``embed_int8``, ``_make_embed``: the int8-resident route launches kernel 8
 once per quantized conv).
 
+Over the stream mesh (``parallel/mesh.py``: one rank per device, each
+holding S_total / size streams), ``make_sharded_step`` is each rank's
+batched step with no collective, ``make_global_id_step`` aliases tracks
+across cameras into global ids (``GlobalIDState``; between its rounds
+``assign_provisional_gids``, then ``relabel_outputs_global``), and
+``make_cross_camera_matcher`` matches queries against every rank's
+galleries; these two gather over ``mesh.group`` and are plain torch ops, as
+the reference leaves them to XLA.
+
 The models are ``nn.Module``s already on the target device and dtype (with
 an int8 embed route, ``reid`` is the quantized package instead); the kernel
 wrappers launch their CUDA kernels for CUDA tensors and run their plain
@@ -42,12 +51,13 @@ PyTorch versions for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import DetectorConfig, TrackerConfig
+from ..device import resolve_device
 from ..models.darknet import Darknet
 from ..models.reid import ReIDNet
 from ..ops.crops import (
@@ -65,11 +75,13 @@ from ..ops.letterbox import rescale_boxes
 from ..ops.letterbox_kernel import letterbox_batch_fused
 from ..ops.nms import batched_nms, batched_nms_with_stats
 from ..tracking.tracker import (
+    STATE_CONFIRMED,
     TrackerState,
     init_tracker_state,
     tracker_step,
 )
 from ..tracking.tracker_kernel import tracker_step_fused_batched
+from .mesh import StreamMesh, all_gather, make_stream_mesh  # noqa: F401
 
 
 def _make_conv_impl(use_pallas_conv, backbone_int8_pkg):
@@ -787,3 +799,229 @@ def make_scanned_step_bucketed(detector: Darknet, reid: ReIDNet,
         tracked_class_ids=tracked_class_ids, embed_int8=embed_int8,
         use_pallas_conv=use_pallas_conv, backbone_int8_pkg=backbone_int8_pkg,
         use_resblock=use_resblock)
+
+
+# ---------------------------------------------------------------------------
+# The stream mesh: sharded serving and cross-camera global ids. One process
+# (rank) per device holds its S_loc = S_total / size streams
+# (``parallel/mesh.py``); the hot path has no collective, the global-id
+# step and the matcher gather over ``mesh.group``.
+
+
+def make_sharded_step(mesh: StreamMesh, detector: Darknet, reid: ReIDNet,
+                      det_cfg: DetectorConfig, trk_cfg: TrackerConfig,
+                      frame_hw: Tuple[int, int], tracked_class_ids=None,
+                      use_pallas_letterbox: bool = False):
+    """Stream-parallel serving over the mesh: step(states, frames (S_loc, H,
+    W, 3) uint8) -> (states, (outputs (S_loc, T, 5), emit (S_loc, T))) for
+    this rank's streams. The models are replicated, each rank holding its
+    own copy on ``mesh.device``; each rank runs its streams' whole pipeline
+    with zero collectives (the reference's ``vmap(fused_frame_step)`` under
+    ``jit`` sharding): ``make_batched_step`` at no cap, one launch of each
+    kernel for all local streams. The compute dtype is the models'.
+    ``use_pallas_letterbox`` keeps the reference's signature; the port's
+    letterbox is always kernel 1."""
+    del use_pallas_letterbox
+    param = next(detector.parameters())
+    if param.device != mesh.device:
+        raise ValueError(f"rank {mesh.rank} computes on {mesh.device}, but "
+                         f"the detector lies on {param.device}")
+    return make_batched_step(detector, reid, det_cfg, trk_cfg, frame_hw,
+                             tracked_class_ids=tracked_class_ids)
+
+
+def shared_gallery_distance(mesh: StreamMesh, local_feats: torch.Tensor):
+    """Cross-camera shared-gallery helper: every rank's ReID features,
+    concatenated on dim 0 in rank order (one tiled gather)."""
+    return all_gather(mesh, local_feats, tiled=True)
+
+
+class GlobalIDState(NamedTuple):
+    """Cross-camera aliasing table, lane-aligned with ``TrackerState``.
+
+    ``gid`` (S, T) int32: the global id reported for each track lane;
+    ``owner`` (S, T) int32: the local track_id the gid was assigned for --
+    when a lane is recycled (track_id changes) the gid resets to that
+    track's provisional global id."""
+
+    gid: torch.Tensor
+    owner: torch.Tensor
+
+
+def init_global_ids(trk_cfg: TrackerConfig, n_streams: int,
+                    device=None) -> GlobalIDState:
+    """An empty table on the CUDA card unless ``device`` names another."""
+    z = torch.zeros((n_streams, trk_cfg.max_tracks), dtype=torch.int32,
+                    device=resolve_device(device))
+    return GlobalIDState(gid=z, owner=z.clone())
+
+
+def relabel_outputs_global(outputs: torch.Tensor, gids: GlobalIDState):
+    """Replace the local track-id column of lane-aligned tracker outputs
+    (..., T, 5) with the global ids (S, T)."""
+    gid = gids.gid[..., None].expand(outputs[..., :1].shape)
+    return torch.cat([outputs[..., :4], gid.to(outputs.dtype)], -1)
+
+
+def _provisional(track_id, gids: GlobalIDState, n_streams_total: int,
+                 stream_idx):
+    """Fresh or recycled lanes take their provisional gid
+    ``(track_id - 1) * n_streams_total + global stream index + 1``."""
+    prov = torch.where(track_id > 0,
+                       (track_id - 1) * n_streams_total + stream_idx[:, None]
+                       + 1, torch.zeros_like(track_id))
+    fresh = (track_id != gids.owner) | (gids.gid == 0)
+    return GlobalIDState(gid=torch.where(fresh, prov, gids.gid),
+                         owner=track_id.clone())
+
+
+def assign_provisional_gids(track_id: torch.Tensor, gids: GlobalIDState,
+                            n_streams_total: int,
+                            stream_offset: int = 0) -> GlobalIDState:
+    """Local (collective-free) half of the global-ID protocol: fresh or
+    recycled lanes of ``track_id`` (S_loc, T), global streams
+    ``stream_offset + arange(S_loc)``, get their provisional unique gid at
+    once, so emitted rows never show gid 0 between handoff rounds."""
+    stream_idx = stream_offset + torch.arange(
+        track_id.shape[0], dtype=torch.int32, device=track_id.device)
+    return _provisional(track_id, gids, n_streams_total, stream_idx)
+
+
+def _candidate_distances(gallery, gallery_count, queries):
+    """(S, T, Q): 1 - the best cosine similarity of each track's gallery
+    (S, T, B, F) rows to each query (Q, F), rows past ``gallery_count`` out
+    (a track with none gives inf). The (S, T, B, Q) similarities are one
+    f32 product; the mask is written into it in place."""
+    sims = torch.einsum("stbf,qf->stbq", gallery, queries)
+    b = gallery.shape[2]
+    stale = (torch.arange(b, device=gallery.device)[None, None, :]
+             >= gallery_count[:, :, None])
+    sims.masked_fill_(stale[..., None], float("-inf"))
+    return 1.0 - sims.amax(2)
+
+
+def _global_best(mesh: StreamMesh, dist, values, first: int, n: int):
+    """Per query column of ``dist`` (L local candidates, Q): the smallest
+    distance over every rank's candidates and the ``values`` (L,) entry of
+    the candidate that gives it (the first on ties: lowest local index,
+    then lowest rank), for columns ``first .. first + n``. A column with
+    no finite distance gives inf and candidate 0's value, as the
+    reference's argmin does."""
+    local_best = dist.argmin(0)
+    ld = dist.gather(0, local_best[None])[0]
+    lval = values[local_best]
+    all_ld = all_gather(mesh, ld, tiled=False)  # (ranks, Q)
+    all_lval = all_gather(mesh, lval, tiled=False)
+    win = all_ld.argmin(0)[None]
+    g_dist = all_ld.gather(0, win)[0, first:first + n]
+    g_val = all_lval.gather(0, win)[0, first:first + n]
+    return g_dist, g_val
+
+
+def make_global_id_step(mesh: StreamMesh, trk_cfg: TrackerConfig,
+                        n_streams_total: int,
+                        match_thresh: Optional[float] = None):
+    """Cross-camera global-ID handoff over the stream mesh: step(states,
+    gids) -> GlobalIDState for this rank's S_loc = n_streams_total /
+    mesh.size streams (the global streams ``rank * S_loc + arange(S_loc)``).
+
+    Each call:
+      1. assigns provisional global ids to fresh or recycled lanes;
+      2. gathers every rank's queries (tiled, three gathers): each
+         track's freshest gallery row at ``(gallery_head - 1) % B``,
+         whether it is a confirmed track with a gallery, and its global
+         stream (the reference also gathers the queries' gids, which it
+         never reads);
+      3. scores this rank's confirmed tracks against ALL queries (cosine,
+         min over each ring buffer; same-stream pairs and invalid queries
+         at inf), takes the local argmin per query, gathers the local bests
+         (stacked, two gathers) and takes the global argmin;
+      4. where the best cross-camera distance is below ``match_thresh``
+         (default ``trk_cfg.max_dist``), a lane ADOPTS the smaller positive
+         gid: min-adoption is commutative and idempotent, so repeated calls
+         converge to the oldest id across the camera set.
+
+    The step only reads ``states`` and returns new tensors. It reads
+    nothing back to the host; the similarities are one f32 product (TF32
+    stays off, as PyTorch's default has it)."""
+    if n_streams_total % mesh.size:
+        raise ValueError(f"{n_streams_total} streams do not divide over "
+                         f"{mesh.size} ranks")
+    thresh = trk_cfg.max_dist if match_thresh is None else match_thresh
+    s_per = n_streams_total // mesh.size
+    offset = mesh.rank * s_per
+
+    @torch.no_grad()
+    def step(states: TrackerState, gids: GlobalIDState) -> GlobalIDState:
+        s_loc, t = states.track_id.shape
+        if s_loc != s_per:
+            raise ValueError(f"rank {mesh.rank} holds {s_loc} streams, the "
+                             f"mesh gives it {s_per}")
+        stream_idx = offset + torch.arange(
+            s_loc, dtype=torch.int32, device=states.track_id.device)
+        new = _provisional(states.track_id, gids, n_streams_total,
+                           stream_idx)
+        gallery = states.gallery
+        b, f = gallery.shape[2], gallery.shape[3]
+        q_loc = s_loc * t
+        last = torch.remainder(states.gallery_head - 1, b).long()
+        q_feat = torch.gather(gallery, 2,
+                              last[..., None, None].expand(s_loc, t, 1, f))
+        q_ok = ((states.state == STATE_CONFIRMED)
+                & (states.gallery_count > 0)).reshape(q_loc)
+        my_qgid = new.gid.reshape(q_loc)
+        all_q = all_gather(mesh, q_feat.reshape(q_loc, f), tiled=True)
+        all_qok = all_gather(mesh, q_ok, tiled=True)
+        all_qstream = all_gather(
+            mesh, stream_idx[:, None].expand(s_loc, t).reshape(q_loc),
+            tiled=True)
+
+        dist = _candidate_distances(gallery, states.gallery_count, all_q)
+        dist.masked_fill_(~q_ok.reshape(s_loc, t)[..., None], float("inf"))
+        # same-stream candidates never alias (handoff is cross-camera)
+        dist.masked_fill_(stream_idx[:, None, None] == all_qstream,
+                          float("inf"))
+        dist.masked_fill_(~all_qok, float("inf"))
+        my_dist, my_best = _global_best(mesh, dist.reshape(q_loc, -1),
+                                        new.gid.reshape(q_loc),
+                                        offset * t, q_loc)
+        adopt = (q_ok & (my_dist < thresh) & (my_best > 0)
+                 & (my_best < my_qgid))
+        return GlobalIDState(
+            gid=torch.where(adopt, my_best, my_qgid).reshape(s_loc, t),
+            owner=new.owner)
+
+    return step
+
+
+def make_cross_camera_matcher(mesh: StreamMesh, trk_cfg: TrackerConfig):
+    """Global re-identification across the stream mesh: match(states
+    (S_loc, ...), query_feats (S_loc, D, F), query_mask (S_loc, D)) ->
+    (best_track_id (S_loc, D), best_distance (S_loc, D)) for this rank's
+    queries: the track id of the closest confirmed track on ANY rank
+    (cosine distance, min over each track's gallery), -1 and inf where the
+    query is masked or finds no confirmed track. One tiled gather of the
+    queries, two stacked gathers of the per-rank bests."""
+    del trk_cfg  # the reference's signature; the shapes come with the state
+
+    @torch.no_grad()
+    def match(states: TrackerState, query_feats: torch.Tensor,
+              query_mask: torch.Tensor):
+        s_loc, d, f = query_feats.shape
+        q_loc = s_loc * d
+        all_q = all_gather(mesh, query_feats.reshape(q_loc, f).float(),
+                           tiled=True)
+        dist = _candidate_distances(states.gallery, states.gallery_count,
+                                    all_q)
+        dist.masked_fill_((states.state != STATE_CONFIRMED)[..., None],
+                          float("inf"))
+        my_dist, my_id = _global_best(
+            mesh, dist.reshape(-1, all_q.shape[0]),
+            states.track_id.reshape(-1), mesh.rank * q_loc, q_loc)
+        ok = query_mask.reshape(q_loc) & torch.isfinite(my_dist)
+        my_id = torch.where(ok, my_id, torch.full_like(my_id, -1))
+        my_dist = torch.where(ok, my_dist,
+                              torch.full_like(my_dist, float("inf")))
+        return my_id.reshape(s_loc, d), my_dist.reshape(s_loc, d)
+
+    return match

@@ -12,6 +12,12 @@ CUDA card unless the caller asked for the CPU). On the card the pool
 assembles each batch directly in pinned host memory, the batch and its
 validity flags go up without a wait, and outputs come back by one pinned
 copy and an event wait per step, counted in ``host_readbacks``.
+
+With ``global_ids`` the streams are cameras of one scene: every
+``global_id_every`` steps the global-id step (``make_global_id_step`` on a
+mesh of one rank) aliases tracks across streams, ``assign_provisional_gids``
+runs between its rounds, and the outputs' id column carries the global ids,
+relabeled on the device before the step's one readback.
 """
 
 from __future__ import annotations
@@ -25,7 +31,15 @@ import torch
 from .. import weights as W
 from ..api import _memory_format, _readback
 from ..config import DetectorConfig, TrackerConfig
-from ..parallel.streams import init_stream_states, make_batched_step
+from ..parallel.streams import (
+    assign_provisional_gids,
+    init_global_ids,
+    init_stream_states,
+    make_batched_step,
+    make_global_id_step,
+    make_stream_mesh,
+    relabel_outputs_global,
+)
 from .native import FramePool
 
 
@@ -46,11 +60,6 @@ class MultiStreamTracker:
         global_ids: bool = False,
         global_id_every: int = 4,
     ):
-        if global_ids:
-            raise NotImplementedError(
-                "global_ids: the cross-camera global-id step "
-                "(make_global_id_step) is not ported yet (ROADMAP.md, "
-                "modules item 14)")
         self.model = model
         self.device = model.device
         self.paths = list(video_paths)
@@ -79,6 +88,17 @@ class MultiStreamTracker:
             with_validity=True)
         self.states = init_stream_states(self.trk_cfg, self.s, self.device)
         self.host_readbacks = 0
+        # cross-CAMERA global identities: every ``global_id_every`` steps
+        # tracks whose appearance matches across streams alias to one id
+        # (min-adoption, convergent); the table stays on the device
+        self.gid_state = None
+        self._gid_every = max(1, global_id_every)
+        if global_ids:
+            mesh = make_stream_mesh(1, device=self.device)  # co-resident
+            self._gid_step = make_global_id_step(mesh, self.trk_cfg,
+                                                 n_streams_total=self.s)
+            self.gid_state = init_global_ids(self.trk_cfg, self.s,
+                                             self.device)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
 
@@ -125,6 +145,15 @@ class MultiStreamTracker:
                                                    non_blocking=True)
                 self.states, (outputs, emit) = self.step(
                     self.states, frames, frame_valid)
+                if self.gid_state is not None:
+                    if steps % self._gid_every == 0:
+                        self.gid_state = self._gid_step(self.states,
+                                                        self.gid_state)
+                    else:  # fresh lanes still get ids between rounds
+                        self.gid_state = assign_provisional_gids(
+                            self.states.track_id, self.gid_state,
+                            n_streams_total=self.s)
+                    outputs = relabel_outputs_global(outputs, self.gid_state)
                 packed = torch.cat(
                     [outputs, emit.to(outputs.dtype)[..., None]], -1)
                 host = _readback(packed)
