@@ -199,6 +199,17 @@ which ends the run with a non-zero exit code when it fails:
    one's tiny net for 3 steps on the card against the CPU
    (``_forced_steps``); both CLIs on the card on generated files: train,
    checkpoint, resume, export (YOLO) or test and evaluate (ReID).
+9b. the training mesh (``run_parallel_training``; ``parallel/mesh.py``
+   ``make_train_mesh``): the same two full-width loads, 3 SGD steps each
+   from one seeded start through ``mesh=None``, a mesh without a group
+   and a real NCCL process group of one rank (both axes the group, so
+   every collective of the step runs through NCCL): NCCL equal to no group
+   bit for bit (losses, params, statistics), the mesh held to ``mesh=None``
+   within the TOL_TRAIN_* bounds; ms per step and peak memory of each;
+   then ``tools/dryrun_multichip.py`` on one NCCL rank. The multi-rank
+   arithmetic is held on the CPU over gloo
+   (``tests/test_torch_port_train_parallel.py``): NCCL refuses two ranks
+   on one card.
 
 Since the bf16 forwards round where the reference rounds, kernel 7 runs
 every conv of the bf16 detector and ReID net: the counted paths hold its
@@ -3112,13 +3123,29 @@ def gid_queries(states, d, seed):
     return torch.nn.functional.normalize(q, dim=-1)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def init_one_rank_nccl(dev) -> None:
+    """A real NCCL process group of one rank over a local store. An NCCL
+    that cannot start raises (no gloo fallback)."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0,
+                            device_id=dev)
+
+
 def gid_nccl(dev, cases):
     """Part 3 of ``run_global_ids``: a real NCCL process group of one rank
     over a local store. Through it the global-id step and the matcher must
     equal the mesh without a group bit for bit. An NCCL that cannot start
     fails the phase (no gloo fallback)."""
-    import socket
-
     import torch
     import torch.distributed as dist
 
@@ -3129,12 +3156,7 @@ def gid_nccl(dev, cases):
         make_stream_mesh,
     )
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    store = dist.TCPStore("127.0.0.1", port, 1, True)
-    dist.init_process_group("nccl", store=store, world_size=1, rank=0,
-                            device_id=dev)
+    init_one_rank_nccl(dev)
     try:
         grouped = make_stream_mesh(device=dev)
         plain = make_stream_mesh(1, device=dev)
@@ -4348,6 +4370,242 @@ def run_reid_training(dev, tmp_dir):
     return rec
 
 
+# ---- the training mesh (``parallel/mesh.py`` ``make_train_mesh``)
+
+PARALLEL_TRAIN_STEPS = 3  # SGD steps of each net through each mesh
+TRAIN_MESHES = ("none", "no group", "NCCL")
+
+
+def _train_through_meshes(meshes, start):
+    """PARALLEL_TRAIN_STEPS steps from one start through each mesh.
+    ``start(mesh)`` -> (params, stats, step_once), ``step_once()`` -> the
+    loss (the stats kept inside). -> {mesh name: {"losses", "ms",
+    "peak_gib", "first", "last"}}: per-step losses, ms by CUDA events,
+    peak device memory, and the (params, stats) after the first step and
+    after the last, flat, copied to the host (so no mesh's copies weigh on
+    the next one's peak; the first step's copy lies inside its timing,
+    with cuDNN's set-up)."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+
+    recs = {}
+    for name in TRAIN_MESHES:
+        params, stats, step_once = start(meshes[name])
+
+        def flat():
+            return (torch.cat([p.detach().flatten()
+                               for p in tree_leaves(params)]).cpu(),
+                    torch.cat([v.flatten()
+                               for v in tree_leaves(stats[0])]).cpu())
+
+        rec = recs[name] = {}
+
+        def once():
+            loss = step_once()
+            if "first" not in rec:
+                rec["first"] = flat()
+            return loss
+
+        rec["losses"], rec["ms"], rec["peak_gib"] = _timed_steps(
+            once, PARALLEL_TRAIN_STEPS)
+        rec["last"] = flat()
+        del params, stats, step_once, once
+    return recs
+
+
+def _check_train_meshes(tag, recs, before):
+    """The NCCL mesh against the mesh without a group: every loss, and the
+    params and statistics after the first step and after the last, bit for
+    bit. The mesh against ``mesh=None`` (its BN and loss divide sums by the
+    global count where ``mesh=None`` takes means), over the first step,
+    which both take from one start: the loss within TOL_TRAIN_LOSS
+    relative, the stats within TOL_TRAIN_STATS of their largest (atol
+    1e-6), the update of the params within TOL_TRAIN_UPDATE of its norm.
+    The later steps start from states that differ by that rounding, so
+    only their losses are reported (``loss_later``). -> the ratios."""
+    import torch
+
+    nccl, grouped, none = (recs[k] for k in ("NCCL", "no group", "none"))
+    if not (nccl["losses"] == grouped["losses"] and all(
+            torch.equal(a, b) for at in ("first", "last")
+            for a, b in zip(nccl[at], grouped[at]))):
+        raise AssertionError(f"{tag}: the NCCL mesh differs from the mesh "
+                             f"without a group: losses {nccl['losses']} "
+                             f"against {grouped['losses']}")
+    (p_mesh, s_mesh), (p_none, s_none) = grouped["first"], none["first"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(grouped["losses"],
+                                              none["losses"])]
+    worst = {
+        "loss": rel[0], "loss_later": max(rel[1:]),
+        "stats": float(((s_mesh - s_none).abs() - 1e-6).clamp(min=0).max()
+                       / s_none.abs().max()),
+        "update": float((p_mesh - p_none).norm() / (p_none - before).norm())}
+    if (worst["loss"] > TOL_TRAIN_LOSS or worst["stats"] > TOL_TRAIN_STATS
+            or worst["update"] > TOL_TRAIN_UPDATE):
+        raise AssertionError(f"{tag}: the mesh against mesh=None {worst}")
+    return worst
+
+
+def _parallel_yolo(dev, meshes):
+    """``run_yolo_training``'s load (yolov3-416, full width and depth,
+    batch YOLO_TRAIN_BATCH, the cfg's SGD without burn-in) through each
+    mesh; on a mesh the targets are the whole batch's and the images this
+    rank's shard, which on one rank is the batch."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.train import yolo_cli as TC
+    from yolo_deepsort_tpu_torch.train.trees import shard_train_tree, to_torch
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+    from yolo_deepsort_tpu_torch.weights import random_raw_params
+
+    rng = np.random.default_rng(3)
+    defs = ARCHITECTURES["yolov3"](img_size=416)
+    plan = build_network(defs)
+    p0, s0 = TC.raw_params_to_train(random_raw_params(plan.defs()),
+                                    plan.defs())
+    imgs = torch.from_numpy(rng.uniform(0, 1, (YOLO_TRAIN_BATCH, 416, 416, 3))
+                            .astype(np.float32)).to(dev)
+    t, mask = _generated_targets(rng, YOLO_TRAIN_BATCH, 64, 80)
+    t, mask = torch.from_numpy(t).to(dev), torch.from_numpy(mask).to(dev)
+
+    def start(mesh):
+        if mesh is None:
+            params, stats = to_torch(p0, dev, True), [to_torch(s0, dev)]
+        else:
+            params = shard_train_tree(p0, mesh, trainable=True)
+            stats = [shard_train_tree(s0, mesh)]
+        opt = TC.build_optimizer(dict(defs[0], burn_in="0"), params)
+        step = TC.make_detection_train_step(plan, mesh=mesh)
+
+        def once():
+            stats[0], loss, _ = step(params, opt, stats[0], imgs, t, mask)
+            return loss
+        return params, stats, once
+
+    recs = _train_through_meshes(meshes, start)
+    before = torch.cat([torch.from_numpy(np.asarray(p)).flatten()
+                        for p in tree_leaves(p0)])
+    return recs, _check_train_meshes("yolov3-416 training", recs, before)
+
+
+def _parallel_reid(dev, meshes):
+    """``run_reid_training``'s load (the 512-d net, a REID_CLASSES-class
+    head, batch REID_TRAIN_BATCH, SGD lr 0.1, momentum 0.9, decay 5e-4)
+    through each mesh; on the NCCL mesh both axes are the group, so the
+    head's copy_to_mp / reduce_from_mp go through NCCL too."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.train import reid_train as RT
+    from yolo_deepsort_tpu_torch.train.trees import shard_train_tree, to_torch
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+
+    rng = np.random.default_rng(4)
+    p0, s0 = RT.init_train_params(num_classes=REID_CLASSES)
+    x = torch.from_numpy(rng.normal(0, 1, (REID_TRAIN_BATCH, 128, 64, 3))
+                         .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, REID_CLASSES,
+                                           REID_TRAIN_BATCH)).to(dev)
+
+    def start(mesh):
+        if mesh is None:
+            params, stats = to_torch(p0, dev, True), [to_torch(s0, dev)]
+        else:
+            params = shard_train_tree(p0, mesh, trainable=True)
+            stats = [shard_train_tree(s0, mesh)]
+        init, step = RT.make_train_step(mesh=mesh)
+        opt = init(params)
+
+        def once():
+            stats[0], loss, _ = step(params, opt, stats[0], x, labels)
+            return loss
+        return params, stats, once
+
+    recs = _train_through_meshes(meshes, start)
+    before = torch.cat([torch.from_numpy(np.asarray(p)).flatten()
+                        for p in tree_leaves(p0)])
+    return recs, _check_train_meshes("ReID training", recs, before)
+
+
+def run_parallel_training(dev):
+    """The training mesh on one card (``parallel/mesh.py``
+    ``make_train_mesh``, ``parallel/collectives.py``, ``train/sync_bn.py``):
+    the full-width loads of ``run_yolo_training`` and
+    ``run_reid_training``, each PARALLEL_TRAIN_STEPS steps from one seeded
+    start through ``mesh=None``, a mesh without a group (its collectives
+    the identity) and a real one-rank NCCL mesh, whose dp and mp axes are
+    the NCCL group: every all-reduce -- the BN statistics, the loss
+    counts, the gradients' flat buffer, the ReID head's pair -- goes
+    through NCCL. ``_check_train_meshes`` holds them together; ms per step
+    and peak memory of each. cuDNN runs deterministic in this phase (its
+    default wgrad algorithms may sum in an order that changes from run to
+    run). Then the dryrun tool (``tools/dryrun_multichip.py``) on one
+    NCCL rank. -> ({net: (records, ratios)}, the dryrun's lines)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from yolo_deepsort_tpu_torch.parallel.mesh import make_train_mesh
+    from yolo_deepsort_tpu_torch.tools import dryrun_multichip
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    init_one_rank_nccl(dev)
+    try:
+        meshes = {"none": None, "no group": make_train_mesh(1, 1, device=dev),
+                  "NCCL": make_train_mesh(device=dev)}
+        nccl = meshes["NCCL"]
+        if not (nccl.dp_group is not None and nccl.mp_group is not None
+                and dist.get_backend(nccl.dp_group) == "nccl"):
+            raise AssertionError(f"the mesh did not take the NCCL group: "
+                                 f"{nccl}")
+        out = {"yolov3-416": _parallel_yolo(dev, meshes),
+               "ReID 512-d": _parallel_reid(dev, meshes)}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip.main(["--coordinator", f"127.0.0.1:{free_port()}",
+                               "--num-processes", "1", "--process-id", "0"])
+    lines = buf.getvalue().strip().splitlines()
+    if not (any("reid train step ok on 1x1 dp/mp mesh" in ln
+                for ln in lines)
+            and any("dp-sharded detector train step ok over 1 devices" in ln
+                    for ln in lines)):
+        raise AssertionError(f"dryrun_multichip on one NCCL rank: {lines}")
+    return out, lines
+
+
+def print_parallel_training(parallel, dryrun_lines) -> None:
+    """The lines of ``run_parallel_training``."""
+    for net, (recs, worst) in parallel.items():
+        runs = "; ".join(
+            f"{name}: ms per step {[round(v, 3) for v in r['ms']]}, peak "
+            f"{r['peak_gib']:.3f} GiB, losses "
+            f"{[round(v, 4) for v in r['losses']]}"
+            for name, r in recs.items())
+        print(f"training mesh, {net}, {PARALLEL_TRAIN_STEPS} SGD steps from "
+              f"one start through mesh=None, a mesh without a group and a "
+              f"one-rank NCCL mesh (cuDNN deterministic; the first step "
+              f"includes cuDNN's set-up and a host copy of the state): "
+              f"{runs}; NCCL equal to no group "
+              f"bit for bit ({recs['NCCL']['last'][0].numel()} params, "
+              f"{recs['NCCL']['last'][1].numel()} statistics, every loss); "
+              f"the mesh against mesh=None over the first step: loss "
+              f"{worst['loss']:.3g} relative (<= {TOL_TRAIN_LOSS}), stats "
+              f"{worst['stats']:.3g} (<= {TOL_TRAIN_STATS}), update "
+              f"{worst['update']:.3g} of its norm (<= {TOL_TRAIN_UPDATE}); "
+              f"later losses within {worst['loss_later']:.3g}", flush=True)
+    for line in dryrun_lines:
+        print(f"dryrun_multichip on one NCCL rank: {line}", flush=True)
+
+
 TINY_TRAIN_CFG = """[net]
 batch=4
 width=64
@@ -5089,6 +5347,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp_dir:
         train_reid = run_reid_training(dev, tmp_dir)
     mark("ReID training")
+    parallel, dryrun_lines = run_parallel_training(dev)
+    mark("training meshes")
     for name, rec, shape, cli in (
             ("YOLO detection (yolov3-416, full width)", train_yolo,
              f"batch {YOLO_TRAIN_BATCH} x 416 x 416", "exported"),
@@ -5105,6 +5365,7 @@ def main() -> int:
               f"of its norm (<= {TOL_TRAIN_UPDATE}); the "
               f"CLI trained, checkpointed, resumed and {cli} on the card",
               flush=True)
+    print_parallel_training(parallel, dryrun_lines)
     # the scanned path's counts: its two counted chunks, one per tracker
     # branch, every counter of the port read
     scanned = {name: sum(b[name] for b in scan_launches.values())

@@ -24,7 +24,10 @@ missing = {"yolo_deepsort_tpu_torch." + m
            for m in ("utils.mot", "utils.metrics", "utils.profiling",
                      "data.datasets", "data.letterbox_np", "train.yolo_loss",
                      "train.yolo_cli", "train.reid_train", "train.reid_cli",
-                     "train.trees", "models.layers")} - set(names)
+                     "train.trees", "models.layers", "train.sync_bn",
+                     "parallel.mesh", "parallel.collectives",
+                     "tools.dryrun_multihost", "tools.dryrun_multichip",
+                     "tools.train_mesh_clocks")} - set(names)
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
@@ -299,6 +302,21 @@ def test_stream_mesh_of_several_ranks_needs_a_group():
     assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
 
 
+@pytest.mark.parametrize("dp, mp", [(2, 1), (1, 2), (2, 2)])
+def test_train_mesh_of_several_ranks_needs_a_group(dp, mp):
+    """The training mesh likewise: a dp x mp mesh of more than one rank
+    without an initialized process group raises, on the card and on the
+    CPU; dp = mp = 1 is the mesh of one rank with no group."""
+    from yolo_deepsort_tpu_torch.parallel.mesh import make_train_mesh
+
+    for device in (None, "cpu"):
+        with pytest.raises(ValueError, match="process group"):
+            make_train_mesh(dp, mp, device=device)
+    mesh = make_train_mesh(1, 1, device="cpu")
+    assert (mesh.dp_group, mesh.mp_group, mesh.dp, mesh.mp) == (None, None,
+                                                                 1, 1)
+
+
 def test_dryrun_tool_defaults_to_the_card():
     """The multi-rank dryrun takes ``--device cuda`` (NCCL) by default:
     without a card it raises before it joins any process group."""
@@ -308,3 +326,13 @@ def test_dryrun_tool_defaults_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun_multihost.main(["--num-processes", "1", "--process-id", "0"])
+
+
+def test_training_dryrun_tool_defaults_to_the_card():
+    """So does the training dryrun (``tools/dryrun_multichip.py``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from yolo_deepsort_tpu_torch.tools import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip.main(["--num-processes", "1", "--process-id", "0"])

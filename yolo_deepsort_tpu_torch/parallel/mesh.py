@@ -10,6 +10,11 @@ A mesh of one rank has no process group and its gathers are the identity.
 A mesh of several ranks needs an initialized process group: NCCL when the
 mesh's device is a CUDA card, gloo when it is the CPU. Every collective
 takes ``mesh.group`` explicitly.
+
+The training mesh (``TrainMesh``, the reference's ``Mesh(devices.reshape(dp,
+mp), ("dp", "mp"))``) lays its ranks out in the same order: rank ``dp_rank
+* mp + mp_rank``. Each axis has a group of its own, or None where it holds
+one rank; its collectives are in ``parallel/collectives.py``.
 """
 
 from __future__ import annotations
@@ -70,17 +75,31 @@ def make_stream_mesh(n_devices: Optional[int] = None, axis: str = "stream",
         if n_devices is not None and n_devices != size:
             raise ValueError(f"make_stream_mesh({n_devices}): the process "
                              f"group has {size} ranks")
+    device = _rank_device(device, rank)
+    _check_backend(group, device)
+    return StreamMesh(group=group, rank=rank, size=size, device=device)
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """``device`` resolved; None or ``"cuda"`` without an index is this
+    rank's card, ``cuda:{LOCAL_RANK}`` (else the rank modulo the host's
+    cards), and raises without one."""
     device = resolve_device(device)  # None: the card, raises without one
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get(
             "LOCAL_RANK", rank % torch.cuda.device_count())))
-    if group is not None:
-        backend = dist.get_backend(group)
-        if backend != _BACKEND.get(device.type):
-            raise ValueError(f"a stream mesh on {device} takes a "
-                             f"{_BACKEND.get(device.type)} process group, "
-                             f"not {backend}")
-    return StreamMesh(group=group, rank=rank, size=size, device=device)
+    return device
+
+
+def _check_backend(group, device: torch.device) -> None:
+    """A group on a card must be NCCL, one on the CPU gloo."""
+    if group is None:
+        return
+    backend = dist.get_backend(group)
+    if backend != _BACKEND.get(device.type):
+        raise ValueError(f"a mesh on {device} takes a "
+                         f"{_BACKEND.get(device.type)} process group, "
+                         f"not {backend}")
 
 
 def all_gather(mesh: StreamMesh, x: torch.Tensor,
@@ -96,3 +115,86 @@ def all_gather(mesh: StreamMesh, x: torch.Tensor,
                       device=x.device)
     dist.all_gather_into_tensor(out, x, group=mesh.group)
     return out if tiled else out.reshape(mesh.size, *x.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """The training mesh of this process: rank ``dp_rank * mp + mp_rank``
+    of ``dp * mp``, computing on ``device``. ``dp_group`` joins the ranks
+    of one mp index (other images, the same slice of the ReID head);
+    ``mp_group`` the ranks of one dp index (the same images, the other
+    slices). An axis of one rank has no group, unless it spans the whole
+    process group: a one-rank job's axes are that group, so its
+    collectives run for real."""
+
+    dp_group: Optional[dist.ProcessGroup]
+    mp_group: Optional[dist.ProcessGroup]
+    dp_rank: int
+    mp_rank: int
+    dp: int
+    mp: int
+    device: torch.device
+
+
+def make_train_mesh(dp: Optional[int] = None, mp: int = 1, device=None,
+                    group=None) -> TrainMesh:
+    """The ``dp`` x ``mp`` training mesh of this process.
+
+    * ``group`` given: the mesh spans that group; ``dp * mp`` must equal
+      its size (``dp`` None: its size over ``mp``).
+    * no ``group`` and ``dp * mp == 1``: a mesh of one rank with no group,
+      whatever process group may be initialized.
+    * no ``group`` otherwise: the default process group if one is
+      initialized; more than one rank with none raises (there is no quiet
+      fallback to fewer ranks).
+
+    ``device`` as in ``make_stream_mesh``: None is this rank's card and
+    raises without one; a group must use NCCL on a card and gloo on the
+    CPU."""
+    if mp < 1 or (dp is not None and dp < 1):
+        raise ValueError(f"make_train_mesh(dp={dp}, mp={mp}): axes hold at "
+                         "least one rank")
+    if group is None and dist.is_initialized() and (dp is None
+                                                    or dp * mp > 1):
+        group = dist.group.WORLD
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    if dp is None:
+        if world % mp:
+            raise ValueError(f"make_train_mesh(mp={mp}): mp does not divide "
+                             f"the {world} ranks")
+        dp = world // mp
+    if dp * mp != world:
+        if group is None:
+            raise ValueError(
+                f"make_train_mesh({dp}, {mp}): a mesh of more than one rank "
+                "needs an initialized torch.distributed process group (one "
+                "process per device)")
+        raise ValueError(f"make_train_mesh({dp}, {mp}): {dp * mp} ranks, but "
+                         f"the process group has {world}")
+    device = _rank_device(device, rank)
+    _check_backend(group, device)
+    dp_rank, mp_rank = divmod(rank, mp)
+    dp_group = mp_group = None
+    if group is not None:
+        ranks = dist.get_process_group_ranks(group)  # global, in group order
+        # new_group is a collective of the whole job: EVERY rank creates
+        # EVERY subgroup, in the same order, the ones it is not in included.
+        # A rank that skips one, or creates them in another order, deadlocks
+        # gloo (and NCCL) at the next collective.
+        if mp == world:
+            mp_group = group
+        elif mp > 1:
+            for d in range(dp):
+                g = dist.new_group([ranks[d * mp + m] for m in range(mp)])
+                if d == dp_rank:
+                    mp_group = g
+        if dp == world:
+            dp_group = group
+        elif dp > 1:
+            for m in range(mp):
+                g = dist.new_group([ranks[d * mp + m] for d in range(dp)])
+                if m == mp_rank:
+                    dp_group = g
+    return TrainMesh(dp_group=dp_group, mp_group=mp_group, dp_rank=dp_rank,
+                     mp_rank=mp_rank, dp=dp, mp=mp, device=device)

@@ -101,19 +101,23 @@ def global_id_handoff(mesh, s_loc: int, n_frames: int = 16):
             out_g.cpu().numpy(), emit.cpu().numpy())
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def rank_parser(doc: str) -> argparse.ArgumentParser:
+    """The arguments of one rank of a dryrun job: --coordinator,
+    --num-processes, --process-id and --device."""
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--coordinator", default="127.0.0.1:9345",
                     help="host:port of rank 0's store")
     ap.add_argument("--num-processes", type=int, default=2)
     ap.add_argument("--process-id", type=int, required=True)
-    ap.add_argument("--streams-per-rank", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda: the card over NCCL; cpu: gloo")
-    args = ap.parse_args(argv)
-    n, me, s_loc = args.num_processes, args.process_id, args.streams_per_rank
-    if n * s_loc < 2:
-        raise ValueError("the handoff needs at least two streams")
+    return ap
+
+
+def join(args) -> torch.device:
+    """Join the job as rank ``--process-id``: NCCL on the card ``cuda:{id %
+    cards}`` (raises without one) or gloo on the CPU. -> the device."""
+    n, me = args.num_processes, args.process_id
     if args.device == "cuda":
         resolve_device("cuda")  # raises without a card
         device = torch.device("cuda", me % torch.cuda.device_count())
@@ -124,6 +128,17 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
         dist.init_process_group("gloo", init_method=f"tcp://"
                                 f"{args.coordinator}", world_size=n, rank=me)
+    return device
+
+
+def main(argv=None) -> int:
+    ap = rank_parser(__doc__)
+    ap.add_argument("--streams-per-rank", type=int, default=4)
+    args = ap.parse_args(argv)
+    n, me, s_loc = args.num_processes, args.process_id, args.streams_per_rank
+    if n * s_loc < 2:
+        raise ValueError("the handoff needs at least two streams")
+    device = join(args)
     try:
         mesh = make_stream_mesh(n, device=device)
         outputs = sharded_tracking(mesh, s_loc)

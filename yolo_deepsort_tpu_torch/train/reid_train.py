@@ -21,7 +21,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import (
+    all_reduce_sum,
+    check_equal_shards,
+    copy_to_mp,
+    reduce_from_mp,
+    sum_grads,
+)
 from ..utils.checkpoint import tree_leaves
+from .sync_bn import batch_stats
 from .trees import full_f32
 
 BN_EPS = 1e-5
@@ -89,14 +97,14 @@ def _conv(x, w, stride, pad):
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
 
 
-def _bn(x, bn_params, stats, train: bool, dims=(0, 2, 3)):
-    """BatchNorm over ``dims`` (channels at dim 1). Returns (out,
-    new_stats)."""
+def _bn(x, bn_params, stats, train: bool, dims=(0, 2, 3), mesh=None):
+    """BatchNorm over ``dims`` (channels at dim 1), its batch statistics
+    over the mesh's dp ranks when given (``sync_bn.batch_stats``). Returns
+    (out, new_stats)."""
     shape = [1] * x.dim()
     shape[1] = -1
     if train:
-        mean = x.mean(dims)
-        var = (x - mean.reshape(shape)).square().mean(dims)
+        mean, var = batch_stats(x, dims, mesh)
         new_stats = {
             "mean": (1 - BN_UPDATE) * stats["mean"]
             + BN_UPDATE * mean.detach(),
@@ -112,16 +120,23 @@ def _bn(x, bn_params, stats, train: bool, dims=(0, 2, 3)):
 
 
 def reid_train_apply(params, stats, x, train: bool = True,
-                     features_only: bool = False):
+                     features_only: bool = False, mesh=None):
     """Forward with explicit BN. x (N, 128, 64, 3) NHWC. Returns (logits,
     new_stats); with ``features_only`` (L2-normed 512-d features,
-    new_stats) -- the reid=True head of the reference Net."""
+    new_stats) -- the reid=True head of the reference Net.
+
+    With a training ``mesh`` (``parallel/mesh.py``) ``x`` is this rank's dp
+    shard and every BN takes its batch statistics over the dp ranks. The
+    classifier head is this rank's mp slice (``trees.shard_train_tree``):
+    fc1 columns, fc1_b, the BN and its running stats, fc2 rows; ``feat``
+    enters it through ``copy_to_mp`` and the partial logits leave through
+    ``reduce_from_mp`` before the replicated fc2_b is added once."""
     new_stats: Dict = {"layers": []}
     x = x.to(params["stem"]["w"].dtype).permute(0, 3, 1, 2)
     out = _conv(x, params["stem"]["w"], 1, 1) \
         + params["stem"]["b"][:, None, None]
     out, new_stats["stem"] = _bn(out, params["stem"]["bn"], stats["stem"],
-                                 train)
+                                 train, mesh=mesh)
     out = F.max_pool2d(torch.relu(out), 3, 2, 1)
     for blocks, sblocks in zip(params["layers"], stats["layers"]):
         nblocks = []
@@ -130,12 +145,15 @@ def reid_train_apply(params, stats, x, train: bool = True,
             stride = 2 if (block["down"] is not None
                            and w1.shape[2] != w1.shape[3]) else 1
             y = _conv(out, w1, stride, 1)
-            y, s1 = _bn(y, block["conv1"]["bn"], sblock["conv1"], train)
+            y, s1 = _bn(y, block["conv1"]["bn"], sblock["conv1"], train,
+                        mesh=mesh)
             y = _conv(torch.relu(y), block["conv2"]["w"], 1, 1)
-            y, s2 = _bn(y, block["conv2"]["bn"], sblock["conv2"], train)
+            y, s2 = _bn(y, block["conv2"]["bn"], sblock["conv2"], train,
+                        mesh=mesh)
             if block["down"] is not None:
                 s = _conv(out, block["down"]["w"], stride, 0)
-                s, sd = _bn(s, block["down"]["bn"], sblock["down"], train)
+                s, sd = _bn(s, block["down"]["bn"], sblock["down"], train,
+                            mesh=mesh)
             else:
                 s, sd = out, None
             out = torch.relu(y + s)
@@ -148,25 +166,60 @@ def reid_train_apply(params, stats, x, train: bool = True,
         norm = feat.norm(dim=1, keepdim=True).clamp(min=1e-12)
         return feat / norm, new_stats
     c = params["classifier"]
-    h = feat @ c["fc1_w"] + c["fc1_b"]
+    mp_group = None if mesh is None else mesh.mp_group
+    h = copy_to_mp(feat, mp_group) @ c["fc1_w"] + c["fc1_b"]
     h, new_stats["classifier"] = _bn(h, c["bn"], stats["classifier"], train,
-                                     dims=(0,))
-    logits = torch.relu(h) @ c["fc2_w"] + c["fc2_b"]
+                                     dims=(0,), mesh=mesh)
+    logits = reduce_from_mp(torch.relu(h) @ c["fc2_w"], mp_group) \
+        + c["fc2_b"]
     return logits, new_stats
 
 
 def make_train_step(lr: float = 0.1, momentum: float = 0.9,
-                    weight_decay: float = 5e-4):
+                    weight_decay: float = 5e-4, mesh=None):
     """SGD(momentum, weight_decay) + cross-entropy, as deep/train.py.
     Returns (init, train_step): ``init(params)`` -> the optimizer over the
     params' tensors (optax's ``chain(add_decayed_weights(wd), sgd(lr,
     momentum))`` is ``torch.optim.SGD(momentum, weight_decay=wd,
     dampening=0)``); ``train_step(params, opt, stats, images, labels)`` ->
-    (new_stats, loss, acc), the params updated in place."""
+    (new_stats, loss, acc), the params updated in place.
+
+    With a training ``mesh`` (``parallel/mesh.py`` ``make_train_mesh``)
+    the step runs on ``mesh.device`` over this rank's dp shard of images
+    and labels (rows ``dp_rank * B_loc ...``, every rank the same B_loc)
+    and this rank's params and stats (``trees.shard_train_tree``): BN
+    statistics over the dp ranks, the head sharded over mp, the
+    cross-entropy this rank's sum over the global batch, every gradient
+    summed over the dp group before the update (so the replicated params
+    stay equal on every rank). The returned loss and accuracy are the
+    global batch's, on every rank."""
+    if mesh is not None and 256 % mesh.mp:
+        raise ValueError(f"mp={mesh.mp} does not divide the classifier's "
+                         "256 features")
 
     def init(params):
         return torch.optim.SGD(tree_leaves(params), lr=lr, momentum=momentum,
                                dampening=0.0, weight_decay=weight_decay)
+
+    def sharded_step(params, opt, stats, images, labels):
+        dev = mesh.device
+        images = torch.as_tensor(images).to(dev, torch.float32)
+        labels = torch.as_tensor(labels).to(dev, torch.int64)
+        check_equal_shards(mesh.dp_group, images.shape[0], dev)
+        n = images.shape[0] * mesh.dp
+        with full_f32():
+            opt.zero_grad(set_to_none=True)
+            logits, new_stats = reid_train_apply(params, stats, images,
+                                                 train=True, mesh=mesh)
+            logp = torch.log_softmax(logits, dim=1)
+            loss = -logp.gather(1, labels[:, None]).sum() / n
+            loss.backward()
+            sum_grads(tree_leaves(params), mesh.dp_group)
+            opt.step()
+        correct = (logits.detach().argmax(1) == labels).float().sum() / n
+        loss, acc = all_reduce_sum(torch.stack([loss.detach(), correct]),
+                                   mesh.dp_group)
+        return new_stats, loss, acc
 
     def train_step(params, opt, stats, images, labels):
         dev = tree_leaves(params)[0].device
@@ -183,4 +236,4 @@ def make_train_step(lr: float = 0.1, momentum: float = 0.9,
         acc = (logits.detach().argmax(1) == labels).float().mean()
         return new_stats, loss.detach(), acc
 
-    return init, train_step
+    return init, (train_step if mesh is None else sharded_step)

@@ -31,7 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from ..models.darknet import _activate, _resolve, conv_layer_shapes
+from ..parallel.collectives import (
+    all_reduce_sum,
+    check_equal_shards,
+    sum_grads,
+)
 from ..utils.checkpoint import tree_leaves
+from .sync_bn import batch_stats
 from .trees import full_f32, to_numpy, to_torch
 
 BN_EPS = 1e-5
@@ -145,7 +151,7 @@ def train_params_to_raw(params, stats, module_defs):
     return raw
 
 
-def make_forward_train(plan, bn_update: float = 0.01):
+def make_forward_train(plan, bn_update: float = 0.01, mesh=None):
     """Train-mode forward over raw/unfolded params: forward_train(params,
     stats, x (N, S, S, 3) NHWC) -> (raw yolo maps NHWC, updated BN stats).
     BN takes the batch statistics with the biased variance (eps 1e-5) and
@@ -153,7 +159,9 @@ def make_forward_train(plan, bn_update: float = 0.01):
     (1 - bn_update) * running + bn_update * batch, detached --
     ``nn.BatchNorm2d``'s running update takes the unbiased variance, so it
     is not used. ``bn_update=1.0`` makes the returned stats the exact batch
-    statistics (BN-consistent random weights are made that way)."""
+    statistics (BN-consistent random weights are made that way). With a
+    training ``mesh`` the batch statistics are the dp ranks' together
+    (``sync_bn.batch_stats``)."""
     defs = plan.defs()
 
     def forward_train(params, stats, x):
@@ -171,8 +179,7 @@ def make_forward_train(plan, bn_update: float = 0.01):
                 out = F.conv2d(prev, p["w"].permute(3, 2, 0, 1),
                                stride=stride, padding=pad)
                 if "gamma" in p:
-                    mean = out.mean((0, 2, 3))
-                    var = (out - mean[:, None, None]).square().mean((0, 2, 3))
+                    mean, var = batch_stats(out, (0, 2, 3), mesh)
                     new_stats[i] = {
                         "mean": (1 - bn_update) * stats[i]["mean"]
                         + bn_update * mean.detach(),
@@ -220,16 +227,53 @@ def make_forward_train(plan, bn_update: float = 0.01):
 
 
 def make_detection_train_step(plan, bn_update: float = 0.01,
-                              box_loss: str = "mse"):
+                              box_loss: str = "mse", mesh=None):
     """train_step(params, opt, stats, images, targets, tmask) -> (stats,
     loss, metrics): one update of the trainable tensors of ``params`` in
     place (``opt``: ``build_optimizer``'s, or any torch optimizer over the
     same tensors), the BN stats updated over the unchanged ones. Inputs are
     tensors (or numpy arrays) on any device; the step runs on the params'
-    device, in float32 without TF32."""
+    device, in float32 without TF32.
+
+    With a training ``mesh`` (``parallel/mesh.py``, dp only) the step runs
+    on ``mesh.device``. ``images`` is this rank's dp shard (rows
+    ``dp_rank * B_loc ...``, every rank the same B_loc); ``targets`` and
+    ``tmask`` are the WHOLE batch's, on every rank: the rank keeps the rows
+    of its images, shifted to its own indices, in their order (so the later
+    of two targets in one cell still wins). BN statistics and every masked
+    mean's count are the dp ranks' together, every gradient is summed over
+    the dp group before the update, and the loss and metrics returned are
+    the global batch's, on every rank."""
     from .yolo_loss import yolo_loss
 
-    forward_train = make_forward_train(plan, bn_update=bn_update)
+    if mesh is not None and mesh.mp != 1:
+        raise ValueError(f"the detector shards over dp only, not mp={mesh.mp}")
+    forward_train = make_forward_train(plan, bn_update=bn_update, mesh=mesh)
+
+    def sharded_step(params, opt, stats, images, targets, tmask):
+        dev = mesh.device
+        images = torch.as_tensor(images).to(dev, torch.float32)
+        targets = torch.as_tensor(targets).to(dev, torch.float32)
+        tmask = torch.as_tensor(tmask).to(dev, torch.bool)
+        n = images.shape[0]
+        check_equal_shards(mesh.dp_group, n, dev)
+        first = mesh.dp_rank * n
+        mine = tmask & (targets[:, 0] >= first) & (targets[:, 0] < first + n)
+        targets = torch.cat([targets[:, :1] - first, targets[:, 1:]], 1)
+        with full_f32():
+            opt.zero_grad()
+            raw_maps, new_stats = forward_train(params, stats, images)
+            loss, metrics = yolo_loss(plan, raw_maps, targets, mine,
+                                      box_loss=box_loss, mesh=mesh)
+            loss.backward()
+            sum_grads(tree_leaves(params), mesh.dp_group)
+            opt.step()
+        names = list(metrics)
+        total = all_reduce_sum(torch.stack(
+            [loss.detach()] + [metrics[k].detach() for k in names]),
+            mesh.dp_group)
+        return ({**stats, **new_stats}, total[0],
+                dict(zip(names, total[1:])))
 
     def train_step(params, opt, stats, images, targets, tmask):
         dev = tree_leaves(params)[0].device
@@ -247,7 +291,7 @@ def make_detection_train_step(plan, bn_update: float = 0.01,
         return (stats, loss.detach(),
                 {k: v.detach() for k, v in metrics.items()})
 
-    return train_step
+    return train_step if mesh is None else sharded_step
 
 
 def main(argv=None) -> None:

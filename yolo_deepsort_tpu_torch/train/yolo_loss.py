@@ -17,6 +17,12 @@ last. The rule here is the oracle's: the LAST valid target in row order
 sets the cell's box targets (tx, ty, tw, th and CIoU's tgw, tgh); the
 object mask and the class targets take every target (the class vector gets
 a 1 at each target's class).
+
+Over a training mesh (``parallel/mesh.py``) each rank holds its dp shard
+of the batch, and every masked mean takes the GLOBAL count of its cells
+(all-reduced over the dp group, no gradient) under this rank's own
+numerator: the ranks' terms sum to the reference's global masked means,
+and each rank backpropagates its share.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+
+from ..parallel.collectives import all_reduce_sum
 
 OBJ_SCALE = 1.0
 NOOBJ_SCALE = 100.0
@@ -35,9 +43,11 @@ def _bce(pred, tgt, eps=1e-12):
     return -(tgt * torch.log(pred) + (1 - tgt) * torch.log(1 - pred))
 
 
-def _masked_mean(values, mask):
+def _masked_mean(values, mask, n=None):
+    """sum(values * mask) / n, 0 where n is 0; ``n`` None: mask.sum()."""
     s = (values * mask).sum()
-    n = mask.sum()
+    if n is None:
+        n = mask.sum()
     return torch.where(n > 0, s / n.clamp(min=1), torch.zeros_like(s))
 
 
@@ -53,9 +63,12 @@ def yolo_head_loss(raw_nhwc: torch.Tensor, targets: torch.Tensor,
                    target_mask: torch.Tensor,
                    anchors_px: Sequence[Tuple[float, float]],
                    num_classes: int, img_dim: int,
-                   ignore_thres: float = 0.5, box_loss: str = "mse"):
+                   ignore_thres: float = 0.5, box_loss: str = "mse",
+                   mesh=None):
     """Loss of one head: ``raw_nhwc`` (B, G, G, A*(5+C)) raw map, targets
-    (T, 6), target_mask (T,) bool. Returns (total, {term: value})."""
+    (T, 6), target_mask (T,) bool. Returns (total, {term: value}). With a
+    training ``mesh``, this rank's share: its numerators over the dp
+    group's global counts."""
     nB, g, _, _ = raw_nhwc.shape
     nA, nC = len(anchors_px), num_classes
     dev = raw_nhwc.device
@@ -131,6 +144,10 @@ def yolo_head_loss(raw_nhwc: torch.Tensor, targets: torch.Tensor,
 
     obj_f = obj_mask.float()
     noobj_f = noobj_mask.float()
+    n_obj = n_noobj = None
+    if mesh is not None:
+        n_obj, n_noobj = all_reduce_sum(
+            torch.stack([obj_f.sum(), noobj_f.sum()]), mesh.dp_group)
     if box_loss == "ciou":
         # YOLOv4's Complete-IoU box regression (Zheng et al. 2020): IoU
         # term + normalized centre distance + aspect-consistency penalty
@@ -159,20 +176,20 @@ def yolo_head_loss(raw_nhwc: torch.Tensor, targets: torch.Tensor,
             torch.atan(tgw / (tgh + eps)) - torch.atan(pw / (ph + eps))) ** 2
         alpha = (vv / (1.0 - iou_b + vv + eps)).detach()  # stop_gradient
         ciou = iou_b - rho2 / c2 - alpha * vv
-        loss_box = _masked_mean(1.0 - ciou, obj_f)
+        loss_box = _masked_mean(1.0 - ciou, obj_f, n_obj)
         loss_x = loss_y = loss_w = loss_h = loss_box / 4.0  # metric split
     elif box_loss == "mse":
-        loss_x = _masked_mean((x - tx) ** 2, obj_f)
-        loss_y = _masked_mean((y - ty) ** 2, obj_f)
-        loss_w = _masked_mean((w - tw) ** 2, obj_f)
-        loss_h = _masked_mean((h - th) ** 2, obj_f)
+        loss_x = _masked_mean((x - tx) ** 2, obj_f, n_obj)
+        loss_y = _masked_mean((y - ty) ** 2, obj_f, n_obj)
+        loss_w = _masked_mean((w - tw) ** 2, obj_f, n_obj)
+        loss_h = _masked_mean((h - th) ** 2, obj_f, n_obj)
     else:
         raise ValueError(f"unknown box loss {box_loss!r}")
     bce_conf = _bce(conf, tconf)
-    loss_conf_obj = _masked_mean(bce_conf, obj_f)
-    loss_conf_noobj = _masked_mean(bce_conf, noobj_f)
+    loss_conf_obj = _masked_mean(bce_conf, obj_f, n_obj)
+    loss_conf_noobj = _masked_mean(bce_conf, noobj_f, n_noobj)
     # reference: BCE over the class vector averaged over obj cells and classes
-    loss_cls = _masked_mean(_bce(cls, tcls).mean(-1), obj_f)
+    loss_cls = _masked_mean(_bce(cls, tcls).mean(-1), obj_f, n_obj)
     loss_conf = OBJ_SCALE * loss_conf_obj + NOOBJ_SCALE * loss_conf_noobj
     total = loss_x + loss_y + loss_w + loss_h + loss_conf + loss_cls
     metrics = {"loss_x": loss_x, "loss_y": loss_y, "loss_w": loss_w,
@@ -181,17 +198,18 @@ def yolo_head_loss(raw_nhwc: torch.Tensor, targets: torch.Tensor,
 
 
 def yolo_loss(plan, raw_maps, targets, target_mask, ignore_thres: float = 0.5,
-              box_loss: str = "mse"):
+              box_loss: str = "mse", mesh=None):
     """Total loss over the heads of a network plan (the sum of the heads'
     losses). ``raw_maps``: the NHWC head maps of ``make_forward_train``.
     ``box_loss``: "mse" (the reference lineage) or "ciou" (the yolov4
-    paper's box regression)."""
+    paper's box regression). ``mesh``: a training mesh, whose dp ranks'
+    counts every masked mean takes (``yolo_head_loss``)."""
     total = 0.0
     metrics = {}
     for spec, raw in zip(plan.heads, raw_maps):
         t, m = yolo_head_loss(raw, targets, target_mask, spec.anchors,
                               spec.num_classes, plan.img_size, ignore_thres,
-                              box_loss=box_loss)
+                              box_loss=box_loss, mesh=mesh)
         total = total + t
         for k, v in m.items():
             metrics[k] = metrics.get(k, 0.0) + v
