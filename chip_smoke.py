@@ -210,6 +210,15 @@ which ends the run with a non-zero exit code when it fails:
    arithmetic is held on the CPU over gloo
    (``tests/test_torch_port_train_parallel.py``): NCCL refuses two ranks
    on one card.
+9c. the int8 gates and the serving soaks (``run_int8_gates``,
+   ``run_soaks``; the port's ``tools/``, all on the honest load of
+   ``tools/honest_load.py`` but the ReID gate): the ReID gate, the detector
+   gate and the trained detector gate at their defaults (verdicts printed
+   as measurements; kernel 8's resident embed equal to its plain version,
+   kernel 7's int8 route equal to the plain twin before NMS, their
+   launches counted), then ``tools/soak.py`` (yolov3-416 bf16, K 16, 8 x
+   1080p, SOAK_CHUNKS chunks) and ``tools/soak_multichip.py`` on one NCCL
+   rank: every invariant must hold, every kernel of their paths launch.
 
 Since the bf16 forwards round where the reference rounds, kernel 7 runs
 every conv of the bf16 detector and ReID net: the counted paths hold its
@@ -223,7 +232,9 @@ and read just after (the ``kernels`` line: ``launches`` from path 4,
 ``launches_k1_path``, ``launches_scanned_path`` from 4f -- its counted
 chunk of each tracker branch, every counter of the port read -- and
 ``launches_quality_gate`` from 8, likewise, ``launches_global_ids_path``
-from 7b's counted run). Prints frames/s and per-stage times,
+from 7b's counted run, ``launches_int8_gates_path`` from 9c's three
+gates, ``launches_soak_path`` and ``launches_soak_multichip_path`` from
+the soaks' timed loops). Prints frames/s and per-stage times,
 the facades' ms per call, a JSON line of per-kernel results, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -247,11 +258,6 @@ import tempfile
 import time
 
 import numpy as np
-
-# frame-pixel person heights and aspect the yolo head biases are aimed at
-# (the serving benchmark's box prior: what a trained head's biases encode)
-BOX_PRIOR_HEIGHTS = (120.0, 150.0, 185.0, 225.0, 270.0)
-BOX_PRIOR_ASPECT = 0.41
 
 STREAMS, FRAME_H, FRAME_W, K_FRAMES, CHUNKS = 8, 1080, 1920, 4, 6
 TARGET_DETS = 32
@@ -389,28 +395,6 @@ def roofline(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
     t_ops = ops / PEAK_OPS_PER_S[kind]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def plant_box_prior(raw, plan, frame_hw, heights=BOX_PRIOR_HEIGHTS,
-                    aspect=BOX_PRIOR_ASPECT):
-    """Aim each yolo head's tw/th biases at person-sized boxes: anchor a of
-    head g decodes boxes of height heights[(3g+a) % len] frame pixels and
-    width aspect * height; centres, objectness and classes stay live."""
-    size = plan.img_size
-    scale = size / float(max(frame_hw)) * (frame_hw[0] / 1080.0)
-    for g, head in enumerate(plan.heads):
-        layer = raw[head.module_index - 1]
-        layer["conv_weight"] = np.array(layer["conv_weight"])
-        layer["conv_bias"] = np.array(layer["conv_bias"])
-        per = 5 + head.num_classes
-        for a, (pw, ph) in enumerate(head.anchors):
-            h_t = heights[(3 * g + a) % len(heights)] * scale
-            cw, ch = a * per + 2, a * per + 3
-            layer["conv_weight"][cw] = 0.0
-            layer["conv_weight"][ch] = 0.0
-            layer["conv_bias"][cw] = np.log(aspect * h_t / pw)
-            layer["conv_bias"][ch] = np.log(h_t / ph)
-    return raw
 
 
 def card_line() -> str:
@@ -831,6 +815,7 @@ def _small_setup():
     from yolo_deepsort_tpu_torch.models.darknet import build_network
     from yolo_deepsort_tpu_torch.models.reid import random_reid_params
     from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch
+    from yolo_deepsort_tpu_torch.tools.honest_load import plant_box_prior
     from yolo_deepsort_tpu_torch.weights import (
         darknet_from_raw,
         load_darknet_weights,
@@ -1663,6 +1648,7 @@ def main_path_setup(dev):
         BucketedScannedStep,
         init_stream_states,
     )
+    from yolo_deepsort_tpu_torch.tools.honest_load import plant_box_prior
     from yolo_deepsort_tpu_torch.weights import (
         darknet_from_raw,
         load_darknet_weights,
@@ -2425,6 +2411,7 @@ def check_small_resblock(dev):
         init_stream_states,
         make_batched_step,
     )
+    from yolo_deepsort_tpu_torch.tools.honest_load import plant_box_prior
     from yolo_deepsort_tpu_torch.weights import (
         darknet_from_raw,
         load_darknet_weights,
@@ -3514,6 +3501,7 @@ def facade_model(dev, tmp_dir):
     from specs.weights_np import random_darknet_weights
     from yolo_deepsort_tpu_torch import api
     from yolo_deepsort_tpu_torch.ops import letterbox_kernel
+    from yolo_deepsort_tpu_torch.tools.honest_load import plant_box_prior
     from yolo_deepsort_tpu_torch.weights import (
         load_darknet_weights,
         save_darknet_weights,
@@ -4661,51 +4649,123 @@ random=1
 """  # the JAX CLI tests' tiny net (tests/test_yolo_cli.py TINY_CFG)
 
 
-MOT_HW = (1080, 1920)
+SOAK_CHUNKS = 20  # each soak's chunks in the smoke (the tools' default: 100)
 
 
-def _port_counters():
-    """{kernel name in the ``kernels`` line: (module, counter)}: every
-    launch counter of the port."""
-    from yolo_deepsort_tpu_torch.ops import (
-        assignment_kernel,
-        conv_int8_kernel,
-        conv_kernel,
-        crops_kernel,
-        letterbox_kernel,
-        resblock_kernel,
+def run_int8_gates():
+    """The three int8 accuracy gates at their defaults through their
+    ``run`` (``tools/int8_gate.py``: 512-d ReID, 32 ids, 300 steps;
+    ``tools/int8_detect_gate.py``: yolov3-416 on the honest load, 4 x
+    1080p; ``tools/int8_gate_trained.py``: yolov3-tiny-320, 300 steps),
+    each counted (``_counted``). The gates' verdicts are measurements,
+    printed as they come; what is asserted is the routes: kernel 8's
+    resident embed equal to its plain version (the two records' rank-1 and
+    cosine too), 15 K8 launches a resident embed call (two calls), and
+    kernel 7's int8 route equal to the plain twin on the decoded tensor
+    before NMS, with K7 launched once a conv on the kernel route and once an
+    unpackaged conv on the twin. -> {kernel: launches of all three}."""
+    from yolo_deepsort_tpu_torch.tools import (
+        int8_detect_gate,
+        int8_gate,
+        int8_gate_trained,
     )
-    from yolo_deepsort_tpu_torch.tools import int8_probe
-    from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
-    return {"letterbox": (letterbox_kernel, "launches"),
-            "crops": (crops_kernel, "launches"),
-            "crops_interleaved": (crops_kernel, "launches_interleaved"),
-            "crops_dense": (crops_kernel, "launches_dense"),
-            "tracker": (tracker_kernel, "launches"),
-            "jv_cascade": (assignment_kernel, "cascade_launches"),
-            "jv_two_stage": (assignment_kernel, "two_stage_launches"),
-            "conv": (conv_kernel, "launches"),
-            "conv_int8": (conv_int8_kernel, "launches"),
-            "resblock": (resblock_kernel, "launches"),
-            "matmul_probe": (int8_probe, "launches")}
+    launched = {}
+    for name, mod in (("int8_gate", int8_gate),
+                      ("int8_detect_gate", int8_detect_gate),
+                      ("int8_gate_trained", int8_gate_trained)):
+        t0 = time.perf_counter()
+        rec, launches = _counted(lambda: mod.run([]))
+        print(f"gate {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(rec)}", flush=True)
+        for k, n in launches.items():
+            launched[k] = launched.get(k, 0) + n
+        if name == "int8_gate":
+            if not (rec["int8_res_kernel_vs_plain_max_abs"] == 0
+                    and rec["rank1_int8_res"] == rec["rank1_int8_res_plain"]
+                    and rec["cos_int8_res_vs_f32"]
+                    == rec["cos_int8_res_plain_vs_f32"]):
+                raise AssertionError("ReID gate: kernel 8's resident embed "
+                                     "differs from its plain version")
+            if launches["conv_int8"] != 2 * N_INT8_CONVS:
+                raise AssertionError(f"ReID gate: {launches['conv_int8']} K8 "
+                                     f"launches in 2 resident embed calls")
+            continue
+        if rec.get("error"):
+            raise AssertionError(f"{name}: {rec['error']}")
+        if rec["decoded_kernel_vs_plain_max_abs"] != 0:
+            raise AssertionError(f"{name}: kernel 7's int8 route differs "
+                                 "from the plain twin before NMS by "
+                                 f"{rec['decoded_kernel_vs_plain_max_abs']}")
+        if (rec["k7_launches_kernel_route"], rec["k7_launches_plain_twin"]) \
+                != (rec["convs"], rec["convs"] - rec["int8_layers"]):
+            raise AssertionError(f"{name}: K7 launches {rec}")
+    return launched
+
+
+def run_soaks():
+    """``tools/soak.py`` at its defaults but SOAK_CHUNKS chunks (yolov3-416
+    bf16, K 16, 8 x 1080p, the honest load), then ``tools/
+    soak_multichip.py`` on one NCCL rank (its defaults, yolov3-tiny-160 at
+    256 x 320, K 4, SOAK_CHUNKS chunks). Every invariant must
+    hold; per chunk of the soak K1 1, K2 1 (1080 % 8 == 0 and 1920 % 128 ==
+    0: the windowed crops), K3 16, K7 95 and one stats readback; per step
+    of the multichip soak K1 1, dense crops 1, K3 1, K7 33. The counts are
+    the tools' own (their counters set to 0 just before their timed loops).
+    -> {tool: record}."""
+    from yolo_deepsort_tpu_torch.tools import soak, soak_multichip
+
+    recs = {}
+    t0 = time.perf_counter()
+    rec = soak.run(["--chunks", str(SOAK_CHUNKS)])
+    print(f"soak ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
+          flush=True)
+    n, k = SOAK_CHUNKS, 16
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n)
+    if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
+        raise AssertionError(f"soak: failures {rec['failures']}, launches "
+                             f"{rec['launches']} (want {want}), readbacks "
+                             f"{rec['stats_readbacks']}")
+    recs["soak"] = rec
+    t0 = time.perf_counter()
+    rec = soak_multichip.run([
+        "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+        "--process-id", "0", "--chunks", str(SOAK_CHUNKS)])
+    print(f"soak_multichip on one NCCL rank ({time.perf_counter() - t0:.1f}"
+          f" s): {json.dumps(rec)}", flush=True)
+    steps = 4 * SOAK_CHUNKS
+    want = _only(letterbox=steps, crops_dense=steps, tracker=steps,
+                 conv=33 * steps)
+    if (not rec["ok"] or rec["backend"] != "nccl"
+            or rec["launches"] != want):
+        raise AssertionError(f"soak_multichip: failures {rec['failures']}, "
+                             f"backend {rec['backend']}, launches "
+                             f"{rec['launches']} (want {want})")
+    recs["soak_multichip"] = rec
+    return recs
+
+MOT_HW = (1080, 1920)
 
 
 def _counted(run):
     """run() with every launch counter of the port set to 0 just before it:
     (its result, {kernel name: launches}), every kernel read."""
-    counters = _port_counters()
-    for m, attr in counters.values():
-        setattr(m, attr, 0)
+    from yolo_deepsort_tpu_torch.kernels.launches import (
+        read_launches,
+        zero_launches,
+    )
+
+    zero_launches()
     out = run()
-    return out, {name: getattr(m, attr)
-                 for name, (m, attr) in counters.items()}
+    return out, read_launches()
 
 
 def _only(**launched):
     """{kernel name: launches}: the given kernels' counts, every other
-    kernel of ``_port_counters`` 0."""
-    return {**{name: 0 for name in _port_counters()}, **launched}
+    kernel of the port 0."""
+    from yolo_deepsort_tpu_torch.kernels.launches import LAUNCH_COUNTERS
+
+    return {**{name: 0 for name in LAUNCH_COUNTERS}, **launched}
 
 
 def _dense_calls(run):
@@ -5349,6 +5409,10 @@ def main() -> int:
     mark("ReID training")
     parallel, dryrun_lines = run_parallel_training(dev)
     mark("training meshes")
+    gate_launches = run_int8_gates()
+    mark("int8 gates")
+    soaks = run_soaks()
+    mark("soaks")
     for name, rec, shape, cli in (
             ("YOLO detection (yolov3-416, full width)", train_yolo,
              f"batch {YOLO_TRAIN_BATCH} x 416 x 416", "exported"),
@@ -5369,7 +5433,7 @@ def main() -> int:
     # the scanned path's counts: its two counted chunks, one per tracker
     # branch, every counter of the port read
     scanned = {name: sum(b[name] for b in scan_launches.values())
-               for name in _port_counters()}
+               for name in _only()}
     src = "yolo_deepsort_tpu_torch/csrc/"
     meta = {
         "letterbox": ("letterbox.cu", "yolo_deepsort_tpu/ops/pallas_letterbox.py:109"),
@@ -5410,6 +5474,10 @@ def main() -> int:
         entry["launches_scanned_path"] = scanned[entry["name"]]
         entry["launches_quality_gate"] = quality_launches[entry["name"]]
         entry["launches_global_ids_path"] = gid_launches[entry["name"]]
+        entry["launches_int8_gates_path"] = gate_launches[entry["name"]]
+        entry["launches_soak_path"] = soaks["soak"]["launches"][entry["name"]]
+        entry["launches_soak_multichip_path"] = \
+            soaks["soak_multichip"]["launches"][entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")

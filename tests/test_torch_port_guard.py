@@ -27,7 +27,10 @@ missing = {"yolo_deepsort_tpu_torch." + m
                      "train.trees", "models.layers", "train.sync_bn",
                      "parallel.mesh", "parallel.collectives",
                      "tools.dryrun_multihost", "tools.dryrun_multichip",
-                     "tools.train_mesh_clocks")} - set(names)
+                     "tools.train_mesh_clocks", "tools.honest_load",
+                     "tools.int8_gate", "tools.int8_detect_gate",
+                     "tools.int8_gate_trained", "tools.soak",
+                     "tools.soak_multichip", "kernels.launches")} - set(names)
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
@@ -336,3 +339,24 @@ def test_training_dryrun_tool_defaults_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun_multichip.main(["--num-processes", "1", "--process-id", "0"])
+
+
+@pytest.mark.parametrize("tool", ["int8_gate", "int8_detect_gate",
+                                  "int8_gate_trained", "soak",
+                                  "soak_multichip", "honest_load"])
+def test_gate_and_soak_tools_default_to_the_card(tool):
+    """The gates and soaks take ``--device cuda`` by default (the honest
+    load ``device=None``): without a card they raise before any work, and
+    no route falls back to the plain versions quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    mod = importlib.import_module(f"yolo_deepsort_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if tool == "honest_load":
+            mod.bn_weights_and_frames("yolov3-tiny", 64, 1, 1, (64, 64), 4)
+        elif tool == "soak_multichip":
+            mod.main(["--num-processes", "1", "--process-id", "0"])
+        else:
+            mod.main([])

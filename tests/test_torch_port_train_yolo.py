@@ -120,6 +120,28 @@ def test_yolo_loss_matches_jax_and_oracle(case, box_loss):
         assert float(m_t["loss_x"]) > 0
 
 
+@pytest.mark.parametrize("logit", [12.0, 24.35])
+def test_saturated_objectness_matches_jax(logit):
+    """One objectness logit set to ``logit`` in a cell with no target.
+    Below ~16.6 the sigmoid stays under 1.0 in f32 and both losses are
+    finite and agree (rtol 1e-5). Above it the sigmoid rounds to 1.0, the
+    BCE's clamp to 1 - 1e-12 is 1.0 in f32 too, and both losses are not
+    finite: the port keeps the reference's loss there as well."""
+    raw, t, mask, nC = _loss_case(1)
+    b, gx, gy = int(t[0, 0]), int(t[0, 2] * 8), int(t[0, 3] * 8)
+    cell = (1 - b, gy, gx)  # the other image: no target in it
+    raw[cell + (4,)] = logit
+    total_t, _ = yolo_head_loss(torch.from_numpy(raw), torch.from_numpy(t),
+                                torch.from_numpy(mask), ANCHORS, nC, 128)
+    total_j, _ = _j_head_loss(jnp.asarray(raw), jnp.asarray(t),
+                              jnp.asarray(mask), ANCHORS, nC, 128)
+    finite = logit < 16.6
+    assert bool(torch.isfinite(total_t)) == finite
+    assert bool(jnp.isfinite(total_j)) == finite
+    if finite:
+        np.testing.assert_allclose(float(total_t), float(total_j), rtol=1e-5)
+
+
 def test_yolo_loss_drops_what_the_reference_drops():
     """Padded rows and rows whose batch index lies outside the batch write
     nothing (the reference's out-of-bounds drop): the loss equals that of

@@ -21,3 +21,8 @@ def resolve_device(device=None, use_cuda: bool = True) -> torch.device:
                            "is available (pass device=\"cpu\" to run on the "
                            "CPU)")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or ``cpu``."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -16,6 +16,8 @@ together as numpy arrays, the tree the JAX package holds.
 device (cuDNN takes TF32 for f32 convs by default), so a training step on
 the card can be held against the same step on the CPU up to the order of
 the sums. It must cover the backward pass as well as the forward.
+``deterministic_convs`` scopes cuDNN's deterministic algorithms, so two
+trainings from one seed on the card give one result.
 """
 
 from __future__ import annotations
@@ -125,3 +127,16 @@ def full_f32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = was
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms while the block runs: its default
+    weight-gradient algorithms may sum in an order that changes from run to
+    run, so two trainings from one seed on the card would part."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
