@@ -219,6 +219,23 @@ which ends the run with a non-zero exit code when it fails:
    launches counted), then ``tools/soak.py`` (yolov3-416 bf16, K 16, 8 x
    1080p, SOAK_CHUNKS chunks) and ``tools/soak_multichip.py`` on one NCCL
    rank: every invariant must hold, every kernel of their paths launch.
+9d. the tools (``run_tools``): (a) ``tools/verify_weights.py`` ``verify``
+   at yolov3-416, batch 1, float32 and the bfloat16 module (kernel 7 on all
+   75 convs), against the numpy oracle on a well-conditioned random
+   ``.weights`` (float32 within the tool's default threshold, 1e-2, or the
+   run fails) and on random raw params (read only: there the deep
+   activations grow until float32 rounding alone passes the threshold and
+   the yolo decode overflows, as on the reference's tool); one JSON line
+   each with the worst layers; (b) ``tools/parity_real.py --standins`` in a
+   subprocess on the card: ``ok`` or the run fails, its report's rows
+   printed; (c) ``ImageDetector(interp="nearest")`` and ``"bilinear"``
+   (kernel 1) on one 1080p noise frame, yolov3-416 float32 on (a)'s
+   well-conditioned weights, at a threshold midway between the CPU's 32nd
+   and 33rd objectness: the same set of rows and classes as the same
+   detector on the CPU (rows of near-equal score may sort in another
+   order), boxes within TOL_TOOLS_BOXES px and scores within
+   TOL_TOOLS_SCORES; launches: kernel 7 75 per bf16 forward of (a), kernel
+   1 once in (c)'s bilinear detect, nothing else.
 
 Since the bf16 forwards round where the reference rounds, kernel 7 runs
 every conv of the bf16 detector and ReID net: the counted paths hold its
@@ -234,7 +251,7 @@ chunk of each tracker branch, every counter of the port read -- and
 ``launches_quality_gate`` from 8, likewise, ``launches_global_ids_path``
 from 7b's counted run, ``launches_int8_gates_path`` from 9c's three
 gates, ``launches_soak_path`` and ``launches_soak_multichip_path`` from
-the soaks' timed loops). Prints frames/s and per-stage times,
+the soaks' timed loops, ``launches_tools_path`` from 9d's (a) and (c)). Prints frames/s and per-stage times,
 the facades' ms per call, a JSON line of per-kernel results, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -4744,6 +4761,150 @@ def run_soaks():
     recs["soak_multichip"] = rec
     return recs
 
+# the tools phase (``run_tools``): the nearest and bilinear
+# ``ImageDetector`` rows on the card against the CPU's (float32, TF32 off:
+# the convs sum in another order), frame pixels and scores (measured
+# 7.3e-4 px and 5.4e-7)
+TOL_TOOLS_BOXES, TOL_TOOLS_SCORES = 1e-2, 1e-5
+
+
+def run_tools(dev, tmp_dir):
+    """The port's verify_weights, parity_real and the facade's nearest
+    letterbox on the card (9d in the module docstring). -> {kernel:
+    launches of (a) and (c)}."""
+    import os
+
+    import torch
+
+    from specs.weights_np import random_darknet_weights
+    from yolo_deepsort_tpu_torch import api
+    from yolo_deepsort_tpu_torch.cfg import parse_model_config
+    from yolo_deepsort_tpu_torch.tools import verify_weights as VW
+    from yolo_deepsort_tpu_torch.train.trees import full_f32
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launched = {}
+
+    def count(run):
+        out, launches = _counted(run)
+        for k, n in launches.items():
+            launched[k] = launched.get(k, 0) + n
+        return out, launches
+
+    # (a) the per-layer harness at yolov3-416, batch 1: gated on the
+    # well-conditioned weights; random raw params read only (there the
+    # deep activations grow until f32 rounding alone passes the threshold
+    # and the yolo exp() overflows, on the reference's tool as well)
+    cfg = os.path.join(repo, "config", "yolov3.cfg")
+    defs = [d for d in parse_model_config(cfg) if d["type"] != "net"]
+    wpath = os.path.join(tmp_dir, "yolov3-well-conditioned.weights")
+    with open(wpath, "wb") as f:
+        f.write(random_darknet_weights(defs, seed=0, well_conditioned=True))
+    for name, weights in (("well-conditioned", wpath), ("random raw", None)):
+        t0 = time.perf_counter()
+        tables, launches = count(lambda: VW.verify(
+            cfg, weights, img_size=416, batch=1, device=dev,
+            dtypes=("f32", "bf16"), log=lambda _: None))
+        rec = {"tool": "verify_weights", "cfg": "yolov3.cfg", "img_size": 416,
+               "batch": 1, "weights": name}
+        for dtype, rows in tables.items():
+            value, idx = VW.worst_of(rows)
+            rec.update({f"{dtype}_worst_layer": idx, f"{dtype}_max_abs": value,
+                        f"{dtype}_layers_over_threshold": sum(
+                            r["max_abs"] > VW.THRESHOLD
+                            for r in rows)})
+        rec.update(k7_launches=launches["conv"],
+                   secs=round(time.perf_counter() - t0, 2))
+        print(json.dumps(rec), flush=True)
+        if launches != _only(conv=75):
+            raise AssertionError(f"verify_weights {name}: launches {launches}"
+                                 " (want kernel 7 once a conv of the bf16 "
+                                 "forward)")
+        if (weights is not None
+                and rec["f32_max_abs"] > VW.THRESHOLD):
+            raise AssertionError(f"verify_weights: f32 layer "
+                                 f"{rec['f32_worst_layer']} off the oracle by "
+                                 f"{rec['f32_max_abs']}")
+
+    # (b) the runbook's stand-in flow, as a user runs it
+    t0 = time.perf_counter()
+    report = os.path.join(tmp_dir, "PARITY_REAL_torch.md")
+    r = subprocess.run(
+        [sys.executable, "-m", "yolo_deepsort_tpu_torch.tools.parity_real",
+         "--standins", "--out", report], capture_output=True, text=True,
+        cwd=repo, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if r.returncode == 0 and lines else None
+    if rec is None or not rec["ok"]:
+        raise AssertionError(f"parity_real --standins: rc {r.returncode}, "
+                             f"{lines[-1:]}\n{r.stderr[-2000:]}")
+    with open(report) as f:
+        table = [ln for ln in f.read().splitlines() if ln.startswith("| ")]
+    print(json.dumps({"tool": "parity_real --standins", "ok": rec["ok"],
+                      "failures": rec["failures"], "report": table[1:],
+                      "secs": round(time.perf_counter() - t0, 2)}),
+          flush=True)
+
+    # (c) ImageDetector's nearest letterbox (and kernel 1's bilinear one)
+    # on one 1080p noise frame, (a)'s well-conditioned weights (no box
+    # prior: its near-equal scores make NMS's order, and so its merges,
+    # turn on the last bits of the sums): the card's rows against the
+    # CPU's, as a set, at a threshold midway between the CPU's 32nd and
+    # 33rd objectness
+    t0 = time.perf_counter()
+    model = api.Darknet("yolov3", img_size=416, device=dev)
+    model.load_darknet_weights(wpath)
+    cpu_model = api.Darknet("yolov3", img_size=416, device="cpu")
+    cpu_model.load_darknet_weights(wpath)
+    frame = np.random.default_rng(3).integers(
+        0, 256, (FRAME_H, FRAME_W, 3), np.uint8)
+    from yolo_deepsort_tpu_torch.ops.letterbox import (
+        letterbox_batch,
+        letterbox_nearest_batch,
+    )
+
+    for interp, lbox, want_launches in (
+            ("nearest", letterbox_nearest_batch, _only()),
+            ("bilinear", letterbox_batch, _only(letterbox=1))):
+        with torch.no_grad():
+            obj = cpu_model(lbox(torch.from_numpy(frame[None]), 416))[0, :, 4]
+        top = torch.sort(obj, descending=True).values
+        thr = float(top[TARGET_DETS - 1] + top[TARGET_DETS]) / 2
+        with full_f32():
+            got, launches = count(lambda: api.ImageDetector(
+                model, conf_thres=thr, interp=interp).detect(frame))
+        want = api.ImageDetector(cpu_model, conf_thres=thr,
+                                 interp=interp).detect(frame)
+        box_err = score_err = None
+        if got.shape == want.shape and len(got):
+            # near-equal scores may sort in another order on the two
+            # devices: each card row against the CPU row nearest to it,
+            # one to one
+            near = np.abs(got[:, None, :4] - want[None, :, :4]).max(-1)
+            order = near.argmin(1)
+            if len(set(order.tolist())) == len(got):
+                want = want[order]
+                box_err = float(np.abs(got[:, :4] - want[:, :4]).max())
+                score_err = float(np.abs(got[:, 4:6] - want[:, 4:6]).max())
+        print(json.dumps({"tool": "ImageDetector", "interp": interp,
+                          "frame": [FRAME_H, FRAME_W], "threshold": thr,
+                          "rows": len(got), "rows_cpu": len(want),
+                          "box_max_abs_px": box_err,
+                          "score_max_abs": score_err, "launches": {
+                              k: n for k, n in launches.items() if n}}),
+              flush=True)
+        if (box_err is None or box_err > TOL_TOOLS_BOXES
+                or score_err > TOL_TOOLS_SCORES
+                or not np.array_equal(got[:, 6], want[:, 6])
+                or launches != want_launches):
+            raise AssertionError(f"ImageDetector interp={interp}: card rows "
+                                 f"differ from the CPU's or launches "
+                                 f"{launches}:\n{got}\n{want}")
+    print(f"tools: ImageDetector nearest and bilinear "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 MOT_HW = (1080, 1920)
 
 
@@ -5413,6 +5574,9 @@ def main() -> int:
     mark("int8 gates")
     soaks = run_soaks()
     mark("soaks")
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tool_launches = run_tools(dev, tmp_dir)
+    mark("tools")
     for name, rec, shape, cli in (
             ("YOLO detection (yolov3-416, full width)", train_yolo,
              f"batch {YOLO_TRAIN_BATCH} x 416 x 416", "exported"),
@@ -5478,6 +5642,7 @@ def main() -> int:
         entry["launches_soak_path"] = soaks["soak"]["launches"][entry["name"]]
         entry["launches_soak_multichip_path"] = \
             soaks["soak_multichip"]["launches"][entry["name"]]
+        entry["launches_tools_path"] = tool_launches[entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")

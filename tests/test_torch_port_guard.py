@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never imports jax or the JAX package (nor
-cv2, which the machine with the card lacks), chip_smoke.py refuses to run
+"""Guards of the PyTorch port: it never imports jax or the JAX package, nor
+cv2 or PIL at import time (only inside the functions that decode, encode
+or draw), chip_smoke.py refuses to run
 without a CUDA device, a kernel wrapper handed a non-CPU tensor launches its
 kernel or raises -- it never takes the plain version -- and a facade or a
 training CLI asked for a CUDA device that does not exist raises."""
@@ -30,7 +31,11 @@ missing = {"yolo_deepsort_tpu_torch." + m
                      "tools.train_mesh_clocks", "tools.honest_load",
                      "tools.int8_gate", "tools.int8_detect_gate",
                      "tools.int8_gate_trained", "tools.soak",
-                     "tools.soak_multichip", "kernels.launches")} - set(names)
+                     "tools.soak_multichip", "kernels.launches",
+                     "tools.verify_weights", "tools.parity_real",
+                     "examples.detect_image", "examples.detect_folder",
+                     "examples.track_video", "examples.track_multicamera",
+                     "examples.make_demo")} - set(names)
 assert not missing, missing
 for name in names:
     importlib.import_module(name)

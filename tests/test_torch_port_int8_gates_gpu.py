@@ -8,7 +8,13 @@
   yolov3-416, 2 x 1080p: decoded outputs exactly equal (kernel 7's int8
   mode equals its plain version, and every unpackaged conv runs kernel 7
   on both routes), kernel 7 launched once per conv on the kernel route and
-  once per unpackaged conv on the twin.
+  once per unpackaged conv on the twin;
+* F10's third reading: the trained gate's first two train steps at
+  yolov3-416, batch 8, on the card and on the CPU from the same state
+  (``port_first_steps``, which the CPU witness
+  ``test_torch_port_f10_witness.py`` runs beside the JAX step): step 0's
+  losses within ``TRAINED_LOSS_RTOL``, step 1 finite on both or on
+  neither; each device's record printed (``pytest -s``).
 
 The ``gpu`` tests skip without a CUDA device. This file imports no jax, so
 on the machine with the card:
@@ -17,10 +23,91 @@ on the machine with the card:
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
 import torch
+
+TRAINED_LOSS_RTOL = 1e-4  # as test_torch_port_int8_detect_gates.py
+
+
+def objectness_max(raw_maps, n_classes) -> float:
+    """Largest objectness logit over the YOLO heads' raw NHWC maps (3
+    anchors a head, objectness at channel 4 of each anchor's block); NaN
+    where a map holds a NaN."""
+    heads = []
+    for m in raw_maps:
+        m = np.asarray(m, np.float32)
+        heads.append(m.reshape(m.shape[:3] + (-1, 5 + n_classes))[..., 4].max())
+    return float(np.max(heads))
+
+
+def port_first_steps(device, model="yolov3", size=416, batch=8, lr=5e-4,
+                     seed=0, steps=2):
+    """The trained int8 gate's first ``steps`` train steps on ``device``,
+    from the state ``tools/int8_gate_trained.py`` ``train_detector`` builds
+    (``random_raw_params(seed)``, ``4 * batch`` scenes, ``ClippedAdam``,
+    its draw order, cuDNN-deterministic convs), with the largest
+    objectness logit read before each step and after the last. -> (every
+    step's loss, ``steps + 1`` logits)."""
+    from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
+    from yolo_deepsort_tpu_torch.models.darknet import build_network
+    from yolo_deepsort_tpu_torch.tools import int8_gate_trained as TTG
+    from yolo_deepsort_tpu_torch.train.trees import (
+        deterministic_convs,
+        full_f32,
+        to_torch,
+    )
+    from yolo_deepsort_tpu_torch.train.yolo_cli import (
+        make_detection_train_step,
+        make_forward_train,
+        raw_params_to_train,
+    )
+    from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+    from yolo_deepsort_tpu_torch.weights import random_raw_params
+
+    plan = build_network(ARCHITECTURES[model](img_size=size))
+    rng = np.random.default_rng(seed)
+    raw = random_raw_params(plan.defs(), seed=seed)
+    n_train = 4 * batch
+    scenes = [TTG.synth_scene(rng, size) for _ in range(n_train)]
+    # train_detector's loop, with a forward read before each step
+    params, stats = raw_params_to_train(raw, plan.defs())
+    params = to_torch(params, device, trainable=True)
+    stats = to_torch(stats, device)
+    opt = TTG.ClippedAdam(tree_leaves(params), lr, max_norm=5.0)
+    step = make_detection_train_step(plan)
+    forward = make_forward_train(plan)
+    imgs_all = np.stack([s[0] for s in scenes]).astype(np.float32) / 255.0
+    losses, logits = [], []
+
+    def read(imgs):
+        with torch.no_grad(), full_f32(), deterministic_convs():
+            maps, _ = forward(params, stats, torch.from_numpy(imgs).to(device))
+        return objectness_max([m.cpu().numpy() for m in maps],
+                              plan.num_classes)
+
+    for _ in range(steps):
+        idx = rng.choice(n_train, batch, replace=False)
+        imgs = imgs_all[idx]
+        targets, tmask = TTG.batch_targets([scenes[i][1] for i in idx])
+        logits.append(read(imgs))
+        with deterministic_convs():
+            stats, loss, _ = step(params, opt, stats, imgs, targets, tmask)
+        losses.append(float(loss))
+    logits.append(read(imgs))
+    return losses, logits
+
+
+def first_steps_record(side, losses, logits, **fields) -> dict:
+    """One printed JSON line of a ``port_first_steps``-shaped reading."""
+    rec = {"side": side, **fields, "losses": losses,
+           "objectness_max_per_step": logits[:-1],
+           "objectness_max_after_last_step": logits[-1],
+           "step1_loss_finite": bool(np.isfinite(losses[1]))}
+    print("F10_WITNESS " + json.dumps(rec), flush=True)
+    return rec
 
 
 @pytest.fixture
@@ -86,3 +173,17 @@ def test_detector_int8_route_equals_the_plain_twin(cuda_device):
                                     len(det16.convs) - len(pkg))
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_f10_first_steps_card_against_cpu(cuda_device):
+    """F10's third reading: the port's step on the card and on the CPU
+    from the same state at the gate's recipe (yolov3-416, batch 8, lr
+    5e-4), 2 steps."""
+    recs = {dev: first_steps_record(f"port-{dev}", *port_first_steps(dev),
+                                    device=str(dev))
+            for dev in (cuda_device, "cpu")}
+    card, cpu = recs[cuda_device], recs["cpu"]
+    np.testing.assert_allclose(card["losses"][0], cpu["losses"][0],
+                               rtol=TRAINED_LOSS_RTOL)
+    assert card["step1_loss_finite"] == cpu["step1_loss_finite"]

@@ -58,7 +58,7 @@ from .ops.crops import (
     crop_and_normalize,
     device_constant,
 )
-from .ops.letterbox import rescale_boxes
+from .ops.letterbox import letterbox_nearest_batch, rescale_boxes
 from .ops.letterbox_kernel import letterbox_batch_fused
 from .ops.nms import batched_nms, roi_nms_mask
 from .parallel.streams import (
@@ -204,14 +204,20 @@ class ImageDetector:
 
     ``detect`` returns (K, 7) float32 rows (x1, y1, x2, y2, obj_conf,
     cls_conf, cls_pred) in original image coordinates. Runs on the
-    model's device; ``half`` computes in bfloat16."""
+    model's device; ``half`` computes in bfloat16. ``interp`` is the
+    letterbox's resampling: "bilinear" is kernel 1 on the card, "nearest"
+    plain torch ops (the reference's own route for it)."""
 
     def __init__(self, model: Darknet,
                  class_names: Optional[Sequence[str]] = None,
                  conf_thres: float = 0.5, nms_thres: float = 0.4,
-                 max_dets: int = 64, half: bool = False,
-                 font_path: Optional[str] = None):
+                 max_dets: int = 64, interp: str = "bilinear",
+                 half: bool = False, font_path: Optional[str] = None):
+        if interp not in ("bilinear", "nearest"):
+            raise ValueError(f"interp must be 'bilinear' or 'nearest', not "
+                             f"{interp!r}")
         self.model = model
+        self.interp = interp
         self.font_path = font_path
         self.class_names = (list(class_names) if class_names
                             else list(COCO_NAMES))
@@ -226,7 +232,9 @@ class ImageDetector:
         h, w = img_rgb.shape[:2]
         cfg = self.cfg
         frame = _upload(img_rgb[None], self.model.device)
-        x = letterbox_batch_fused(frame, cfg.img_size, self.compute_dtype)
+        letterbox = (letterbox_batch_fused if self.interp == "bilinear"
+                     else letterbox_nearest_batch)
+        x = letterbox(frame, cfg.img_size, self.compute_dtype)
         dets = self.model.module_for(self.compute_dtype)(x)
         boxes7, mask = batched_nms(dets, cfg.conf_thres, cfg.nms_thres,
                                    cfg.max_boxes, cfg.max_dets)
@@ -290,11 +298,14 @@ class Extractor:
 
     Each crop is resized to 64x128 on the device -- bilinear, half-pixel
     centres, no antialias, rounded to uint8 like ``cv2.INTER_LINEAR`` --
-    then /255 and ImageNet-normalized."""
+    then /255 and ImageNet-normalized. ``max_batch`` is kept for the
+    reference's signature, where it caps the padding of its jit cache;
+    nothing is padded here, and padding does not change the rows."""
 
     def __init__(self, model_path: Optional[str] = None, use_cuda: bool = True,
-                 device=None):
+                 max_batch: int = 256, device=None):
         self.device = resolve_device(device, use_cuda)
+        self.max_batch = max_batch
         params = _reid_params(model_path)
         self.feat_dim = feat_dim_of(params)
         self.net = W.reid_from_params(params).to(self.device)

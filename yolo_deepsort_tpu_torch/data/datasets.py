@@ -31,11 +31,12 @@ import numpy as np
 from .letterbox_np import letterbox as letterbox_np
 
 
-def _load_image(path: str) -> np.ndarray:
+def load_rgb(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB, a writable array."""
     from PIL import Image
 
     with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
+        return np.array(im.convert("RGB"), np.uint8)
 
 
 class ImageFolder:
@@ -57,7 +58,7 @@ class ImageFolder:
 
     def __getitem__(self, index: int) -> Tuple[str, np.ndarray]:
         path = self.files[index % len(self.files)]
-        img = _load_image(path)
+        img = load_rgb(path)
         return path, letterbox_np(img, self.img_size).astype(np.float32)
 
     def __iter__(self):
@@ -107,7 +108,7 @@ class ListDataset:
         return len(self.img_files)
 
     def load_sample(self, index: int, size: int):
-        img = _load_image(self.img_files[index % len(self)])
+        img = load_rgb(self.img_files[index % len(self)])
         h, w = img.shape[:2]
         side = max(h, w)
         d = abs(h - w)

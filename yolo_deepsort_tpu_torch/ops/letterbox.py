@@ -3,8 +3,11 @@ yolo_deepsort_tpu/ops/letterbox.py).
 
 ``letterbox_batch`` is the plain PyTorch version of the letterbox kernel
 (``letterbox_kernel.py``): /255 -> pad to square with zeros -> bilinear
-resize with half-pixel centres and no antialias. Frame geometry is static,
-so the sampling taps and weights are computed in numpy once per call."""
+resize with half-pixel centres and no antialias. ``letterbox_nearest_batch``
+is the reference's ``interp="nearest"`` (the upstream ``F.interpolate``
+default, ``src = floor(dst * side / size)`` on the padded square), which
+the reference, too, leaves to plain ops. Frame geometry is static, so the
+sampling taps and weights are computed in numpy once per call."""
 
 from __future__ import annotations
 
@@ -52,6 +55,24 @@ def letterbox_batch(frames: torch.Tensor, size: int,
     top_row = r0[:, :, i0] * (1 - wx) + r0[:, :, i1] * wx
     bot_row = r1[:, :, i0] * (1 - wx) + r1[:, :, i1] * wx
     return ((top_row * (1 - wy) + bot_row * wy) / 255.0).to(out_dtype)
+
+
+def letterbox_nearest_batch(frames: torch.Tensor, size: int,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> (B, size, size, 3) in [0, 1], nearest: the
+    padded square's pixel ``floor(dst * side / size)`` for each output
+    pixel, times the float32 reciprocal of 255 (what XLA compiles the
+    reference's jitted ``/ 255.0`` to, so the two agree bit for bit), then
+    cast to ``out_dtype``."""
+    b, h, w, _ = frames.shape
+    top, bottom, left, right = _pad_amounts(h, w)
+    side = max(h, w)
+    img = torch.nn.functional.pad(frames, (0, 0, left, right, top, bottom))
+    src = np.minimum((np.arange(size) * (side / size)).astype(np.int64),
+                     side - 1)
+    src = torch.as_tensor(src, device=frames.device)
+    return (img[:, src][:, :, src].float() * (1 / 255)).to(out_dtype)
 
 
 def rescale_boxes(boxes_xyxy: torch.Tensor, current_dim: int, orig_h: int,
