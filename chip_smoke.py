@@ -185,7 +185,8 @@ which ends the run with a non-zero exit code when it fails:
    step with global ids off and on in alternated blocks (off, on, on,
    off, on, off, off, on), each stream's ring holding all its frames, and
    one more block off with the default ring of 8, where the producers
-   spin on full rings, with the card's name and power limit.
+   find their rings full and wait for pops (F9: they used to spin), with
+   the card's name and power limit.
 8. tracking quality (``run_tracking_quality``): 4 streams of the reference's
    synthetic MOT scene (``mot_scene``: 120 frames, 8 objects, seeds 0-3)
    through kernel 3 and kernel 5 on the card and ``tracker_step`` on the
@@ -236,6 +237,22 @@ which ends the run with a non-zero exit code when it fails:
    order), boxes within TOL_TOOLS_BOXES px and scores within
    TOL_TOOLS_SCORES; launches: kernel 7 75 per bf16 forward of (a), kernel
    1 once in (c)'s bilinear detect, nothing else.
+9e. decoded video (``run_video``; clips of ``tools/soak.py``
+   ``ensure_clips`` written with cv2 into a temp dir, the cuts from the
+   tools' defaults listed at VIDEO_CHUNKS): (a) ``tools/soak.py --ingest``
+   (yolov3-416 bf16, 8 x 1080p, K 16; looping cv2 decoders, the native
+   rings, two pinned chunk buffers, the upload and the step pipelined one
+   chunk deep): ``ok``, per chunk K1 1, K2 1, K3 16, K7 95 and one stats
+   readback, and every uploaded chunk, summed per frame and channel on the
+   card, equal to its clip's frames in order, looped, BGR turned RGB; (b)
+   ``tools/bench_video.py`` (one 1080p clip, chunk 16, through
+   ``VideoTracker.track``): the frames of a pass, and per chunk of its
+   timed pass K1 1, K2 1, K3 16, K7 95; (c) ``MultiStreamTracker`` with its
+   own cv2 decoders over (a)'s 8 clips, rings of 8: every frame of every
+   stream, one readback a step, ms per step; then F9's numbers on the
+   seeded load of phase 7, full rings of 8 against rings holding every
+   frame; (d) ``examples/track_video.py`` and ``track_multicamera.py``
+   with ``--device cuda`` through their ``main``.
 
 Since the bf16 forwards round where the reference rounds, kernel 7 runs
 every conv of the bf16 detector and ReID net: the counted paths hold its
@@ -251,7 +268,8 @@ chunk of each tracker branch, every counter of the port read -- and
 ``launches_quality_gate`` from 8, likewise, ``launches_global_ids_path``
 from 7b's counted run, ``launches_int8_gates_path`` from 9c's three
 gates, ``launches_soak_path`` and ``launches_soak_multichip_path`` from
-the soaks' timed loops, ``launches_tools_path`` from 9d's (a) and (c)). Prints frames/s and per-stage times,
+the soaks' timed loops, ``launches_tools_path`` from 9d's (a) and (c),
+``launches_video_path`` from the timed loops of 9e's (a) and (b)). Prints frames/s and per-stage times,
 the facades' ms per call, a JSON line of per-kernel results, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -2875,9 +2893,8 @@ def seeded_streams(model, frame, thr, counts, **kw):
         def _decoder(self, stream, path):  # a producer without a video file
             try:
                 for _ in range(int(path)):
-                    while not self.pool.push(stream, frame_bgr):
-                        if self._stop.is_set():
-                            return
+                    if not self._push(stream, frame_bgr):
+                        return
             finally:
                 self.pool.mark_finished(stream)
 
@@ -3255,17 +3272,17 @@ def gid_step_ms(model, frame, thr):
     """Part 4 of ``run_global_ids``, end to end: ``MultiStreamTracker`` ms
     per step (host clock between yields, the first GID_WARM_STEPS left
     out) with global ids off and on, in the alternated blocks of
-    GID_BLOCKS; -> {"off": [...], "on": [...], "spin": [...]}, each block's
+    GID_BLOCKS; -> {"off": [...], "on": [...], "full": [...]}, each block's
     median. Each stream's ring holds all of its frames, so the producers
-    push them and exit. The last block ("spin", global ids off) keeps the
-    default ring of 8: a producer that finds its ring full loops on
-    ``push`` and the GIL while the consumer steps."""
+    push them and exit. The last block ("full", global ids off) keeps the
+    default ring of 8, where a producer finds its ring full; it used to
+    loop on ``push`` and the GIL there (F9), and now waits for a pop."""
     import time as _time
 
     n = GID_WARM_STEPS + GID_TIMED_STEPS
-    res = {"off": [], "on": [], "spin": []}
+    res = {"off": [], "on": [], "full": []}
     for on, key, depth in ([(on, "on" if on else "off", n)
-                            for on in GID_BLOCKS] + [(False, "spin", 8)]):
+                            for on in GID_BLOCKS] + [(False, "full", 8)]):
         mst = seeded_streams(model, frame, thr, [n] * STREAMS,
                              ring_depth=depth, global_ids=on,
                              global_id_every=GID_EVERY)
@@ -3330,9 +3347,9 @@ def run_global_ids(dev, tmp_dir, card):
           f"yolov3-416 bf16, host clock, rings holding every frame, medians "
           f"of {GID_TIMED_STEPS} steps, blocks alternated): global ids "
           f"off {[round(v, 4) for v in ms['off']]}, on (every {GID_EVERY} "
-          f"steps) {[round(v, 4) for v in ms['on']]}; off with rings of 8, "
-          f"the producers spinning on full rings: "
-          f"{[round(v, 4) for v in ms['spin']]} ({card})", flush=True)
+          f"steps) {[round(v, 4) for v in ms['on']]}; off with full rings "
+          f"of 8, the producers waiting for pops: "
+          f"{[round(v, 4) for v in ms['full']]} ({card})", flush=True)
     return full["launches"]
 
 
@@ -4905,6 +4922,242 @@ def run_tools(dev, tmp_dir):
     return launched
 
 
+# phase 9e (``run_video``): decoded video on the card, cut from the tools'
+# defaults as follows: the ingest soak runs VIDEO_CHUNKS chunks (default
+# 100) of K 16 on clips of VIDEO_CLIP_FRAMES frames (300) -- shorter than
+# the 176 frames a stream it consumes, so its decoders loop -- after a
+# VIDEO_PROBE_SECS decode probe (6 s); bench_video measures
+# VIDEO_BENCH_FRAMES frames a pass (256); the F9 blocks feed
+# F9_FRAMES seeded frames a stream into rings of 8 (full) or of F9_FRAMES
+# (holding every frame), alternated
+VIDEO_CHUNKS, VIDEO_CLIP_FRAMES, VIDEO_PROBE_SECS = 10, 64, 2.0
+VIDEO_K, VIDEO_BENCH_FRAMES = 16, 64
+F9_FRAMES = GID_WARM_STEPS + GID_TIMED_STEPS  # 23
+F9_BLOCKS = (8, F9_FRAMES, F9_FRAMES, 8)
+EXAMPLE_STEPS = 16  # track_multicamera's --max-steps
+
+
+def clip_channel_sums(path) -> np.ndarray:
+    """(frames, 3) int64: every decoded frame's sum over its pixels of each
+    channel, in RGB order (the order the rings hand the step)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    sums = []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            sums.append(frame.reshape(-1, 3).sum(0, dtype=np.int64)[::-1])
+    finally:
+        cap.release()
+    return np.stack(sums)
+
+
+def run_ingest_soak(dev, clip_dir):
+    """9e (a): ``tools/soak.py --ingest`` (yolov3-416 bf16, 8 x 1080p, K 16)
+    with the cuts above. Every uploaded chunk's per-frame channel sums are
+    taken on the card (one reduction a chunk, read back once at the end) and
+    must equal, stream by stream, those of the clip's frames in order from
+    its first, looped, BGR turned RGB: a frame lost, repeated, reordered,
+    left unswizzled or overwritten while its upload was in flight shows.
+    Per chunk K1 1, K2 1, K3 16, K7 95 and one stats readback. -> the
+    record."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.tools import soak
+
+    args = soak.parser().parse_args([
+        "--ingest", "--chunks", str(VIDEO_CHUNKS), "--scan", str(VIDEO_K),
+        "--clip-frames", str(VIDEO_CLIP_FRAMES), "--decode-probe-secs",
+        str(VIDEO_PROBE_SECS), "--clip-dir", clip_dir])
+    sums = []
+
+    def tap(frames):  # (K, S, H, W, 3) uint8 on the card -> (K, S, 3)
+        sums.append(frames.flatten(2, 3).sum(2, dtype=torch.int64))
+
+    t0 = time.perf_counter()
+    rec = soak.soak_ingest(args, dev, tap)
+    print(f"soak --ingest ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(rec)}", flush=True)
+    n, k = VIDEO_CHUNKS, VIDEO_K
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n)
+    if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
+        raise AssertionError(f"soak --ingest: failures {rec['failures']}, "
+                             f"launches {rec['launches']} (want {want}), "
+                             f"readbacks {rec['stats_readbacks']}")
+    got = torch.cat(sums).cpu().numpy()  # (frames a stream, S, 3)
+    clips = soak.ensure_clips(clip_dir, STREAMS, (FRAME_H, FRAME_W),
+                              VIDEO_CLIP_FRAMES)  # the paths, already there
+    for s, path in enumerate(clips):
+        want_s = clip_channel_sums(path)
+        if len(want_s) != VIDEO_CLIP_FRAMES:
+            raise AssertionError(f"{path}: {len(want_s)} frames decoded")
+        if not np.array_equal(got[:, s], want_s[np.arange(len(got))
+                                                % len(want_s)]):
+            raise AssertionError(f"soak --ingest: stream {s}'s uploaded "
+                                 "chunks are not its clip's frames in order")
+    print(f"soak --ingest: {len(got)} uploaded frames a stream ({n + 1} "
+          f"chunks, the warm-up's first) equal to the clips' "
+          f"{VIDEO_CLIP_FRAMES} frames in order, looped, BGR turned RGB "
+          f"(per-frame channel sums); launches per chunk K1 1, K2 1, K3 "
+          f"{k}, K7 95, one stats readback", flush=True)
+    return rec
+
+
+def run_bench_video(clip_dir):
+    """9e (b): ``tools/bench_video.py`` (yolov3-416 bf16, one 1080p clip,
+    chunk 16) on VIDEO_BENCH_FRAMES frames a pass. Its timed pass draws
+    VIDEO_BENCH_FRAMES frames and enqueues one chunk more than it draws;
+    per chunk K1 1, K2 1, K3 16, K7 95. -> the record."""
+    from yolo_deepsort_tpu_torch.tools import bench_video
+
+    t0 = time.perf_counter()
+    rec = bench_video.run(["--chunk", str(VIDEO_K), "--frames",
+                           str(VIDEO_BENCH_FRAMES), "--clip-dir", clip_dir])
+    print(f"bench_video ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(rec)}", flush=True)
+    c, k = rec["chunks_run"], VIDEO_K
+    want = _only(letterbox=c, crops=c, tracker=k * c, conv=95 * c)
+    if (rec["frames"] != VIDEO_BENCH_FRAMES
+            or c != VIDEO_BENCH_FRAMES // k + 1 or rec["launches"] != want):
+        raise AssertionError(f"bench_video: {rec['frames']} frames, {c} "
+                             f"chunks, launches {rec['launches']} (want "
+                             f"{want})")
+    return rec
+
+
+def _ms_per_step(mst):
+    """Run ``mst`` to its end and close it: (host-clock ms of each step
+    after the first GID_WARM_STEPS, frames per stream, steps, rows emitted,
+    full-ring rejections)."""
+    seen = np.zeros(mst.s, int)
+    times, steps, rows, last = [], 0, 0, time.perf_counter()
+    for _, emit, valid in mst.run():
+        now = time.perf_counter()
+        if steps >= GID_WARM_STEPS:
+            times.append((now - last) * 1e3)
+        last = now
+        seen += valid
+        rows += int(emit.sum())
+        steps += 1
+    dropped = mst.stats()["dropped"]
+    mst.close()
+    return times, seen.tolist(), steps, rows, dropped
+
+
+def run_decoded_streams(dev, tmp_dir, clips, card):
+    """9e (c): ``MultiStreamTracker`` with its own cv2 decoders over the 8
+    1080p clips of (a), rings of 8 (``facade_model``'s yolov3-416 bf16 and
+    threshold): every stream's frames arrive, one readback a step. Then F9's
+    numbers on ``run_multistream``'s seeded load: ms per step with
+    F9_FRAMES frames a stream into full rings of 8 and into rings that hold
+    every frame, alternated (F9_BLOCKS). -> (model, threshold)."""
+    from yolo_deepsort_tpu_torch.config import DetectorConfig
+    from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.runtime.multistream import MultiStreamTracker
+
+    model, frame, thr = facade_model(dev, tmp_dir)
+    mst = MultiStreamTracker(model, clips, random_reid_params(0),
+                             (FRAME_H, FRAME_W),
+                             det_config=DetectorConfig(img_size=416,
+                                                       conf_thres=thr),
+                             ring_depth=8)
+    times, seen, steps, rows, dropped = _ms_per_step(mst)
+    if seen != [VIDEO_CLIP_FRAMES] * STREAMS or mst.host_readbacks != steps:
+        raise AssertionError(f"MultiStreamTracker over decoded clips: "
+                             f"frames per stream {seen}, "
+                             f"{mst.host_readbacks} readbacks in {steps} "
+                             "steps")
+    print(f"MultiStreamTracker over {STREAMS} decoded {FRAME_H}p clips "
+          f"(cv2 decoders, rings of 8, yolov3-416 bf16): {steps} steps, "
+          f"frames per stream {seen}, {rows} rows emitted, 1 readback per "
+          f"step, {float(np.median(times)):.4f} ms per step (host clock, "
+          f"median after {GID_WARM_STEPS}), {dropped} full-ring rejections "
+          f"({card})", flush=True)
+    ms = {}
+    for depth in F9_BLOCKS:
+        times, seen, _, _, _ = _ms_per_step(seeded_streams(
+            model, frame, thr, [F9_FRAMES] * STREAMS, ring_depth=depth))
+        if seen != [F9_FRAMES] * STREAMS:
+            raise AssertionError(f"seeded streams: frames per stream {seen}")
+        ms.setdefault(depth, []).append(float(np.median(times)))
+    print(f"F9, MultiStreamTracker on the seeded load ({STREAMS} x "
+          f"{FRAME_H}p, {F9_FRAMES} frames a stream, yolov3-416 bf16, "
+          f"host clock, medians of {F9_FRAMES - GID_WARM_STEPS} steps, "
+          f"blocks alternated): full rings of {F9_BLOCKS[0]} "
+          f"{[round(v, 4) for v in ms[F9_BLOCKS[0]]]} ms per step, rings "
+          f"holding "
+          f"every frame {[round(v, 4) for v in ms[F9_FRAMES]]} ({card})",
+          flush=True)
+    return model, thr
+
+
+def run_examples(tmp_dir, clips, thr):
+    """9e (d): ``examples/track_video.py`` and ``track_multicamera.py``
+    with ``--device cuda``, in process through their ``main`` (their
+    printing captured), on (a)'s clips and ``facade_model``'s weights file:
+    every frame tracked and written; EXAMPLE_STEPS steps of two cameras."""
+    import contextlib
+    import io
+    import os
+
+    from yolo_deepsort_tpu_torch.examples import track_multicamera, track_video
+
+    weights = f"{tmp_dir}/yolov3-416.weights"  # facade_model's
+    out_path = os.path.join(tmp_dir, "tracked.mp4")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        track_video.main([clips[0], "--weights", weights, "--conf-thres",
+                          str(thr), "--half", "--classes", "--out",
+                          out_path, "--device", "cuda"])
+    lines = out.getvalue().strip().splitlines()
+    written = len(clip_channel_sums(out_path))
+    if lines[-1:] != [f"{VIDEO_CLIP_FRAMES} frames -> {out_path}"] \
+            or written != VIDEO_CLIP_FRAMES:
+        raise AssertionError(f"track_video: {lines[-1:]}, {written} frames "
+                             "written")
+    print(f"example track_video on the card "
+          f"({time.perf_counter() - t0:.1f} s): {lines[-1]}, "
+          f"{written} frames in the written clip", flush=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        track_multicamera.main([clips[0], clips[1], "--weights", weights,
+                                "--max-steps", str(EXAMPLE_STEPS),
+                                "--device", "cuda"])
+    lines = out.getvalue().strip().splitlines()
+    steps = {int(ln.split()[1]) for ln in lines if ln.startswith("step ")}
+    if any(s >= EXAMPLE_STEPS for s in steps):
+        raise AssertionError(f"track_multicamera ran past --max-steps: "
+                             f"{sorted(steps)}")
+    print(f"example track_multicamera on the card "
+          f"({time.perf_counter() - t0:.1f} s): 2 cameras, "
+          f"{EXAMPLE_STEPS} steps, {len(lines)} global-id rows printed "
+          f"over {len(steps)} steps", flush=True)
+
+
+def run_video(dev, card):
+    """Phase 9e: decoded video on the card, (a)-(d) in a temp dir of their
+    own. -> {kernel: launches of the timed loops of (a) and (b)}."""
+    import os
+
+    from yolo_deepsort_tpu_torch.tools.soak import ensure_clips
+
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        clip_dir = os.path.join(tmp_dir, "clips")
+        ingest = run_ingest_soak(dev, clip_dir)
+        bench = run_bench_video(clip_dir)
+        clips = ensure_clips(clip_dir, STREAMS, (FRAME_H, FRAME_W),
+                             VIDEO_CLIP_FRAMES)
+        _, thr = run_decoded_streams(dev, tmp_dir, clips, card)
+        run_examples(tmp_dir, clips, thr)
+    return {name: ingest["launches"][name] + bench["launches"][name]
+            for name in ingest["launches"]}
+
+
 MOT_HW = (1080, 1920)
 
 
@@ -5577,6 +5830,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp_dir:
         tool_launches = run_tools(dev, tmp_dir)
     mark("tools")
+    video_launches = run_video(dev, card)
+    mark("decoded video")
     for name, rec, shape, cli in (
             ("YOLO detection (yolov3-416, full width)", train_yolo,
              f"batch {YOLO_TRAIN_BATCH} x 416 x 416", "exported"),
@@ -5643,6 +5898,7 @@ def main() -> int:
         entry["launches_soak_multichip_path"] = \
             soaks["soak_multichip"]["launches"][entry["name"]]
         entry["launches_tools_path"] = tool_launches[entry["name"]]
+        entry["launches_video_path"] = video_launches[entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no counted path")

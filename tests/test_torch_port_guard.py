@@ -33,6 +33,7 @@ missing = {"yolo_deepsort_tpu_torch." + m
                      "tools.int8_gate_trained", "tools.soak",
                      "tools.soak_multichip", "kernels.launches",
                      "tools.verify_weights", "tools.parity_real",
+                     "tools.bench_video",
                      "examples.detect_image", "examples.detect_folder",
                      "examples.track_video", "examples.track_multicamera",
                      "examples.make_demo")} - set(names)

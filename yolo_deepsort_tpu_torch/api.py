@@ -437,6 +437,7 @@ class VideoTracker:
         self._chunk_steps: "OrderedDict[Tuple[int, int], BucketedScannedStep]"
         self._chunk_steps = OrderedDict()
         self.host_readbacks = 0
+        self.chunks_run = 0  # chunks enqueued through the bucketed step
 
     def reset(self) -> None:
         self.state = init_tracker_state(self.trk_cfg, 1, self.device)
@@ -502,6 +503,7 @@ class VideoTracker:
         frames = _upload(frames_rgb, self.device)[:, None]  # (K, 1, H, W, 3)
         self.state, (outputs, emit) = self._chunk_step(h, w)(self.state,
                                                              frames)
+        self.chunks_run += 1
         return outputs, emit
 
     def _drain_chunk(self, outputs, emit) -> list:

@@ -18,6 +18,9 @@ With ``global_ids`` the streams are cameras of one scene: every
 mesh of one rank) aliases tracks across streams, ``assign_provisional_gids``
 runs between its rounds, and the outputs' id column carries the global ids,
 relabeled on the device before the step's one readback.
+
+A producer whose ring is full, and the loop when no frame is ready, wait on
+the pool (``FramePool.push_wait``, ``wait_ready``) instead of retrying.
 """
 
 from __future__ import annotations
@@ -77,9 +80,9 @@ class MultiStreamTracker:
                                   pin_memory=on_card)
         self._valid_stage = torch.empty((self.s,), dtype=torch.bool,
                                         pin_memory=on_card)
+        self._stage_np = self._stage.numpy()
         self.pool = FramePool(self.s, frame_hw[0], frame_hw[1],
-                              depth=ring_depth,
-                              batch_out=self._stage.numpy())
+                              depth=ring_depth)
         reid = W.reid_from_params(reid_params).to(
             self.device, dtype, memory_format=_memory_format(self.device))
         self.step = make_batched_step(
@@ -102,6 +105,11 @@ class MultiStreamTracker:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
 
+    def _push(self, stream: int, frame_bgr: np.ndarray) -> bool:
+        """Push one frame, waiting while the stream's ring is full. False
+        once the loop has stopped: the producer then ends."""
+        return self.pool.push_wait(stream, frame_bgr, self._stop)
+
     def _decoder(self, stream: int, path: str):
         import cv2
 
@@ -113,9 +121,8 @@ class MultiStreamTracker:
                     break
                 if frame.shape[:2] != tuple(self.frame_hw):
                     frame = cv2.resize(frame, tuple(self.frame_hw)[::-1])
-                while not self.pool.push(stream, frame):
-                    if self._stop.is_set():
-                        return
+                if not self._push(stream, frame):
+                    return
         finally:
             cap.release()
             self.pool.mark_finished(stream)
@@ -134,10 +141,11 @@ class MultiStreamTracker:
         steps = 0
         try:
             while max_steps is None or steps < max_steps:
-                _, valid, n = self.pool.pop_batch()
+                _, valid, n = self.pool.pop_batch(out=self._stage_np)
                 if n == 0:
                     if all(self.pool.finished(i) for i in range(self.s)):
                         break
+                    self.pool.wait_ready()
                     continue
                 self._valid_stage.copy_(torch.from_numpy(valid))
                 frames = self._stage.to(self.device, non_blocking=True)
@@ -162,6 +170,7 @@ class MultiStreamTracker:
                 yield (np.array(host[..., :5]), host[..., 5] > 0, valid)
         finally:
             self._stop.set()
+            self.pool.wake()
             for t in self._threads:
                 t.join(timeout=2.0)
 

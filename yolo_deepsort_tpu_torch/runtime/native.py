@@ -7,6 +7,12 @@ a library built from another source or on another machine's flags is never
 picked up. A build that fails raises: there is no quiet fallback.
 
 Importing this module builds nothing; ``FramePool(...)`` does.
+
+Waiting (the port's own, not the reference's): a producer that finds its
+ring full waits in ``push_wait`` until a pop frees a slot, and a consumer
+waits in ``wait_ready`` until a push or a finished stream gives it
+something to do. Neither retries in a loop. The waits time out after
+``WAIT_SECS`` only as a safety net, since every change notifies.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+WAIT_SECS = 0.5  # longest wait on a condition; every change notifies
 
 
 def library_path() -> str:
@@ -86,26 +94,26 @@ class FramePool:
 
     Producers (decode threads) call ``push(stream, frame_bgr)``; the compute
     loop calls ``pop_batch()`` to gather one contiguous (S, H, W, 3) RGB
-    batch. The copy/swizzle runs in C++ off the GIL. ``batch_out`` lets the
-    caller have the batch assembled in its own buffer (pinned memory, for
-    the upload to the card)."""
+    batch. The copy/swizzle runs in C++ off the GIL. ``pop_batch(out=)``
+    lets the caller have the batch assembled in its own buffer (pinned
+    memory, for the upload to the card)."""
 
     def __init__(self, n_streams: int, height: int, width: int,
-                 depth: int = 8, batch_out: Optional[np.ndarray] = None):
+                 depth: int = 8):
         lib = _load()
         self._lib = lib
         self.n_streams = n_streams
         self.shape = (height, width)
+        self.depth = depth
+        # one lock under which a ring's fullness or readiness is checked
+        # and waited on, so a pop or push between the check and the wait is
+        # never missed
+        lock = threading.Lock()
+        self._space = threading.Condition(lock)  # a pop freed slots
+        self._ready = threading.Condition(lock)  # a push, or a stream ended
         self._pool = ctypes.c_void_p(
             lib.fr_create(n_streams, height, width, depth))
-        want = (n_streams, height, width, 3)
-        if batch_out is None:
-            batch_out = np.empty(want, np.uint8)
-        if (batch_out.shape != want or batch_out.dtype != np.uint8
-                or not batch_out.flags.c_contiguous):
-            raise ValueError(f"batch_out must be a C-contiguous uint8 array "
-                             f"of shape {want}")
-        self._batch = batch_out
+        self._batch = np.empty((n_streams, height, width, 3), np.uint8)
         self._valid = np.empty((n_streams,), np.uint8)
 
     def push(self, stream: int, frame_bgr: np.ndarray) -> bool:
@@ -116,8 +124,46 @@ class FramePool:
             self._pool, stream, frame_bgr.ctypes.data_as(ctypes.c_void_p))
         return bool(ok)
 
+    def push_wait(self, stream: int, frame_bgr: np.ndarray,
+                  stop: threading.Event) -> bool:
+        """``push``, waiting while the ring is full. False when ``stop`` was
+        set before the frame went in (``wake`` ends the wait at once)."""
+        while not self.push(stream, frame_bgr):
+            with self._space:
+                if stop.is_set():
+                    return False
+                if self.available_frames(stream) >= self.depth:
+                    self._space.wait(WAIT_SECS)
+        with self._ready:
+            self._ready.notify_all()
+        return True
+
+    def wait_ready(self, every: bool = False,
+                   timeout: float = WAIT_SECS) -> bool:
+        """Wait until every stream (``every``) or any stream has a frame,
+        or, without ``every``, until every stream has finished; at most
+        ``timeout`` seconds. -> whether that holds."""
+        def ready():
+            have = [self.available_frames(i) > 0
+                    for i in range(self.n_streams)]
+            if every:
+                return all(have)
+            return any(have) or all(self.finished(i)
+                                    for i in range(self.n_streams))
+
+        with self._ready:
+            return self._ready.wait_for(ready, timeout)
+
+    def wake(self) -> None:
+        """Wake every waiting producer and consumer (after a stop)."""
+        with self._space:
+            self._space.notify_all()
+            self._ready.notify_all()
+
     def mark_finished(self, stream: int) -> None:
         self._lib.fr_mark_finished(self._pool, stream)
+        with self._ready:
+            self._ready.notify_all()
 
     def available_frames(self, stream: int) -> int:
         return self._lib.fr_available(self._pool, stream)
@@ -128,14 +174,29 @@ class FramePool:
     def dropped(self, stream: int) -> int:
         return int(self._lib.fr_dropped(self._pool, stream))
 
-    def pop_batch(self, consume: bool = True
+    def _checked(self, out: np.ndarray) -> np.ndarray:
+        want = (self.n_streams, *self.shape, 3)
+        if (out.shape != want or out.dtype != np.uint8
+                or not out.flags.c_contiguous):
+            raise ValueError(f"a batch buffer must be a C-contiguous uint8 "
+                             f"array of shape {want}")
+        return out
+
+    def pop_batch(self, consume: bool = True, out: Optional[np.ndarray] = None
                   ) -> Tuple[np.ndarray, np.ndarray, int]:
-        """-> (batch_rgb (S, H, W, 3), valid (S,) bool, n_valid). Invalid
-        stream slots keep their previous contents (mask them downstream)."""
+        """-> (batch_rgb (S, H, W, 3), valid (S,) bool, n_valid), written
+        into ``out`` (a C-contiguous uint8 array of that shape) when given,
+        else into the pool's own buffer. Invalid stream slots keep their
+        previous contents (mask them downstream). A consuming pop wakes the
+        producers."""
+        batch = self._batch if out is None else self._checked(out)
         n = self._lib.fr_pop_batch(
-            self._pool, self._batch.ctypes.data_as(ctypes.c_void_p),
+            self._pool, batch.ctypes.data_as(ctypes.c_void_p),
             self._valid.ctypes.data_as(ctypes.c_void_p), 1 if consume else 0)
-        return self._batch, self._valid.astype(bool), int(n)
+        if n and consume:
+            with self._space:
+                self._space.notify_all()
+        return batch, self._valid.astype(bool), int(n)
 
     def close(self) -> None:
         if self._pool:
