@@ -62,6 +62,18 @@ which ends the run with a non-zero exit code when it fails:
                    tool's own run (path 4e): int8 exactly equal (floor
                    division), bf16 within 1 bf16 ulp; timed on both clocks
                    beside ``torch.matmul`` / ``torch._int_mm``
+     nms           the batched NMS of ``csrc/nms.cu`` (after the main path's
+                   setup, on its decoded chunk: N 32, B 10647, C 80,
+                   max_boxes 512): the calibrated per-stream thresholds at
+                   max_dets 64 and the K=1 step's 8 frames at cap 40, a
+                   saturated case (top-k drops, max_dets fills) and a tie
+                   case (scores rounded to 1/16): masks, order, sat and the
+                   obj / cls_conf / cls columns exactly equal, merged boxes
+                   within ``ops/nms_kernel.py`` MERGE_TOL (1e-5 of the box
+                   scale); ``check_nms``
+     roi_nms       the ROI NMS of the same file at D = 64, max_overlap 0.5,
+                   a seeded scene and tied clusters: keep masks exactly
+                   equal; ``check_roi_nms``
    The kernel times (``ms``, and ``library_ms`` beside them) are CUDA-event
    means of repeated calls from Python on the same inputs (K1, K2, K6 and
    the dense crops also replayed from a CUDA graph, ``device_ms``; the
@@ -153,11 +165,12 @@ which ends the run with a non-zero exit code when it fails:
    ``.weights`` file written from the seeded weights; ``VideoTracker``
    (bf16, one 1080p stream, threshold calibrated to ~32 detections) runs
    ``track_frame`` over 8 static frames -- confirmed rows from frame
-   n_init on, kernels K1 and K5 once per frame, K3 never, one readback per
+   n_init on, kernels K1, NMS and K5 once per frame, K3 never, one readback per
    call and no other synchronizing call -- then one ``track_frames`` chunk
    of K=4 (K1, K2, K3); ``DeepSort.update`` on the card over a seeded
    8-frame 1080p scene of ~32 textured walking objects with dropouts
-   gives exactly the rows of ``DeepSort(device="cpu")``.
+   gives exactly the rows of ``DeepSort(device="cpu")``, and so does
+   ``DeepSort(nms_max_overlap=0.5)``, the ROI NMS kernel once a call.
 7. multi-stream runtime (``run_multistream``): ``MultiStreamTracker``'s loop
    over 8 x 1080p with producer threads pushing seeded frames into the
    native frame pool (g++ at first use) in place of video decoders; one
@@ -298,6 +311,12 @@ STREAMS, FRAME_H, FRAME_W, K_FRAMES, CHUNKS = 8, 1080, 1920, 4, 6
 TARGET_DETS = 32
 JV_SHAPE = (8, 128, 64)  # streams, rows (max_tracks), columns (max_dets)
 FACADE_FRAMES = 8
+# the NMS kernels (``check_nms``, ``check_roi_nms``): the ROI NMS's boxes
+# (the facades' padded D) and overlap (deep_sort's NMS_MAX_OVERLAP); the
+# batched NMS's candidates an image taken over the threshold in its
+# saturated cases (past max_boxes, 512)
+ROI_NMS_D, ROI_NMS_OVERLAP = 64, 0.5
+NMS_SATURATED_TOP = 1024
 
 # the K=1 low-latency step (the reference bench's K=1 settings)
 K1_CAP, K1_WINDOW, K1_STEPS = 40, (320, 192), 30
@@ -1666,6 +1685,140 @@ def check_small_reid_int8(dev):
     return cos, twin
 
 
+def check_nms(dev, setup):
+    """The batched NMS kernel against its plain version on the main path's
+    decoded output: yolov3-416 bf16 over the K x S = 32 frames of the
+    chunk (N 32, B 10647, C 80, max_boxes 512), (a) at the calibrated
+    per-stream thresholds, max_dets 64 (~32 detections a frame); (b) the
+    K=1 step's 8 frames at cap 40; (c) saturated: per image the
+    NMS_SATURATED_TOP-th largest objectness as threshold (top-k drops
+    candidates, max_dets fills with some left); (d) ties: (c) with obj and
+    class scores rounded to 1/16 (exact score ties across the top-k
+    boundary, class argmax ties). Times (a) and (b) on both clocks beside
+    the plain version. -> the phase loop's record."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import nms_kernel as NK
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+    from yolo_deepsort_tpu_torch.ops.nms import batched_nms_with_stats_plain
+
+    _, _, frames, parts = setup
+    k, s = frames.shape[:2]
+    with torch.no_grad():
+        dec = parts["detector"](letterbox_batch_fused(
+            frames.reshape(k * s, FRAME_H, FRAME_W, 3), 416,
+            torch.bfloat16)).float()
+    thr = torch.as_tensor(parts["conf_vec"], device=dev).repeat(k)
+    sat_thr = torch.sort(dec[..., 4], -1, descending=True).values[
+        :, NMS_SATURATED_TOP - 1].contiguous()
+    ties = dec.clone()
+    ties[..., 4:] = (ties[..., 4:] * 16).round() / 16
+    cases = {"calibrated": (dec, thr, 64), "k1": (dec[:s], thr[:s], K1_CAP),
+             "saturated": (dec, sat_thr, 64), "ties": (ties, sat_thr, 64)}
+    errs, outs = {}, {}
+    for name, (pred, conf, max_dets) in cases.items():
+        args = (pred, conf, 0.4, 512, max_dets)
+        outs[name] = NK.nms_cuda(*args)
+        why, errs[name] = NK.mismatch(outs[name],
+                                      batched_nms_with_stats_plain(*args))
+        if why:
+            raise AssertionError(f"nms kernel, case {name}: {why}")
+    sat = outs["saturated"][2]
+    if not (bool((sat[:, 0] > 0).all()) and bool((sat[:, 1] > 0).any())):
+        raise AssertionError(f"nms saturated case: sat {sat.tolist()}")
+    dets_per_frame = float(outs["calibrated"][1].sum()) / (k * s)
+
+    def run(name):
+        pred, conf, max_dets = cases[name]
+        return lambda: NK.nms_cuda(pred, conf, 0.4, 512, max_dets)
+
+    def plain(name):
+        pred, conf, max_dets = cases[name]
+        return lambda: batched_nms_with_stats_plain(pred, conf, 0.4, 512,
+                                                    max_dets)
+
+    ms, device_ms = cuda_ms(run("calibrated"), 50), cuda_graph_ms(
+        run("calibrated"), 20)
+    plain_ms = cuda_ms(plain("calibrated"), 5)
+    k1_ms, k1_device_ms = cuda_ms(run("k1"), 50), cuda_graph_ms(run("k1"), 20)
+    k1_plain_ms = cuda_ms(plain("k1"), 5)
+    sat_device_ms = cuda_graph_ms(run("saturated"), 20)
+    err = max(errs.values())
+    dets, mask, sat = outs["calibrated"]
+    io_bytes = nbytes(dec, thr, dets, mask, sat)
+    # the key pass compares every column of every row once; the greedy
+    # loop, ~20 operations a candidate a step it ran
+    ops = dec.numel() + 20 * 512 * int(mask.sum(-1).max())
+    note = (f" ({device_ms:.6f} ms of device time); K=1 cap {K1_CAP} at "
+            f"{s} frames kernel {k1_ms:.4f} ms, {k1_device_ms:.6f} ms of "
+            f"device time, plain {k1_plain_ms:.4f} ms; saturated "
+            f"{sat_device_ms:.6f} ms of device time (its sat summed over "
+            f"images {outs['saturated'][2].sum(0).tolist()}); "
+            f"{dets_per_frame:.1f} detections a frame; merged boxes max "
+            f"|err| per case {errs}; masks, order, sat and obj / cls_conf / "
+            f"cls exactly equal in all four cases")
+    return (err, ms, plain_ms, note, io_bytes,
+            {"device_ms": device_ms, "k1_ms": k1_ms,
+             "k1_device_ms": k1_device_ms, "k1_plain_ms": k1_plain_ms,
+             "saturated_device_ms": sat_device_ms, "ops": ops,
+             "detections_per_frame": dets_per_frame})
+
+
+def check_roi_nms(rng, dev):
+    """The ROI NMS kernel against its plain version at the facades' D
+    (ROI_NMS_D) and ROI_NMS_OVERLAP: a seeded scene of overlapping boxes
+    with a fifth masked out, and clusters of near-copies with tied scores;
+    keep masks exactly equal. Timed on both clocks beside the plain
+    version. -> the phase loop's record."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops import nms_kernel as NK
+    from yolo_deepsort_tpu_torch.ops.nms import roi_nms_mask_plain
+
+    d = ROI_NMS_D
+    xy = rng.uniform(0, 400, (d, 2))
+    boxes = np.concatenate([xy, rng.uniform(30, 120, (d, 2))], 1)
+    scores = rng.uniform(0, 1, d)
+    scores[::9] = 0.5  # exact ties
+    mask = rng.uniform(0, 1, d) < 0.8
+    clusters = (np.repeat(rng.uniform(0, 400, (8, 4)) * [1, 1, 0.2, 0.2]
+                          + [0, 0, 40, 40], 8, 0)
+                + rng.uniform(-3, 3, (d, 4)))
+    cases = {"scene": (boxes, scores, mask),
+             "clusters": (clusters, np.repeat(rng.uniform(0, 1, 8), 8),
+                          np.ones(d, bool))}
+    kept = {}
+    for name, (b, sc, m) in cases.items():
+        args = (torch.from_numpy(b.astype(np.float32)).to(dev),
+                torch.from_numpy(sc.astype(np.float32)).to(dev),
+                torch.from_numpy(m).to(dev), ROI_NMS_OVERLAP)
+        got, want = NK.roi_nms_cuda(*args), roi_nms_mask_plain(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"roi_nms kernel, case {name}: keep masks "
+                                 "differ")
+        kept[name] = (int(want.sum()), int(m.sum()))
+        cases[name] = args
+    args = cases["scene"]
+    ms = cuda_ms(lambda: NK.roi_nms_cuda(*args), 50)
+    device_ms = cuda_graph_ms(lambda: NK.roi_nms_cuda(*args), 50)
+    plain_ms = cuda_ms(lambda: roi_nms_mask_plain(*args), 5)
+    # the rank pass compares every pair once; each kept box's overlap with
+    # the later masked boxes, ~10 operations a pair
+    m = args[2].cpu().numpy()
+    order = np.argsort(np.where(m, -args[1].cpu().numpy(), np.inf),
+                       kind="stable")
+    keep = roi_nms_mask_plain(*args).cpu().numpy()
+    later = m[order][::-1].cumsum()[::-1] - m[order]
+    pairs = int((later * keep[order]).sum())
+    note = (f" ({device_ms:.6f} ms of device time); D {d}, max_overlap "
+            f"{ROI_NMS_OVERLAP}: kept / masked {kept}, keep masks exactly "
+            "equal")
+    return (0.0, ms, plain_ms, note, nbytes(*args[:3]) + d,
+            {"device_ms": device_ms, "ops": d * d + 10 * pairs})
+
+
 def main_path_setup(dev):
     """yolov3-416 bf16 with its per-stream thresholds, the serving step,
     fresh states for 8 streams and one chunk of K static 1080p frames."""
@@ -1754,6 +1907,7 @@ def run_main_path(dev, setup=None):
         conv_kernel,
         crops_kernel,
         letterbox_kernel,
+        nms_kernel,
     )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
@@ -1776,15 +1930,19 @@ def run_main_path(dev, setup=None):
     if readbacks != 2:
         raise AssertionError(f"{readbacks} stats readbacks in 2 chunks")
 
-    kernels = (letterbox_kernel, crops_kernel, tracker_kernel, conv_kernel)
+    kernels = (letterbox_kernel, crops_kernel, tracker_kernel, conv_kernel,
+               nms_kernel)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     states, (outputs, emit) = pipelined(step, states, frames, CHUNKS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(zip(("letterbox", "crops", "tracker", "conv"),
+    launches = dict(zip(("letterbox", "crops", "tracker", "conv", "nms"),
                         (k.launches for k in kernels)))
+    if launches["nms"] != CHUNKS:  # one per detect stage
+        raise AssertionError(f"main path: {launches['nms']} NMS launches in "
+                             f"{CHUNKS} chunks, expected 1 a chunk")
     # kernel 7 runs every conv of the bf16 detector and ReID net, once per
     # chunk each
     per_chunk = n_convs(parts["detector"]) + n_convs(parts["reid"])
@@ -1825,7 +1983,7 @@ def run_main_path(dev, setup=None):
           f"emitted rows {int(emit.sum())}, saturation {step.saturation()}, "
           f"stats readbacks per chunk {readbacks // 2} and no other sync; "
           f"K7 launches per chunk {per_chunk} (every conv of the bf16 "
-          f"detector and ReID net)", flush=True)
+          f"detector and ReID net), NMS 1", flush=True)
     return launches
 
 
@@ -1910,7 +2068,7 @@ def run_k1_path(dev, setup=None):
     # detector and ReID net in bf16 mode
     per_step = n_convs(parts["detector"]) + n_convs(parts["reid"])
     want = _only(letterbox=K1_STEPS, crops_dense=K1_STEPS, tracker=K1_STEPS,
-                 conv=per_step * K1_STEPS)
+                 conv=per_step * K1_STEPS, nms=K1_STEPS)
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -1949,7 +2107,7 @@ def run_k1_path(dev, setup=None):
     print(f"K=1 path: yolov3-416 bf16, {STREAMS} x {FRAME_H}p, cap {K1_CAP}, "
           f"window {K1_WINDOW}, fixed conv route ({len(CONV_ROUTE['bf16'])} "
           f"bf16 + {len(CONV_ROUTE['int8'])} int8 layers), {K1_STEPS} steps: "
-          f"launches per step K1 1, K2 0, dense crops 1, K3 1, K7 "
+          f"launches per step K1 1, K2 0, dense crops 1, K3 1, NMS 1, K7 "
           f"{per_step} ({N_ROUTED} of them the routed layers); 1 readback "
           f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
           f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
@@ -1977,6 +2135,7 @@ def run_int8_embed_paths(dev, setup):
         conv_kernel,
         crops_kernel,
         letterbox_kernel,
+        nms_kernel,
     )
     from yolo_deepsort_tpu_torch.parallel.streams import (
         BucketedScannedStep,
@@ -1998,7 +2157,7 @@ def run_int8_embed_paths(dev, setup):
 
     def reset_counters():
         for m in (letterbox_kernel, crops_kernel, tracker_kernel,
-                  conv_int8_kernel, conv_kernel):
+                  conv_int8_kernel, conv_kernel, nms_kernel):
             m.launches = 0
         crops_kernel.launches_interleaved = 0
         crops_kernel.launches_dense = 0
@@ -2010,7 +2169,8 @@ def run_int8_embed_paths(dev, setup):
                 "crops_dense": crops_kernel.launches_dense,
                 "tracker": tracker_kernel.launches,
                 "conv_int8": conv_int8_kernel.launches,
-                "conv": conv_kernel.launches}
+                "conv": conv_kernel.launches,
+                "nms": nms_kernel.launches}
 
     # chunked path: both embeds from fresh states over the same chunks
     st = {"int8": init_stream_states(trk_cfg, STREAMS),
@@ -2047,7 +2207,7 @@ def run_int8_embed_paths(dev, setup):
             "crops_interleaved": 0, "crops_dense": 0,
             "tracker": K_FRAMES * INT8_CHUNKS,
             "conv_int8": N_INT8_CONVS * INT8_CHUNKS,
-            "conv": n_det * INT8_CHUNKS}
+            "conv": n_det * INT8_CHUNKS, "nms": INT8_CHUNKS}
     if chunk_counts != want:
         raise AssertionError(f"int8 embed, chunked: launches over "
                              f"{INT8_CHUNKS} chunks {chunk_counts}, expected "
@@ -2137,7 +2297,7 @@ def run_int8_embed_paths(dev, setup):
             "crops_interleaved": 0, "crops_dense": INT8_K1_STEPS,
             "tracker": INT8_K1_STEPS,
             "conv_int8": N_INT8_CONVS * INT8_K1_STEPS,
-            "conv": n_det * INT8_K1_STEPS}
+            "conv": n_det * INT8_K1_STEPS, "nms": INT8_K1_STEPS}
     if k1_counts != want:
         raise AssertionError(f"int8 embed, K=1: launches over "
                              f"{INT8_K1_STEPS} steps {k1_counts}, expected "
@@ -3026,7 +3186,7 @@ def gid_full_width(model, frame, thr):
     per_step = (n_convs(model.module)
                 + n_convs(reid_from_params(random_reid_params(0))))
     want = _only(letterbox=steps, crops_dense=steps, conv=per_step * steps,
-                 tracker=steps)
+                 tracker=steps, nms=steps)
     if launched != want:
         raise AssertionError(f"global ids: launches {launched}, want {want}")
     live = gids.gid[states.state == STATE_CONFIRMED]
@@ -3575,7 +3735,9 @@ def facade_setup(dev, tmp_dir):
 
 def run_facades(dev, tmp_dir):
     """The public facades on the card at full width (``run_facades`` in
-    the module docstring). Returns K5's launches."""
+    the module docstring). Returns the launches of K5, the NMS (in
+    ``track_frame``) and the ROI NMS (in ``DeepSort.update`` with
+    ``nms_max_overlap`` ROI_NMS_OVERLAP)."""
     import torch
 
     from yolo_deepsort_tpu_torch import api
@@ -3583,12 +3745,13 @@ def run_facades(dev, tmp_dir):
         assignment_kernel,
         crops_kernel,
         letterbox_kernel,
+        nms_kernel,
     )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     frame, thr, vt = facade_setup(dev, tmp_dir)
     n_init = vt.trk_cfg.n_init
-    counters = (letterbox_kernel, crops_kernel, tracker_kernel)
+    counters = (letterbox_kernel, crops_kernel, tracker_kernel, nms_kernel)
     for k in counters:
         k.launches = 0
     assignment_kernel.two_stage_launches = 0
@@ -3604,7 +3767,8 @@ def run_facades(dev, tmp_dir):
     per_frame = {"letterbox": letterbox_kernel.launches,
                  "crops": crops_kernel.launches,
                  "tracker": tracker_kernel.launches,
-                 "jv_two_stage": assignment_kernel.two_stage_launches}
+                 "jv_two_stage": assignment_kernel.two_stage_launches,
+                 "nms": nms_kernel.launches}
     readbacks = vt.host_readbacks - readbacks
     counts = [len(r) for r in rows]
     if (any(counts[:n_init - 1]) or not all(counts[n_init - 1:])
@@ -3612,7 +3776,7 @@ def run_facades(dev, tmp_dir):
         raise AssertionError(f"track_frame: rows per frame {counts}, "
                              f"{readbacks} readbacks in {FACADE_FRAMES} calls")
     want = {"letterbox": FACADE_FRAMES, "crops": 0, "tracker": 0,
-            "jv_two_stage": FACADE_FRAMES}
+            "jv_two_stage": FACADE_FRAMES, "nms": FACADE_FRAMES}
     if per_frame != want:
         raise AssertionError(f"track_frame launches {per_frame}, expected "
                              f"{want}")
@@ -3654,6 +3818,29 @@ def run_facades(dev, tmp_dir):
                              f"{card.host_readbacks} readbacks, "
                              f"{update_launches} K5 launches")
     update_ms = float(np.median(card_ms[1:]))
+
+    # DeepSort with the ROI NMS on (the deep_sort config's NMS_MAX_OVERLAP):
+    # the card (its kernel, once a call) against the CPU (its plain version)
+    card = api.DeepSort(device=dev, nms_max_overlap=ROI_NMS_OVERLAP)
+    cpu = api.DeepSort(device="cpu", nms_max_overlap=ROI_NMS_OVERLAP)
+    nms_kernel.roi_launches = 0
+    roi_rows = 0
+    for t in range(FACADE_FRAMES):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = card.update(boxes[t], conf[t], frames[t])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want_rows = cpu.update(boxes[t], conf[t], frames[t])
+        if not np.array_equal(got, want_rows):
+            raise AssertionError(f"DeepSort with the ROI NMS, frame {t}: "
+                                 f"card rows differ from the CPU's:\n{got}\n"
+                                 f"{want_rows}")
+        roi_rows += len(got)
+    roi_launches = nms_kernel.roi_launches
+    if roi_rows == 0 or roi_launches != FACADE_FRAMES:
+        raise AssertionError(f"DeepSort with the ROI NMS: {roi_rows} rows, "
+                             f"{roi_launches} ROI NMS launches")
     print(f"facades (yolov3-416 bf16 from a .weights file, 1 x {FRAME_H}p, "
           f"threshold {thr:.4f}): track_frame x{FACADE_FRAMES} rows per frame "
           f"{counts}, launches {per_frame}, 1 readback per call and no other "
@@ -3662,8 +3849,11 @@ def run_facades(dev, tmp_dir):
           f"DeepSort.update x{FACADE_FRAMES} ({sum(len(b) for b in boxes)} "
           f"boxes, f32 ReID) card rows == CPU rows ({emitted} rows), "
           f"{update_launches} K5 launches, median {update_ms:.4f} ms per "
-          f"call", flush=True)
-    return per_frame["jv_two_stage"] + update_launches
+          f"call; with nms_max_overlap {ROI_NMS_OVERLAP}: card rows == CPU "
+          f"rows ({roi_rows} rows), {roi_launches} ROI NMS launches",
+          flush=True)
+    return {"jv_two_stage": per_frame["jv_two_stage"] + update_launches,
+            "nms": per_frame["nms"], "roi_nms": roi_launches}
 
 
 def _timed(fn, repeats: int):
@@ -3731,7 +3921,10 @@ def profile_main_path(dev, repeats: int = 5):
     from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
         letterbox_batch_fused,
     )
-    from yolo_deepsort_tpu_torch.ops.nms import batched_nms_with_stats
+    from yolo_deepsort_tpu_torch.ops.nms import (
+        batched_nms_with_stats,
+        batched_nms_with_stats_plain,
+    )
     from yolo_deepsort_tpu_torch.parallel.streams import _frame_boxes
     from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
         tracker_step_fused_batched,
@@ -3773,6 +3966,9 @@ def profile_main_path(dev, repeats: int = 5):
         (b7, mask, _), nms_ms = timed(lambda: batched_nms_with_stats(
             dec, thr, det_cfg.nms_thres, det_cfg.max_boxes,
             trk_cfg.max_dets))
+        _, nms_plain_ms = timed(lambda: batched_nms_with_stats_plain(
+            dec, thr, det_cfg.nms_thres, det_cfg.max_boxes,
+            trk_cfg.max_dets))
         xyxy, tlwh = _frame_boxes(b7[:, :cap], 416, FRAME_H, FRAME_W)
         crops, crops_ms = timed(lambda: crop_and_normalize_fused(
             flat, xyxy.contiguous(), *win))
@@ -3787,7 +3983,8 @@ def profile_main_path(dev, repeats: int = 5):
         (FRAME_H, FRAME_W)))
     print(f"profile: detect stage {detect_ms:.4f} ms, track stage "
           f"{track_ms:.4f} ms; alone: letterbox {lb_ms:.4f}, backbone + "
-          f"decode {bb_ms:.4f}, NMS {nms_ms:.4f}, crops {crops_ms:.4f}, "
+          f"decode {bb_ms:.4f}, NMS {nms_ms:.4f} (kernel; its plain "
+          f"version {nms_plain_ms:.4f}), crops {crops_ms:.4f}, "
           f"ReID embed ({crops.shape[0] * crops.shape[1]} crops) "
           f"{reid_ms:.4f}, one tracker step {trk_ms:.4f} ms", flush=True)
 
@@ -3810,7 +4007,10 @@ def profile_k1(dev, repeats: int = 5):
     from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
         letterbox_batch_fused,
     )
-    from yolo_deepsort_tpu_torch.ops.nms import batched_nms
+    from yolo_deepsort_tpu_torch.ops.nms import (
+        batched_nms,
+        batched_nms_with_stats_plain,
+    )
     from yolo_deepsort_tpu_torch.parallel.streams import (
         _frame_boxes,
         _make_conv_impl,
@@ -3844,6 +4044,9 @@ def profile_k1(dev, repeats: int = 5):
         (b7, mask), nms_ms = timed(lambda: batched_nms(
             dec, det_cfg.conf_thres, det_cfg.nms_thres, det_cfg.max_boxes,
             K1_CAP))
+        _, nms_plain_ms = timed(lambda: batched_nms_with_stats_plain(
+            dec, det_cfg.conf_thres, det_cfg.nms_thres, det_cfg.max_boxes,
+            K1_CAP))
         xyxy, tlwh = _frame_boxes(b7, 416, FRAME_H, FRAME_W)
         crops_of = make_k1_crops((FRAME_H, FRAME_W), K1_WINDOW,
                                  torch.bfloat16)
@@ -3857,7 +4060,8 @@ def profile_k1(dev, repeats: int = 5):
     print(f"profile: K=1 step {step_ms:.4f} ms with the conv route, "
           f"{float(np.median(off_ms)):.4f} ms without; alone: letterbox "
           f"{lb_ms:.4f}, backbone + decode {bb_on:.4f} routed / {bb_off:.4f} "
-          f"library convs, NMS (cap {K1_CAP}) {nms_ms:.4f}, crops (one "
+          f"library convs, NMS (cap {K1_CAP}) {nms_ms:.4f} (kernel; its "
+          f"plain version {nms_plain_ms:.4f}), crops (one "
           f"dense launch) {crops_ms:.4f}, ReID embed ({STREAMS * K1_CAP} "
           f"crops) {reid_ms:.4f}, tracker step {trk_ms:.4f} ms", flush=True)
 
@@ -4041,7 +4245,10 @@ def profile_facades(dev, tmp_dir, repeats: int = 5):
     from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
         letterbox_batch_fused,
     )
-    from yolo_deepsort_tpu_torch.ops.nms import batched_nms
+    from yolo_deepsort_tpu_torch.ops.nms import (
+        batched_nms,
+        batched_nms_with_stats_plain,
+    )
     from yolo_deepsort_tpu_torch.parallel.streams import _frame_boxes
     from yolo_deepsort_tpu_torch.tracking.tracker import tracker_step
 
@@ -4060,6 +4267,9 @@ def profile_facades(dev, tmp_dir, repeats: int = 5):
         (b7, mask), nms_ms = _timed(lambda: batched_nms(
             dec, det.conf_thres, det.nms_thres, det.max_boxes,
             trk.max_dets), repeats)
+        _, nms_plain_ms = _timed(lambda: batched_nms_with_stats_plain(
+            dec, det.conf_thres, det.nms_thres, det.max_boxes,
+            trk.max_dets), repeats)
         xyxy, tlwh = _frame_boxes(b7, det.img_size, *hw)
         crops, crops_ms = _timed(lambda: crop_and_normalize(
             up[0], xyxy[0], compute_dtype=dtype), repeats)
@@ -4068,7 +4278,8 @@ def profile_facades(dev, tmp_dir, repeats: int = 5):
             trk, vt.state, tlwh, b7[..., 5], feats[None], mask, hw), repeats)
     print(f"profile: track_frame {call_ms:.4f} ms per call; alone: upload "
           f"{up_ms:.4f}, letterbox {lb_ms:.4f}, backbone + decode "
-          f"{bb_ms:.4f}, NMS {nms_ms:.4f}, dense crops {crops_ms:.4f}, ReID "
+          f"{bb_ms:.4f}, NMS {nms_ms:.4f} (kernel; its plain version "
+          f"{nms_plain_ms:.4f}), dense crops {crops_ms:.4f}, ReID "
           f"embed ({crops.shape[0]} crops) {reid_ms:.4f}, tracker step with "
           f"K5 {trk_ms:.4f} ms", flush=True)
     _device_profile(lambda: [vt.track_frame(frame) for _ in range(4)], 4,
@@ -4755,7 +4966,7 @@ def run_soaks():
     print(f"soak ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
           flush=True)
     n, k = SOAK_CHUNKS, 16
-    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n)
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n, nms=n)
     if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
         raise AssertionError(f"soak: failures {rec['failures']}, launches "
                              f"{rec['launches']} (want {want}), readbacks "
@@ -4769,7 +4980,7 @@ def run_soaks():
           f" s): {json.dumps(rec)}", flush=True)
     steps = 4 * SOAK_CHUNKS
     want = _only(letterbox=steps, crops_dense=steps, tracker=steps,
-                 conv=33 * steps)
+                 conv=33 * steps, nms=steps)
     if (not rec["ok"] or rec["backend"] != "nccl"
             or rec["launches"] != want):
         raise AssertionError(f"soak_multichip: failures {rec['failures']}, "
@@ -4881,8 +5092,8 @@ def run_tools(dev, tmp_dir):
     )
 
     for interp, lbox, want_launches in (
-            ("nearest", letterbox_nearest_batch, _only()),
-            ("bilinear", letterbox_batch, _only(letterbox=1))):
+            ("nearest", letterbox_nearest_batch, _only(nms=1)),
+            ("bilinear", letterbox_batch, _only(letterbox=1, nms=1))):
         with torch.no_grad():
             obj = cpu_model(lbox(torch.from_numpy(frame[None]), 416))[0, :, 4]
         top = torch.sort(obj, descending=True).values
@@ -4982,7 +5193,7 @@ def run_ingest_soak(dev, clip_dir):
     print(f"soak --ingest ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(rec)}", flush=True)
     n, k = VIDEO_CHUNKS, VIDEO_K
-    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n)
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n, nms=n)
     if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
         raise AssertionError(f"soak --ingest: failures {rec['failures']}, "
                              f"launches {rec['launches']} (want {want}), "
@@ -5019,7 +5230,7 @@ def run_bench_video(clip_dir):
     print(f"bench_video ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(rec)}", flush=True)
     c, k = rec["chunks_run"], VIDEO_K
-    want = _only(letterbox=c, crops=c, tracker=k * c, conv=95 * c)
+    want = _only(letterbox=c, crops=c, tracker=k * c, conv=95 * c, nms=c)
     if (rec["frames"] != VIDEO_BENCH_FRAMES
             or c != VIDEO_BENCH_FRAMES // k + 1 or rec["launches"] != want):
         raise AssertionError(f"bench_video: {rec['frames']} frames, {c} "
@@ -5221,11 +5432,12 @@ def _check_dense_calls(seen, tag):
 
 def _scan_launches(k, fused, conv):
     """The launches of one chunk of K frames through make_scanned_step with
-    a bf16 ReID net: K1 once, the dense crops once, K2 never, K3 (the
-    fused branch) or K5 (``tracker_step``) once per frame, and K7 ``conv``
-    times (one forward of each bf16 net per chunk, a launch per conv)."""
+    a bf16 ReID net: K1 once, NMS once, the dense crops once, K2 never, K3
+    (the fused branch) or K5 (``tracker_step``) once per frame, and K7
+    ``conv`` times (one forward of each bf16 net per chunk, a launch per
+    conv)."""
     return _only(letterbox=1, crops_dense=1, tracker=k if fused else 0,
-                 jv_two_stage=0 if fused else k, conv=conv)
+                 jv_two_stage=0 if fused else k, conv=conv, nms=1)
 
 
 def check_small_scanned(dev):
@@ -5778,6 +5990,16 @@ def main() -> int:
 
     mark("small paths")
     setup = main_path_setup(dev)
+    for name, check in (("nms", lambda: check_nms(dev, setup)),
+                        ("roi_nms", lambda: check_roi_nms(rng, dev))):
+        err, ms, plain_ms, note, io_bytes, extra = check()
+        bound_ms, bound_by = roofline(io_bytes, extra["ops"], "f32")
+        results[name] = (err, ms, plain_ms, bound_ms, bound_by, extra)
+        print(f"kernel {name}: max |err| {err:.3g}, kernel {ms:.4f} ms "
+              f"called, plain {plain_ms:.4f} ms{note}; bound "
+              f"{bound_ms:.6g} ms ({bound_by}: {io_bytes} bytes in and out, "
+              f"{extra['ops']} operations), library call: none", flush=True)
+    mark("NMS kernels")
     launches = run_main_path(dev, setup)
     mark("main path")
     # the K=1 path's counts; the chunked path's counts of K1-K3 stay in
@@ -5807,7 +6029,9 @@ def main() -> int:
     mark("probe, kernel 8 at the chunk's crops")
     launches["jv_cascade"] = run_jv_ops(dev)
     with tempfile.TemporaryDirectory() as tmp_dir:
-        launches["jv_two_stage"] = run_facades(dev, tmp_dir)
+        facade_launches = run_facades(dev, tmp_dir)
+        launches["jv_two_stage"] = facade_launches["jv_two_stage"]
+        launches["roi_nms"] = facade_launches["roi_nms"]
         mark("JV ops, facades")
         run_multistream(dev, tmp_dir)
         mark("multistream")
@@ -5867,6 +6091,11 @@ def main() -> int:
         "tracker": ("tracker.cu", "yolo_deepsort_tpu/tracking/tracker_pallas.py:127"),
         "jv_cascade": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:158"),
         "jv_two_stage": ("assignment.cu", "yolo_deepsort_tpu/ops/assignment_pallas.py:174"),
+        "nms": ("nms.cu", "yolo_deepsort_tpu/ops/nms.py:31 (XLA _nms_single: "
+                "lax.top_k and the lax.while_loop at :91; no Pallas kernel)"),
+        "roi_nms": ("nms.cu", "yolo_deepsort_tpu/ops/nms.py:164 (XLA "
+                    "roi_nms_mask: the lax.fori_loop at :206; no Pallas "
+                    "kernel)"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src + meta[name][0],

@@ -86,6 +86,11 @@ SIGNATURES = {
     "ydt_resblock_chain": [_P] * 11 + [_I] * 18 + [_P, _P],
     # x, w, out, m, k, n, ldw, int8_mode, bm, bn, stages, split, stream
     "ydt_matmul_probe": [_P] * 3 + [_I] * 9 + [_P],
+    # pred, thr (or NULL), thr_scalar, keys, tile_valid, dets, mask, sat, n,
+    # nb, ncols, k, max_dets, nms_thres, stream
+    "ydt_nms": [_P, _P, _F] + [_P] * 5 + [_I] * 5 + [_F, _P],
+    # boxes, scores, mask, keep, d, max_overlap, stream
+    "ydt_roi_nms": [_P] * 4 + [_I, _F, _P],
 }
 
 _lock = threading.Lock()

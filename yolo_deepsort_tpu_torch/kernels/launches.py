@@ -24,6 +24,8 @@ LAUNCH_COUNTERS = {
     "conv_int8": ("ops.conv_int8_kernel", "launches"),
     "resblock": ("ops.resblock_kernel", "launches"),
     "matmul_probe": ("tools.int8_probe", "launches"),
+    "nms": ("ops.nms_kernel", "launches"),
+    "roi_nms": ("ops.nms_kernel", "roi_launches"),
 }
 
 

@@ -14,6 +14,16 @@ def xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
 
 
+def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def xywh_to_tlwh(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, w, h], -1)
+
+
 def tlwh_to_xyah(b: torch.Tensor) -> torch.Tensor:
     """Guarded aspect: all-zero padded rows map to a=0, not NaN."""
     x, y, w, h = b.unbind(-1)

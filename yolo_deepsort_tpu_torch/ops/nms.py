@@ -14,6 +14,10 @@ Valid rows form a contiguous score-descending prefix (row i is written on
 step i); the bucketed serving step relies on that.
 
 ``roi_nms_mask`` is the DeepSort-side Malisiewicz NMS of the facades.
+
+On the card both run as CUDA kernels (``ops/nms_kernel.py``,
+``csrc/nms.cu``); the ``_plain`` functions below are their plain versions,
+which only CPU tensors take.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from . import nms_kernel
 from .boxes import iou_xyxy, xywh_to_xyxy
 
 
@@ -34,7 +39,21 @@ def batched_nms_with_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (dets (N, max_dets, 7) [x1, y1, x2, y2, obj, cls_conf, cls],
     mask (N, max_dets) bool, sat (N, 2) int32 [dropped by the top-k,
-    still alive when the output filled])."""
+    still alive when the output filled]). CPU tensors take the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if pred.device.type == "cpu":
+        return batched_nms_with_stats_plain(pred, conf_thres, nms_thres,
+                                            max_boxes, max_dets)
+    return nms_kernel.nms_cuda(pred, conf_thres, nms_thres, max_boxes,
+                               max_dets)
+
+
+def batched_nms_with_stats_plain(
+    pred: torch.Tensor, conf_thres=0.5, nms_thres: float = 0.4,
+    max_boxes: int = 512, max_dets: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ``batched_nms_with_stats``: a ``max_dets``-step
+    loop of batched tensor ops."""
     n, nb, _ = pred.shape
     dev = pred.device
     pred = pred.float()
@@ -106,7 +125,18 @@ def roi_nms_mask(boxes_tlwh: torch.Tensor, scores: torch.Tensor,
     preprocessing.non_max_suppression): boxes in stable descending-score
     order, overlap = intersection / the candidate's area with +1 extents; a
     kept box removes the later boxes it overlaps by more than
-    ``max_overlap``. A fixed D-step loop of tensor ops, no host sync."""
+    ``max_overlap``. CPU tensors take the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if boxes_tlwh.device.type == "cpu":
+        return roi_nms_mask_plain(boxes_tlwh, scores, mask, max_overlap)
+    return nms_kernel.roi_nms_cuda(boxes_tlwh, scores, mask, max_overlap)
+
+
+def roi_nms_mask_plain(boxes_tlwh: torch.Tensor, scores: torch.Tensor,
+                       mask: torch.Tensor, max_overlap: float
+                       ) -> torch.Tensor:
+    """The plain version of ``roi_nms_mask``: a fixed D-step loop of tensor
+    ops, no host sync."""
     boxes_tlwh = boxes_tlwh.float()
     scores = scores.float()
     mask = mask.bool()

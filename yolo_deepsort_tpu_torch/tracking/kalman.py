@@ -141,3 +141,19 @@ def gating_distance_matrix(mean: torch.Tensor, cov: torch.Tensor,
     d = measurements[..., None, :, :] - proj_mean[..., :, None, :]
     y = _forward4(L, *(d[..., k] for k in range(4)))
     return _dot([(v, v) for v in y])
+
+
+def gating_distance(mean: torch.Tensor, cov: torch.Tensor,
+                    measurements: torch.Tensor,
+                    only_position: bool = False) -> torch.Tensor:
+    """Squared Mahalanobis distance of (..., N, 4) xyah measurements to one
+    state, mean (..., 8) and cov (..., 8, 8) -> (..., N).
+
+    ``only_position`` takes (cx, cy) alone, the 2-dof gate: the leading 2x2
+    block of S's Cholesky factor is the factor of S[:2, :2], so the first
+    two terms of the forward solve are that gate's."""
+    proj_mean, s = project(mean, cov)
+    L = [x[..., None] for x in _chol4(s)]  # (..., 1): broadcast over N
+    d = measurements - proj_mean[..., None, :]
+    y = _forward4(L, *(d[..., k] for k in range(4)))
+    return _dot([(v, v) for v in (y[:2] if only_position else y)])

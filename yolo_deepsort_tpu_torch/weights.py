@@ -40,6 +40,14 @@ from .ops.conv_kernel import (  # noqa: F401  (re-exported)
 BN_EPS = 1e-5
 
 
+def count_params(module_defs: Sequence[dict], in_channels: int = 3) -> int:
+    """Total float count of the .weights payload (excluding the header)."""
+    total = 0
+    for _, oc, ic, k, has_bn in conv_layer_shapes(module_defs, in_channels):
+        total += oc * ic * k * k + (4 * oc if has_bn else oc)
+    return total
+
+
 def load_darknet_weights(source, module_defs: Sequence[dict],
                          in_channels: int = 3, cutoff: int | None = None
                          ) -> Tuple[np.ndarray, Dict]:
