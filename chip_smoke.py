@@ -119,17 +119,24 @@ which ends the run with a non-zero exit code when it fails:
    layers through the bf16 conv kernel, 10 through the int8 one, package
    calibrated from two of the frames) routed through kernel 7. Checks per
    step: K1, the dense crops and K3 launch once, K2 never, K7 19 times, one
-   readback and no other synchronizing call; prints p50/p99 ms per step
-   with the route and without it, whether both emit the same rows, and the
-   step's crops alone beside the earlier design's (K2, the per-frame dense
-   crops and the window guard's ``torch.where``) on both clocks.
+   readback and no other synchronizing call; on F5's margin load (the
+   threshold in the widest gap of the unrouted objectness, ``margin_load``)
+   the route's rows equal its plain twin's (``check_twin_rows``: its int8
+   layers move objectness past every margin the load offers, which is
+   printed) and its tracks against the unrouted run's are measured
+   (``PairScore``); prints p50/p99 ms per step with the route and without
+   it, and the step's crops alone beside the earlier design's (K2, the
+   per-frame dense crops and the window guard's ``torch.where``) on both
+   clocks.
 4c. int8-resident ReID embed (``run_int8_embed_paths``): the package of
    ``quantize_reid_params_resident`` (seeded ReID weights, 64 N(0, 1) crops,
    calibrated on the card) through the chunked step and the K=1 step with
    ``embed_int8="resident_pallas"`` on the main path's model and frames:
    per chunk K8 15 launches, K1 1, K2 1, K3 K; per K=1 step K8 15, K1, the
    dense crops, K3 1; one readback each and no other synchronizing call;
-   frames/s and p50/p99 beside the bf16 embed's in alternated blocks; and
+   frames/s and p50/p99 beside the bf16 embed's in alternated blocks; on
+   the margin load each step's tracks are the bf16 embed's (churn 0, mean
+   IoU >= ROUTE_MIN_IOU, an id remap rate of at most 0.02); and
    both steps under ``YDT_CROPS_LAYOUT=interleaved`` (K6 1 per chunk and 0
    per step, K2 0, rows equal to the planar run's).
 4d. fused residual chains (``run_resblock_paths``): the chunked step and
@@ -142,8 +149,10 @@ which ends the run with a non-zero exit code when it fails:
    dense crops), K3 as before,
    one readback and no other synchronizing call; the routed
    detector's decoded output against the unrouted one; frames/s and p50/p99
-   beside the unrouted run's in alternated blocks; emitted rows beside the
-   unrouted run's, the number that differ printed.
+   beside the unrouted run's in alternated blocks; on the margin load the
+   bf16 chains' tracks are the unrouted run's (churn 0, mean IoU >=
+   ROUTE_MIN_IOU, no id remapped) and the int8 chains' rows exactly those
+   of kernel 7's int8 modes layer by layer, chunked and K=1.
 4e. the int8 probe (``run_probe_path``): ``tools/int8_probe.py``
    ``run_probe`` at its default shape; its JSON record on a line of its own.
 4f. the monolithic chunk step (``run_scanned_path``): ``make_scanned_step``
@@ -233,6 +242,12 @@ which ends the run with a non-zero exit code when it fails:
    launches counted), then ``tools/soak.py`` (yolov3-416 bf16, K 16, 8 x
    1080p, SOAK_CHUNKS chunks) and ``tools/soak_multichip.py`` on one NCCL
    rank: every invariant must hold, every kernel of their paths launch.
+   Between them the track-level gate (``run_int8_track_gate``,
+   ``tools/int8_track_gate.py`` at its defaults: yolov3-416, 2 x 1080p,
+   60 K=1 steps of f32, bf16, the int8 route and its plain twin): verdict
+   printed; the int8 route's tracks exactly the twin's, its decoded tensor
+   equal, kernel 7 launched once a conv a step (bf16 and int8 paths) or an
+   unpackaged conv (the twin).
 9d. the tools (``run_tools``): (a) ``tools/verify_weights.py`` ``verify``
    at yolov3-416, batch 1, float32 and the bfloat16 module (kernel 7 on all
    75 convs), against the numpy oracle on a well-conditioned random
@@ -280,7 +295,8 @@ and read just after (the ``kernels`` line: ``launches`` from path 4,
 chunk of each tracker branch, every counter of the port read -- and
 ``launches_quality_gate`` from 8, likewise, ``launches_global_ids_path``
 from 7b's counted run, ``launches_int8_gates_path`` from 9c's three
-gates, ``launches_soak_path`` and ``launches_soak_multichip_path`` from
+gates, ``launches_int8_track_gate_path`` from its track gate,
+``launches_soak_path`` and ``launches_soak_multichip_path`` from
 the soaks' timed loops, ``launches_tools_path`` from 9d's (a) and (c),
 ``launches_video_path`` from the timed loops of 9e's (a) and (b)). Prints frames/s and per-stage times,
 the facades' ms per call, a JSON line of per-kernel results, the card's
@@ -378,11 +394,31 @@ RESBLOCK_CHUNKS, RESBLOCK_K1_STEPS = 3, 15
 # its largest magnitude (the reference's bound for its hook), for the bf16
 # and the W8A8 chains alike, at the K=1 and at the chunked step's batch
 TOL_ROUTED_DECODED = 4e-2
-# routed against unrouted serving runs: a routed row counts as the same
-# object when a row of the unrouted run lies within this on every coordinate
-# (frame pixels; one pixel of the detector's 416 input is 4.6 of a 1080p
-# frame's)
-ROW_MATCH_PX = 5
+# F5's margin load, the route checks' thresholds (the main path keeps its
+# calibrated ones): the midpoint of the widest gap in the unrouted bf16
+# detector's objectness between ranks 16 and 48 of each stream's frame (a
+# chunked step's per-stream thresholds) or 16 S and 48 S of the streams'
+# pooled values (the one threshold of a K=1 step), half the gap its margin.
+# A route's objectness change is taken over each frame's candidates within
+# MARGIN_NEAR ranks of its threshold (the unrouted order). A route held to
+# the unrouted run must change objectness by less than the margin; while it
+# does not, the window widens along MARGIN_WINDOWS (the window taken is
+# printed). The W8A8 routes (the K=1 conv route's int8 layers, the int8
+# chains) move objectness by 4-7 bf16 ulps of the logit, and the noise
+# load's candidates lie about one ulp apart in every window: no window
+# holds them (the smoke prints each one's change beside the widest margin
+# the windows offer), so they are held exactly to a second implementation
+# of their own arithmetic instead (``check_twin_rows``), and their tracks
+# against the unrouted run's are printed as a measurement.
+MARGIN_WINDOWS = ((16, 48), (8, 64), (4, 96))
+MARGIN_NEAR = 48
+# routed against unrouted serving runs on that load, through
+# ``tools/int8_track_gate.py`` ``PairScore`` (greedy IoU matching a frame,
+# ids followed across frames): churn 0, matched boxes at a mean IoU of at
+# least ROUTE_MIN_IOU, ids remapped at most at the reference gate's rate
+# (its MAX_REMAP_RATE) -- and never where the tracker sees the same
+# detections (the bf16 chains; the int8 embed changes only the features)
+ROUTE_MIN_IOU = 0.99
 
 # the card's published peaks (H100 SXM, dense): the roofline bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -1987,18 +2023,185 @@ def run_main_path(dev, setup=None):
     return launches
 
 
+def widest_gap(obj, lo: int, hi: int):
+    """A threshold with a margin: the midpoint of the widest gap between
+    neighbours of ``obj``'s values sorted descending, among ranks ``lo`` ..
+    ``hi`` (0-based, both included). -> (threshold, margin: half the
+    gap)."""
+    import torch
+
+    top = torch.sort(obj.flatten().float(), descending=True).values[lo:hi + 1]
+    gaps = top[:-1] - top[1:]
+    k = int(torch.argmax(gaps))
+    return float((top[k] + top[k + 1]) / 2), float(gaps[k]) / 2
+
+
+def route_objectness(detector, frames, **impls):
+    """The bf16 detector's objectness on (N, H, W, 3) uint8 frames through
+    the serving steps' letterbox, with ``conv_impl`` / ``block_impl`` as
+    given: (N, B) float32."""
+    import torch
+
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused,
+    )
+
+    with torch.no_grad():
+        xs = letterbox_batch_fused(frames, 416, torch.bfloat16)
+        return detector(xs, **impls)[..., 4].float()
+
+
+def near_change(ref, got, thr):
+    """``got`` (N, B) against ``ref`` (N, B) at thresholds ``thr`` (N,):
+    -> (each frame's largest |got - ref| over its candidates within
+    MARGIN_NEAR ranks of the threshold in ``ref``'s order (N,), the
+    candidates on the other side of the threshold in ``got``)."""
+    import torch
+
+    order = torch.argsort(ref, dim=-1, descending=True)
+    above = (ref > thr[:, None]).sum(-1, keepdim=True)
+    rank = torch.arange(ref.shape[1], device=ref.device)[None]
+    near = (rank >= above - MARGIN_NEAR) & (rank < above + MARGIN_NEAR)
+    diff = (got - ref).abs().gather(1, order)
+    crossed = (ref > thr[:, None]) != (got > thr[:, None])
+    return torch.where(near, diff, 0.0).amax(-1), int(crossed.sum())
+
+
+def margin_load(ref, held, measured, per_stream):
+    """F5's margin load over ``ref`` (S, B), the unrouted objectness of one
+    frame a stream: thresholds in the widest gap of MARGIN_WINDOWS' first
+    window in which every ``held`` route's change stays below the margin.
+    ``held`` and ``measured`` {name: (N, B) objectness, row k * S + s a
+    frame of stream s}: a route's forward, or the unrouted one at another
+    batch; the ``measured`` routes are reported, each with the largest
+    slack (its stream's margin less its change, at the stream where that is
+    least) any window offers it. -> {"thr": one float, or (S,) float32 per
+    stream, "margin" (S,), "window", "change" {name: largest change},
+    "crossed" {name: candidates across}, "measured" {name: (change, largest
+    slack of any window)}}."""
+    import torch
+
+    s = ref.shape[0]
+    tried, best, found = [], {}, None
+    for lo, hi in MARGIN_WINDOWS:
+        if per_stream:
+            gaps = [widest_gap(ref[i], lo, hi) for i in range(s)]
+        else:
+            gaps = [widest_gap(ref, lo * s, hi * s)] * s
+        thr = torch.tensor([g[0] for g in gaps], device=ref.device)
+        margin = np.array([g[1] for g in gaps])
+        change, crossed = {}, {}
+        for name, got in {**held, **measured}.items():
+            k = got.shape[0] // s
+            per_frame, crossed[name] = near_change(ref.repeat(k, 1), got,
+                                                   thr.repeat(k))
+            change[name] = per_frame.reshape(k, s).amax(0).cpu().numpy()
+        for name in measured:
+            # the window's slack for this route: its least margin - change
+            best[name] = max(best.get(name, -np.inf),
+                             float((margin - change[name]).min()))
+        tried.append(((lo, hi), float(margin.min()),
+                      {n: float(c.max()) for n, c in change.items()}))
+        if found is None and all((change[n] < margin).all() for n in held):
+            found = {"thr": (thr.cpu().numpy() if per_stream
+                             else float(thr[0])),
+                     "margin": margin, "window": (lo, hi),
+                     "change": {n: float(c.max())
+                                for n, c in change.items()},
+                     "crossed": crossed}
+    if found is None:
+        raise AssertionError(f"margin load: a held route's objectness change "
+                             f"beats the margin in every window (window, "
+                             f"smallest margin, changes): {tried}")
+    found["measured"] = {n: (found["change"][n], best[n]) for n in measured}
+    return found
+
+
+def margin_note(m) -> str:
+    """One printed line's worth of a ``margin_load``."""
+    lo, hi = m["window"]
+    note = (f"margin load: window of ranks {lo}-{hi}, margin (half the "
+            f"widest gap) {float(m['margin'].min()):.6g} smallest, "
+            f"{float(m['margin'].max()):.6g} largest; objectness change "
+            f"within {MARGIN_NEAR} ranks of the threshold "
+            + ", ".join(f"{n} {c:.6g}" for n, c in m["change"].items())
+            + "; candidates across the threshold "
+            + ", ".join(f"{n} {c}" for n, c in m["crossed"].items()))
+    for name, (change, slack) in m["measured"].items():
+        note += (f"; {name}: margin less change at best {slack:.6g} over "
+                 f"windows {list(MARGIN_WINDOWS)} (held: {slack > 0})")
+    return note
+
+
+def chunk_rows(res):
+    """A chunked step's (outputs (K, S, T, 5), emit (K, S, T)) -> a list
+    over its K frames of a list over the streams of (n, 5) emitted rows."""
+    from yolo_deepsort_tpu_torch.api import _emitted_rows
+
+    out, emit = res
+    rows, s = _emitted_rows(out, emit), out.shape[1]
+    return [rows[k * s:(k + 1) * s] for k in range(out.shape[0])]
+
+
+def check_twin_rows(tag, twin, routed):
+    """A W8A8 route's emitted rows against a second implementation of the
+    same arithmetic (its plain twin, or kernel 7's int8 modes layer by
+    layer for the int8 chains), each a list over frames of a list over
+    streams of (n, 5) rows: exactly equal, frame for frame. -> the
+    ``PairScore`` summary (churn 0, no id remapped)."""
+    from yolo_deepsort_tpu_torch.tools.int8_track_gate import score_runs
+
+    for f, (a, b) in enumerate(zip(twin, routed, strict=True)):
+        for s, (ra, rb) in enumerate(zip(a, b, strict=True)):
+            if not np.array_equal(ra, rb):
+                raise AssertionError(f"{tag}: frame {f} stream {s} emits "
+                                     f"{rb.tolist()}, its twin "
+                                     f"{ra.tolist()}")
+    rec = score_runs(twin, routed)
+    if rec["tracks_a"] == 0:
+        raise AssertionError(f"{tag}: no tracks emitted")
+    return rec
+
+
+def check_route_rows(tag, unrouted, routed, same_detections):
+    """The routed run's emitted rows against the unrouted run's, each a list
+    over frames of a list over streams of (n, 5) rows, through
+    ``PairScore``: churn 0, mean IoU >= ROUTE_MIN_IOU, an id remap rate of
+    at most the reference gate's, none with ``same_detections``. -> the
+    summary."""
+    from yolo_deepsort_tpu_torch.tools.int8_track_gate import (
+        MAX_REMAP_RATE,
+        score_runs,
+    )
+
+    rec = score_runs(unrouted, routed)
+    max_remaps = 0 if same_detections else MAX_REMAP_RATE
+    if not (rec["tracks_a"] > 0 and rec["churn"] == 0
+            and rec["mean_iou"] >= ROUTE_MIN_IOU
+            and rec["id_remap_rate"] <= max_remaps):
+        raise AssertionError(f"{tag}: the routed run's tracks differ from "
+                             f"the unrouted run's on the margin load: {rec}")
+    return rec
+
+
 def k1_setup(dev, setup=None):
     """The K=1 low-latency step of the main path's model: yolov3-416 bf16,
     8 x 1080p, cap K1_CAP, crop window K1_WINDOW, with the conv route
     CONV_ROUTE (int8 package calibrated from two of the frames by the f32
     detector on the card) and without it. ``make_batched_step`` takes one
     threshold for all streams, in the reference as here (per-stream
-    thresholds belong to the chunked detect stage): it runs at the mean of
-    the main path's per-stream ones, as the reference's K=1 bench does."""
+    thresholds belong to the chunked detect stage): F5's margin load over
+    the streams' pooled objectness (``margin_load``; ``parts["margin"]``),
+    with the conv route's change measured beside it. ``parts["twin"]`` is
+    the route's plain twin: the packaged layers through
+    ``conv_plain_int8``, every other conv as on the route."""
     from yolo_deepsort_tpu_torch.models.quantize_darknet import (
         quantize_darknet_from_frames,
     )
-    from yolo_deepsort_tpu_torch.parallel.streams import make_batched_step
+    from yolo_deepsort_tpu_torch.parallel.streams import (
+        _make_conv_impl,
+        make_batched_step,
+    )
     from yolo_deepsort_tpu_torch.weights import darknet_from_raw
 
     _, _, frames, parts = setup or main_path_setup(dev)
@@ -2008,26 +2211,35 @@ def k1_setup(dev, setup=None):
         parts["det_cfg"].img_size, max_frames=2, layers=CONV_ROUTE["int8"])
     if set(pkg) != set(CONV_ROUTE["int8"]):
         raise AssertionError(f"int8 package holds layers {sorted(pkg)}")
+    detector = parts["detector"]
+    margin = margin_load(route_objectness(detector, base), {}, {
+        "conv route": route_objectness(
+            detector, base, conv_impl=_make_conv_impl(CONV_ROUTE, pkg))},
+        per_stream=False)
+    det_cfg = dataclasses.replace(parts["det_cfg"], conf_thres=margin["thr"])
     hw = (FRAME_H, FRAME_W)
-    args = (parts["detector"], parts["reid"], parts["det_cfg"],
-            parts["trk_cfg"], hw)
+    args = (detector, parts["reid"], det_cfg, parts["trk_cfg"], hw)
     kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
     routed = make_batched_step(*args, use_pallas_conv=CONV_ROUTE,
                                backbone_int8_pkg=pkg, **kw)
     unrouted = make_batched_step(*args, **kw)
-    return routed, unrouted, base, dict(parts, int8_pkg=pkg)
+    twin = make_batched_step(*args, use_pallas_conv="plain-twin",
+                             backbone_int8_pkg=pkg, **kw)
+    return routed, unrouted, base, dict(parts, int8_pkg=pkg, det_cfg=det_cfg,
+                                        margin=margin, twin=twin)
 
 
 def _k1_latency(step, states, base, steps):
     """``steps`` K=1 steps, each ending in its one readback: ms per step by
-    host clock, the last rows and the states."""
+    host clock, every step's rows (a list over streams of (n, 5) emitted
+    rows) and the states."""
     from yolo_deepsort_tpu_torch.api import _emitted_rows
 
-    ms, rows = [], None
+    ms, rows = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         states, (outputs, emit) = step(states, base)
-        rows = _emitted_rows(outputs, emit)
+        rows.append(_emitted_rows(outputs, emit))
         ms.append((time.perf_counter() - t0) * 1e3)
     return ms, rows, states
 
@@ -2037,10 +2249,15 @@ def run_k1_path(dev, setup=None):
     K3 launch once, K2 never, and K7 once per routed layer; a step with its
     readback makes no other synchronizing call (2 steps in sync debug mode
     "error"); tracks confirm on the static scene and rows are emitted.
-    Prints p50/p99 ms per step with the conv route and without it
-    (alternated blocks on fresh states), whether both emit the same rows,
-    and the step's crops alone beside the earlier design's (kernel 2, the
-    per-frame dense crops and the guard's ``torch.where``), on both clocks.
+    On F5's margin load (``k1_setup``) the route's int8 layers move
+    objectness past every window's margin, so the routed run's rows over
+    the K1_STEPS counted steps must equal its plain twin's exactly
+    (``check_twin_rows``), and its tracks against the unrouted run's are
+    printed (``PairScore``). Prints p50/p99 ms per step with the conv route
+    and without it (alternated blocks on fresh states), the margin and the
+    comparisons' summaries, and the step's crops alone beside the earlier
+    design's (kernel 2, the per-frame dense crops and the guard's
+    ``torch.where``), on both clocks.
     Returns the launches of the counted run."""
     import torch
 
@@ -2048,6 +2265,7 @@ def run_k1_path(dev, setup=None):
         init_stream_states,
         make_k1_crops,
     )
+    from yolo_deepsort_tpu_torch.tools.int8_track_gate import score_runs
 
     routed, unrouted, base, parts = k1_setup(dev, setup)
     trk_cfg = parts["trk_cfg"]
@@ -2073,7 +2291,7 @@ def run_k1_path(dev, setup=None):
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
     n_conf = int((states.state == 2).sum())
-    if n_conf == 0 or sum(len(r) for r in on_rows) == 0:
+    if n_conf == 0 or sum(len(r) for r in on_rows[-1]) == 0:
         raise AssertionError("no confirmed / emitted tracks on the K=1 path")
     if not bool(torch.isfinite(states.mean).all()):
         raise AssertionError("non-finite tracker state on the K=1 path")
@@ -2083,7 +2301,11 @@ def run_k1_path(dev, setup=None):
     off_states = init_stream_states(trk_cfg, STREAMS)
     _, _, off_states = _k1_latency(unrouted, off_states, base, 7)
     off_ms, off_rows, _ = _k1_latency(unrouted, off_states, base, K1_STEPS)
-    same = all(np.array_equal(a, b) for a, b in zip(on_rows, off_rows))
+    # the route against its plain twin, from fresh states over as many steps
+    _, twin_rows, _ = _k1_latency(parts["twin"], init_stream_states(
+        trk_cfg, STREAMS), base, 7 + K1_STEPS)
+    twin = check_twin_rows("K=1 conv route", twin_rows[7:], on_rows)
+    against_off = score_runs(off_rows, on_rows)
 
     # the step's crops alone, and the earlier design's (kernel 2, the dense
     # crops per frame and the guard's torch.where), on the same boxes
@@ -2111,9 +2333,11 @@ def run_k1_path(dev, setup=None):
           f"{per_step} ({N_ROUTED} of them the routed layers); 1 readback "
           f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
           f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
-          f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; both "
-          f"emit the same rows: {same} ({sum(len(r) for r in on_rows)} vs "
-          f"{sum(len(r) for r in off_rows)} rows); confirmed tracks "
+          f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; threshold "
+          f"{parts['det_cfg'].conf_thres:.6g}, {margin_note(parts['margin'])}"
+          f"; over {K1_STEPS} steps the routed rows equal its plain twin's "
+          f"({json.dumps(twin)}); its tracks against the unrouted run's "
+          f"(measured): {json.dumps(against_off)}; confirmed tracks "
           f"{n_conf}; the step's crops alone (called / device ms, "
           f"{STREAMS} x {K1_CAP} boxes): one dense launch "
           f"{crop_ms['new']} {crop_ms['new2']}, the earlier design (K2 + dense "
@@ -2144,16 +2368,29 @@ def run_int8_embed_paths(dev, setup):
     )
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
-    bf16_step, _, frames, parts = setup
+    _, _, frames, parts = setup
     n_det = n_convs(parts["detector"])  # K7 per forward; the embed is K8's
     trk_cfg, det_cfg = parts["trk_cfg"], parts["det_cfg"]
     hw = (FRAME_H, FRAME_W)
     _, pkg = reid_int8_package(dev)
-    int8_step = BucketedScannedStep(
-        parts["detector"], pkg, det_cfg, trk_cfg, hw,
-        buckets=(16, 24, 32, 36, 40, 48),
-        conf_thres_per_stream=parts["conf_vec"],
-        embed_int8="resident_pallas")
+    # F5's margin load: the route leaves the detector as it is, so its
+    # change is the unrouted detector's own, at the chunk's batch and again
+    # at the K=1 step's
+    base = frames[0]
+    ref = route_objectness(parts["detector"], base)
+    margin = {
+        "chunked": margin_load(ref, {"detector at 32 frames": (
+            route_objectness(parts["detector"], frames.flatten(0, 1)))},
+            {}, per_stream=True),
+        "K=1": margin_load(ref, {"detector again": route_objectness(
+            parts["detector"], base)}, {}, per_stream=False)}
+    chunk_kw = dict(buckets=(16, 24, 32, 36, 40, 48),
+                    conf_thres_per_stream=margin["chunked"]["thr"])
+    bf16_step = BucketedScannedStep(parts["detector"], parts["reid"],
+                                    det_cfg, trk_cfg, hw, **chunk_kw)
+    int8_step = BucketedScannedStep(parts["detector"], pkg, det_cfg, trk_cfg,
+                                    hw, embed_int8="resident_pallas",
+                                    **chunk_kw)
 
     def reset_counters():
         for m in (letterbox_kernel, crops_kernel, tracker_kernel,
@@ -2219,8 +2456,8 @@ def run_int8_embed_paths(dev, setup):
             or not bool(torch.isfinite(st["int8"].gallery).all())):
         raise AssertionError("int8 embed, chunked: no confirmed / emitted "
                              "tracks, or a non-finite state")
-    same = (torch.equal(out8[emit8], last["bf16"][0][last["bf16"][1]])
-            if torch.equal(emit8, last["bf16"][1]) else False)
+    same = check_route_rows("int8 embed, chunked", chunk_rows(last["bf16"]),
+                            chunk_rows(last["int8"]), same_detections=False)
     crops_per_chunk = K_FRAMES * STREAMS * int8_step.last_bucket
     print(f"int8 embed, chunked (yolov3-416 bf16, {STREAMS} x {FRAME_H}p, "
           f"K={K_FRAMES}, embed_int8=resident_pallas, {crops_per_chunk} crops "
@@ -2230,8 +2467,10 @@ def run_int8_embed_paths(dev, setup):
           f"no other "
           f"sync; frames/s over {INT8_CHUNKS} chunks, blocks bf16 int8 int8 "
           f"bf16: int8 {fps['int8']}, bf16 {fps['bf16']}; confirmed tracks "
-          f"{n_conf}, emitted rows {int(emit8.sum())}; rows equal to the "
-          f"bf16 embed's: {same}", flush=True)
+          f"{n_conf}, emitted rows {int(emit8.sum())}; "
+          f"{margin_note(margin['chunked'])}; the last chunk's tracks against "
+          f"the bf16 embed's (churn 0, mean IoU >= {ROUTE_MIN_IOU}, id remap "
+          f"rate <= 0.02): {json.dumps(same)}", flush=True)
 
     # kernel 6 on the chunked path: the same chunks from fresh states under
     # YDT_CROPS_LAYOUT=interleaved and planar; kernels 6 and 2 are equal bit
@@ -2270,11 +2509,11 @@ def run_int8_embed_paths(dev, setup):
 
     # K=1 path: the int8 embed, planar then interleaved crops, and the bf16
     # embed, each from fresh states over the same number of steps
-    base = frames[0]
-    args = (parts["detector"], pkg, det_cfg, trk_cfg, hw)
+    k1_cfg = dataclasses.replace(det_cfg, conf_thres=margin["K=1"]["thr"])
+    args = (parts["detector"], pkg, k1_cfg, trk_cfg, hw)
     kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
     k1_int8 = make_batched_step(*args, embed_int8="resident_pallas", **kw)
-    k1_bf16 = make_batched_step(parts["detector"], parts["reid"], det_cfg,
+    k1_bf16 = make_batched_step(parts["detector"], parts["reid"], k1_cfg,
                                 trk_cfg, hw, **kw)
 
     def k1_run(step, check_sync):
@@ -2302,7 +2541,8 @@ def run_int8_embed_paths(dev, setup):
         raise AssertionError(f"int8 embed, K=1: launches over "
                              f"{INT8_K1_STEPS} steps {k1_counts}, expected "
                              f"{want}")
-    if (int((st8.state == 2).sum()) == 0 or sum(len(r) for r in rows8) == 0
+    if (int((st8.state == 2).sum()) == 0
+            or sum(len(r) for r in rows8[-1]) == 0
             or not bool(torch.isfinite(st8.mean).all())):
         raise AssertionError("int8 embed, K=1: no confirmed / emitted tracks")
     ms16, rows16, _, _ = k1_run(k1_bf16, False)
@@ -2314,10 +2554,12 @@ def run_int8_embed_paths(dev, setup):
     if k6_counts != want:  # the K=1 step's crops are the dense entry
         raise AssertionError(f"int8 embed, K=1, interleaved crops: launches "
                              f"{k6_counts}, expected {want}")
-    if not all(np.array_equal(a, b) for a, b in zip(rows6, rows8)):
+    if not all(np.array_equal(a, b) for s6, s8 in zip(rows6, rows8)
+               for a, b in zip(s6, s8)):
         raise AssertionError("K=1 rows under YDT_CROPS_LAYOUT=interleaved "
                              "differ from the planar run's")
-    same = all(np.array_equal(a, b) for a, b in zip(rows8, rows16))
+    same = check_route_rows("int8 embed, K=1", rows16, rows8,
+                            same_detections=False)
 
     def pct(ms, q):
         return float(np.percentile(ms, q))
@@ -2329,9 +2571,10 @@ def run_int8_embed_paths(dev, setup):
           f"crops 1, K3 1; 1 "
           f"readback per step and no other sync; p50 {pct(ms8, 50):.4f} ms, "
           f"p99 {pct(ms8, 99):.4f} ms per step; bf16 embed: p50 "
-          f"{pct(ms16, 50):.4f} ms, p99 {pct(ms16, 99):.4f} ms; rows equal "
-          f"to the bf16 embed's: {same} ({sum(len(r) for r in rows8)} vs "
-          f"{sum(len(r) for r in rows16)} rows); under "
+          f"{pct(ms16, 50):.4f} ms, p99 {pct(ms16, 99):.4f} ms; threshold "
+          f"{k1_cfg.conf_thres:.6g}, {margin_note(margin['K=1'])}; tracks "
+          f"against the bf16 embed's over {INT8_K1_STEPS} steps: "
+          f"{json.dumps(same)}; under "
           f"YDT_CROPS_LAYOUT=interleaved: launches per step K6 0, K2 0, "
           f"dense crops 1, K8 "
           f"{N_INT8_CONVS}, rows equal to the planar run's, p50 "
@@ -2638,10 +2881,8 @@ def check_small_resblock(dev):
             obj = cpu_det(letterbox_batch(frames, size),
                           block_impl=_make_block_impl(
                               plan, mode, route["backbone_int8_pkg"]))[..., 4]
-        top = torch.sort(obj.flatten(), descending=True).values[8:21]
-        gap = int(torch.argmax(top[:-1] - top[1:]))
-        det_cfg = DetectorConfig(img_size=size, max_dets=8, conf_thres=float(
-            (top[gap] + top[gap + 1]) / 2))
+        det_cfg = DetectorConfig(img_size=size, max_dets=8,
+                                 conf_thres=widest_gap(obj, 8, 20)[0])
         kw = dict(cap=6, crop_window=(48, 64), **route)
         ref = make_batched_step(cpu_det, reid(), det_cfg, trk_cfg, (h, w),
                                 **kw)
@@ -2722,10 +2963,17 @@ def run_resblock_paths(dev, setup):
     paths, one readback and no other synchronizing call (sync debug mode
     "error"); the routed detector's decoded output against the unrouted one
     at both batches, 8 and 32 frames (both routes within TOL_ROUTED_DECODED
-    of each column's scale); confirmed tracks and emitted rows. Prints frames/s and
-    p50 / p99 beside the unrouted run's in alternated blocks, and how many
-    emitted rows differ from the unrouted run's. Returns the launch counts
-    of the counted runs."""
+    of each column's scale); confirmed tracks and emitted rows; on F5's
+    margin load (``margin_load``, held against the bf16 chains' objectness
+    change, the int8 chains' measured) the bf16 chains' tracks equal to the
+    unrouted run's (``check_route_rows``: churn 0, mean IoU >=
+    ROUTE_MIN_IOU, no id remapped) and the int8 chains' rows exactly those
+    of kernel 7's int8 modes on the same package layer by layer
+    (``check_twin_rows``), over the last chunk and over the K=1 steps.
+    Prints frames/s and p50 / p99 beside the unrouted run's in alternated
+    blocks, the margins and the comparisons' summaries, the int8 chains'
+    against the unrouted run measured. Returns the launch counts of the
+    counted runs."""
     import torch
 
     from yolo_deepsort_tpu_torch.ops import (
@@ -2743,9 +2991,10 @@ def run_resblock_paths(dev, setup):
         init_stream_states,
         make_batched_step,
     )
+    from yolo_deepsort_tpu_torch.tools.int8_track_gate import score_runs
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
-    off_step, _, frames, parts = setup
+    _, _, frames, parts = setup
     trk_cfg, det_cfg, plan = parts["trk_cfg"], parts["det_cfg"], parts["plan"]
     detector, base = parts["detector"], frames[0]
     hw = (FRAME_H, FRAME_W)
@@ -2754,13 +3003,14 @@ def run_resblock_paths(dev, setup):
     # what the planner promises per forward, and the routed detector's
     # decoded output against the unrouted one, at the K=1 step's batch and
     # at the chunked step's (all K_FRAMES * STREAMS frames of a chunk)
-    promised, decoded_err, box_err = {}, {}, {}
+    promised, decoded_err, box_err, obj = {}, {}, {}, {}
     batches = {STREAMS: base, K_FRAMES * STREAMS: frames.flatten(0, 1)}
     with torch.no_grad():
         for n, batch in batches.items():
             xs = letterbox_batch_fused(batch, det_cfg.img_size,
                                        torch.bfloat16)
             want = detector(xs)
+            obj[("off", n)] = want[..., 4].float()
             scale = want.abs().amax((0, 1)).clamp(min=1.0)
             for name, route in routes.items():
                 promised[(name, n)] = sum(
@@ -2771,6 +3021,7 @@ def run_resblock_paths(dev, setup):
                                         route.get("backbone_int8_pkg"))
                 before = resblock_kernel.launches
                 got = detector(xs, block_impl=impl)
+                obj[(name, n)] = got[..., 4].float()
                 if resblock_kernel.launches - before != promised[(name, n)]:
                     raise AssertionError(
                         f"routed forward ({name}, {n} frames): "
@@ -2785,6 +3036,20 @@ def run_resblock_paths(dev, setup):
                         f"decoded output {decoded_err[(name, n)]} of its "
                         f"column scale from the unrouted one")
             del xs, want, got
+    # F5's margin load over the unrouted detector at the K=1 step's batch,
+    # held against the bf16 chains' change (and, for the chunked steps, the
+    # unrouted detector's own at the chunk's batch), the int8 chains'
+    # measured beside it
+    chunk = K_FRAMES * STREAMS
+    margin = {
+        "chunked": margin_load(obj[("off", STREAMS)], {
+            "bf16 chains": obj[("bf16", chunk)],
+            "unrouted at 32 frames": obj[("off", chunk)]},
+            {"int8 chains": obj[("int8", chunk)]}, per_stream=True),
+        "K=1": margin_load(obj[("off", STREAMS)], {
+            "bf16 chains": obj[("bf16", STREAMS)]},
+            {"int8 chains": obj[("int8", STREAMS)]}, per_stream=False)}
+    del obj
     if set(promised.values()) != {len(RESBLOCK_CLASSES)}:
         raise AssertionError(f"planner promises {promised} launches per "
                              "forward, expected one per chain")
@@ -2813,8 +3078,9 @@ def run_resblock_paths(dev, setup):
 
     # chunked path
     kw = dict(buckets=(16, 24, 32, 36, 40, 48),
-              conf_thres_per_stream=parts["conf_vec"])
-    steps = {"off": off_step}
+              conf_thres_per_stream=margin["chunked"]["thr"])
+    steps = {"off": BucketedScannedStep(detector, parts["reid"], det_cfg,
+                                        trk_cfg, hw, **kw)}
     for name, route in routes.items():
         steps[name] = BucketedScannedStep(detector, parts["reid"], det_cfg,
                                           trk_cfg, hw, **kw, **route)
@@ -2834,7 +3100,7 @@ def run_resblock_paths(dev, setup):
             raise AssertionError(f"chain route ({name}): "
                                  f"{steps[name].host_readbacks - readbacks} "
                                  "stats readbacks in 2 chunks")
-    st["off"], _ = pipelined(off_step, st["off"], frames, 2)
+    st["off"], _ = pipelined(steps["off"], st["off"], frames, 2)
     fps = {name: [] for name in steps}
     last, chunk_counts = {}, {}
     for name in ("off", "bf16", "int8", "int8", "bf16", "off"):
@@ -2868,27 +3134,29 @@ def run_resblock_paths(dev, setup):
     if chunk_counts["off"]["resblock"] != 0:
         raise AssertionError("the unrouted step launched K9")
 
-    def rows_differing(a, b):
-        """(emitted rows of run a, those with no exactly equal row in run b
-        -- (frame, stream, x1, y1, x2, y2, id) --, those with no row of b in
-        the same frame and stream within ROW_MATCH_PX on every coordinate,
-        whatever its id)."""
-        def rows(res):
-            out, emit = (t.cpu().numpy() for t in res)
-            idx = np.argwhere(emit)
-            return [(tuple(i[:-1]), out[tuple(i)]) for i in idx]
-        ra, rb = rows(a), rows(b)
-        exact = {(*k, *r) for k, r in rb}
-        by_frame = {}
-        for k, r in rb:
-            by_frame.setdefault(k, []).append(r[:4])
-        no_exact = sum((*k, *r) not in exact for k, r in ra)
-        no_near = sum(
-            not any(np.abs(r[:4] - o).max() <= ROW_MATCH_PX
-                    for o in by_frame.get(k, ())) for k, r in ra)
-        return len(ra), no_exact, no_near
-
-    diff = {name: rows_differing(last[name], last["off"]) for name in routes}
+    # the bf16 chains against the unrouted run; the int8 chains, whose
+    # change the margin cannot hold, against kernel 7's int8 modes on the
+    # same package layer by layer (the same arithmetic: ``mid`` rounded to
+    # bf16 and quantized by the second conv, a bf16 shortcut add), from
+    # fresh states over as many chunks, and measured against the unrouted
+    # run
+    per_layer = dict(use_pallas_conv={"int8": resblock_chain_layers(plan)},
+                     backbone_int8_pkg=routes["int8"]["backbone_int8_pkg"])
+    twin_step = BucketedScannedStep(detector, parts["reid"], det_cfg,
+                                    trk_cfg, hw, **kw, **per_layer)
+    twin_states = init_stream_states(trk_cfg, STREAMS)
+    for _ in range(4 + 2 * RESBLOCK_CHUNKS):
+        twin_states, twin_last = twin_step(twin_states, frames)
+    same = {
+        "bf16": check_route_rows(
+            "chain route (bf16), chunked", chunk_rows(last["off"]),
+            chunk_rows(last["bf16"]), same_detections=True),
+        "int8": check_twin_rows(
+            "chain route (int8), chunked", chunk_rows(twin_last),
+            chunk_rows(last["int8"])),
+        "int8 against off": score_runs(chunk_rows(last["off"]),
+                                       chunk_rows(last["int8"]))}
+    del twin_step, twin_states, twin_last
     print(f"chain route, chunked (yolov3-416 bf16, {STREAMS} x {FRAME_H}p, "
           f"K={K_FRAMES}, {K_FRAMES * STREAMS} frames per forward): launches "
           f"per chunk K9 {n_chains} (the planner's promise: one per chain, "
@@ -2910,14 +3178,16 @@ def run_resblock_paths(dev, setup):
           f"{box_err[('int8', K_FRAMES * STREAMS)]:.4g}; frames/s over "
           f"{RESBLOCK_CHUNKS} chunks, blocks off bf16 int8 int8 bf16 off: "
           f"off {fps['off']}, bf16 {fps['bf16']}, int8 {fps['int8']}; "
-          f"emitted rows of the last chunk (rows; with no exactly equal row "
-          f"(box and id) in the unrouted run; with no box of the unrouted "
-          f"run within {ROW_MATCH_PX} px): bf16 chains {diff['bf16']}, int8 "
-          f"chains {diff['int8']}; the unrouted run emits "
-          f"{int(last['off'][1].sum())}", flush=True)
+          f"{margin_note(margin['chunked'])}; the last chunk's tracks: bf16 "
+          f"chains against the unrouted run's (churn 0, mean IoU >= "
+          f"{ROUTE_MIN_IOU}, no id remapped) {json.dumps(same['bf16'])}; "
+          f"int8 chains equal to kernel 7's int8 modes layer by layer "
+          f"{json.dumps(same['int8'])}, against the unrouted run's "
+          f"(measured) {json.dumps(same['int8 against off'])}", flush=True)
 
     # K=1 path
-    args = (detector, parts["reid"], det_cfg, trk_cfg, hw)
+    k1_cfg = dataclasses.replace(det_cfg, conf_thres=margin["K=1"]["thr"])
+    args = (detector, parts["reid"], k1_cfg, trk_cfg, hw)
     k1_kw = dict(cap=K1_CAP, crop_window=K1_WINDOW)
     k1 = {"off": make_batched_step(*args, **k1_kw)}
     for name, route in routes.items():
@@ -2949,7 +3219,7 @@ def run_resblock_paths(dev, setup):
                                  f"{RESBLOCK_K1_STEPS} steps "
                                  f"{k1_counts[name]}, expected {want_counts}")
         if (int((states.state == 2).sum()) == 0
-                or sum(len(r) for r in rows[name]) == 0
+                or sum(len(r) for r in rows[name][-1]) == 0
                 or not bool(torch.isfinite(states.mean).all())):
             raise AssertionError(f"chain route ({name}), K=1: no confirmed "
                                  "/ emitted tracks")
@@ -2957,15 +3227,14 @@ def run_resblock_paths(dev, setup):
     def pct(v, q):
         return float(np.percentile(v, q))
 
-    def k1_diff(name):
-        a, b = rows[name], rows["off"]
-        exact = {(s, *r) for s, rs in enumerate(b) for r in map(tuple, rs)}
-        flat = [(s, np.asarray(r)) for s, rs in enumerate(a) for r in rs]
-        no_exact = sum((s, *map(int, r)) not in exact for s, r in flat)
-        no_near = sum(
-            not any(np.abs(r[:4] - np.asarray(o)[:4]).max() <= ROW_MATCH_PX
-                    for o in b[s]) for s, r in flat)
-        return len(flat), no_exact, no_near
+    _, twin_rows, _ = _k1_latency(
+        make_batched_step(*args, **k1_kw, **per_layer),
+        init_stream_states(trk_cfg, STREAMS), base, 7 + RESBLOCK_K1_STEPS)
+    same = {"bf16": check_route_rows("chain route (bf16), K=1", rows["off"],
+                                     rows["bf16"], same_detections=True),
+            "int8": check_twin_rows("chain route (int8), K=1",
+                                    twin_rows[7:], rows["int8"]),
+            "int8 against off": score_runs(rows["off"], rows["int8"])}
 
     print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
           f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
@@ -2976,11 +3245,12 @@ def run_resblock_paths(dev, setup):
           f" / {pct(ms['off'], 99):.4f}, bf16 chains "
           f"{pct(ms['bf16'], 50):.4f} / {pct(ms['bf16'], 99):.4f}, int8 "
           f"chains {pct(ms['int8'], 50):.4f} / {pct(ms['int8'], 99):.4f}; "
-          f"last step's rows (rows; with no exactly equal row in the "
-          f"unrouted run; with no box of it within {ROW_MATCH_PX} px): bf16 "
-          f"chains {k1_diff('bf16')}, int8 chains {k1_diff('int8')}; the "
-          f"unrouted run emits {sum(len(r) for r in rows['off'])}",
-          flush=True)
+          f"threshold {k1_cfg.conf_thres:.6g}, {margin_note(margin['K=1'])}; "
+          f"tracks over {RESBLOCK_K1_STEPS} steps: bf16 chains against the "
+          f"unrouted run's {json.dumps(same['bf16'])}; int8 chains equal to "
+          f"kernel 7's int8 modes layer by layer {json.dumps(same['int8'])}, "
+          f"against the unrouted run's (measured) "
+          f"{json.dumps(same['int8 against off'])}", flush=True)
     return {"resblock": chunk_counts["bf16"]["resblock"]
             + chunk_counts["int8"]["resblock"],
             "resblock_k1": k1_counts["bf16"]["resblock"]
@@ -4948,6 +5218,43 @@ def run_int8_gates():
     return launched
 
 
+def run_int8_track_gate():
+    """``tools/int8_track_gate.py`` at its defaults through its ``run``
+    (yolov3-416 on the reference gate's load, 2 x 1080p, 60 steps of the
+    f32, bf16, int8 and int8 plain-twin K=1 steps, scored from step 10).
+    The verdict is a measurement, printed as it comes; what is asserted is
+    the route: the int8 path on kernel 7 emits exactly the plain twin's
+    tracks (churn 0, no id remapped) and decodes exactly its tensor before
+    NMS, kernel 7 launches once a conv of the bf16 detector and ReID net a
+    step on the int8 and bf16 paths and once an unpackaged one on the twin,
+    none on the f32 path, and every path launches the letterbox, the NMS
+    and the tracker kernel once a step. -> {kernel: launches of the run}."""
+    from yolo_deepsort_tpu_torch.tools import int8_track_gate
+
+    t0 = time.perf_counter()
+    rec = int8_track_gate.run([])
+    secs = time.perf_counter() - t0
+    print(f"gate int8_track_gate ({secs:.1f} s): {json.dumps(rec)}",
+          flush=True)
+    if rec.get("reason"):
+        raise AssertionError(f"int8_track_gate: {rec['reason']}")
+    twin = rec["int8_kernel_vs_plain"]
+    if not (twin["tracks_a"] > 0 and twin["churn"] == 0
+            and twin["remaps"] == 0 and twin["decoded_max_abs"] == 0):
+        raise AssertionError(f"int8_track_gate: kernel 7's int8 route "
+                             f"differs from the plain twin: {twin}")
+    n, convs = rec["steps"], rec["convs"] + rec["reid_convs"]
+    k7 = {"f32": 0, "bf16": convs, "int8": convs,
+          "int8_plain": convs - rec["int8_layers"]}
+    for path, per_step in k7.items():
+        got = rec["launches_per_path"][path]
+        want = dict(conv=per_step * n, letterbox=n, nms=n, tracker=n)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"int8_track_gate, {path} path: launches "
+                                 f"{got}, expected {want} in {n} steps")
+    return rec["launches"]
+
+
 def run_soaks():
     """``tools/soak.py`` at its defaults but SOAK_CHUNKS chunks (yolov3-416
     bf16, K 16, 8 x 1080p, the honest load), then ``tools/
@@ -6049,6 +6356,8 @@ def main() -> int:
     mark("training meshes")
     gate_launches = run_int8_gates()
     mark("int8 gates")
+    track_gate_launches = run_int8_track_gate()
+    mark("int8 track gate")
     soaks = run_soaks()
     mark("soaks")
     with tempfile.TemporaryDirectory() as tmp_dir:
@@ -6123,6 +6432,8 @@ def main() -> int:
         entry["launches_quality_gate"] = quality_launches[entry["name"]]
         entry["launches_global_ids_path"] = gid_launches[entry["name"]]
         entry["launches_int8_gates_path"] = gate_launches[entry["name"]]
+        entry["launches_int8_track_gate_path"] = \
+            track_gate_launches[entry["name"]]
         entry["launches_soak_path"] = soaks["soak"]["launches"][entry["name"]]
         entry["launches_soak_multichip_path"] = \
             soaks["soak_multichip"]["launches"][entry["name"]]

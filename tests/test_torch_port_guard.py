@@ -33,7 +33,7 @@ missing = {"yolo_deepsort_tpu_torch." + m
                      "tools.int8_gate_trained", "tools.soak",
                      "tools.soak_multichip", "kernels.launches",
                      "tools.verify_weights", "tools.parity_real",
-                     "tools.bench_video",
+                     "tools.bench_video", "tools.int8_track_gate",
                      "examples.detect_image", "examples.detect_folder",
                      "examples.track_video", "examples.track_multicamera",
                      "examples.make_demo")} - set(names)
@@ -348,7 +348,8 @@ def test_training_dryrun_tool_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("tool", ["int8_gate", "int8_detect_gate",
-                                  "int8_gate_trained", "soak",
+                                  "int8_gate_trained", "int8_track_gate",
+                                  "soak",
                                   "soak_multichip", "honest_load"])
 def test_gate_and_soak_tools_default_to_the_card(tool):
     """The gates and soaks take ``--device cuda`` by default (the honest

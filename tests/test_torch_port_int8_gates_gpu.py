@@ -9,6 +9,9 @@
   mode equals its plain version, and every unpackaged conv runs kernel 7
   on both routes), kernel 7 launched once per conv on the kernel route and
   once per unpackaged conv on the twin;
+* the track gate's int8 path (``tools/int8_track_gate.py``: the
+  reference gate's load at yolov3-416, 2 x 1080p, 12 steps) on kernel 7
+  emits exactly the rows of its plain twin, step for step;
 * F10's third reading: the trained gate's first two train steps at
   yolov3-416, batch 8, on the card and on the CPU from the same state
   (``port_first_steps``, which the CPU witness
@@ -173,6 +176,39 @@ def test_detector_int8_route_equals_the_plain_twin(cuda_device):
                                     len(det16.convs) - len(pkg))
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_track_gate_int8_route_emits_the_plain_twins_rows(cuda_device):
+    from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
+    from yolo_deepsort_tpu_torch.ops import conv_kernel
+    from yolo_deepsort_tpu_torch.tools import int8_track_gate as TG
+
+    hw, steps = (1080, 1920), 12
+    load = TG.gate_load("yolov3", 416, 2, hw, 0, 100.0, False, 32, 64,
+                        cuda_device)
+    assert len(load.pkg) == 65
+    det_cfg = DetectorConfig(img_size=416, conf_thres=load.thr,
+                             nms_thres=0.4, max_dets=64)
+    trk_cfg = TrackerConfig(max_dets=64, max_tracks=128)
+    paths, det16, reid16 = TG.make_paths(load.detector, load.reid_params,
+                                         load.pkg, det_cfg, trk_cfg, hw)
+    rows, k7 = {}, {}
+    for name in ("int8", "int8_plain"):
+        before = conv_kernel.launches
+        rows[name] = TG.track_rows(*paths[name], trk_cfg, load.frames,
+                                   steps, 0)
+        k7[name] = (conv_kernel.launches - before) // steps
+    n_reid = sum(isinstance(m, torch.nn.Conv2d) for m in reid16.modules())
+    assert k7 == {"int8": len(det16.convs) + n_reid,
+                  "int8_plain": len(det16.convs) - len(load.pkg) + n_reid}
+    emitted = 0
+    for step, (a, b) in enumerate(zip(rows["int8"], rows["int8_plain"])):
+        for s, (ra, rb) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(ra, rb,
+                                          err_msg=f"step {step} stream {s}")
+            emitted += len(ra)
+    assert emitted > 0
 
 
 @pytest.mark.gpu
