@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode import yolo_decode
+from ..utils.profiling import span
 from .layers import Conv2d, conv_layer_bf16
 
 
@@ -196,6 +197,11 @@ class Darknet(nn.Module):
         span references the outputs in between. ``x`` is the NHWC view of
         the module's input, ``convs`` this module's conv layers. Ignored
         under ``capture_all_layers`` (every layer's output is wanted)."""
+        with span("ydt.detector"):
+            return self._forward(x, capture_all_layers, conv_impl,
+                                 block_impl)
+
+    def _forward(self, x, capture_all_layers, conv_impl, block_impl):
         dtype = next(self.parameters()).dtype
         prev = x.to(dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         cache: Dict[int, torch.Tensor] = {}

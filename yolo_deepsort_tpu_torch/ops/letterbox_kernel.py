@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
+from ..utils.profiling import span
 from .letterbox import _pad_amounts, letterbox_batch
 
 launches = 0  # kernel launches; only the launch below adds to it
@@ -27,9 +28,10 @@ def letterbox_batch_fused(frames: torch.Tensor, size: int,
 
     The NHWC result is the same memory as a channels_last (B, 3, S, S)
     tensor: ``out.permute(0, 3, 1, 2)`` feeds the backbone directly."""
-    if frames.device.type == "cpu":
-        return letterbox_batch(frames, size, out_dtype)
-    return letterbox_cuda(frames, size, out_dtype)
+    with span("ydt.letterbox"):
+        if frames.device.type == "cpu":
+            return letterbox_batch(frames, size, out_dtype)
+        return letterbox_cuda(frames, size, out_dtype)
 
 
 def letterbox_cuda(frames: torch.Tensor, size: int,

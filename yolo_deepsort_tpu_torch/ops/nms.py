@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import nms_kernel
 from .boxes import iou_xyxy, xywh_to_xyxy
 
@@ -41,6 +42,11 @@ def batched_nms_with_stats(
     mask (N, max_dets) bool, sat (N, 2) int32 [dropped by the top-k,
     still alive when the output filled]). CPU tensors take the plain
     version; a CUDA tensor launches the kernel or raises."""
+    with span("ydt.nms"):
+        return _nms(pred, conf_thres, nms_thres, max_boxes, max_dets)
+
+
+def _nms(pred, conf_thres, nms_thres, max_boxes, max_dets):
     if pred.device.type == "cpu":
         return batched_nms_with_stats_plain(pred, conf_thres, nms_thres,
                                             max_boxes, max_dets)
@@ -114,8 +120,9 @@ def batched_nms(pred: torch.Tensor, conf_thres=0.5, nms_thres: float = 0.4,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``batched_nms_with_stats`` without the saturation counters:
     (dets (N, max_dets, 7), mask (N, max_dets))."""
-    dets, mask, _ = batched_nms_with_stats(pred, conf_thres, nms_thres,
-                                           max_boxes, max_dets)
+    with span("ydt.nms"):
+        dets, mask, _ = _nms(pred, conf_thres, nms_thres, max_boxes,
+                             max_dets)
     return dets, mask
 
 

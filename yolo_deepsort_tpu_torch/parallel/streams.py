@@ -81,6 +81,7 @@ from ..tracking.tracker import (
     tracker_step,
 )
 from ..tracking.tracker_kernel import tracker_step_fused_batched
+from ..utils.profiling import span
 from .mesh import StreamMesh, all_gather, make_stream_mesh  # noqa: F401
 
 
@@ -188,16 +189,21 @@ def _make_embed(reid, embed_int8):
     the crops are made in, the device the net lies on)."""
     reid = _resolve_reid(reid, embed_int8)
     if not embed_int8:
-        return reid, reid.stem.weight.dtype, reid.stem.weight.device
+        def embed(crops):
+            with span("ydt.embed"):
+                return reid(crops)
+        return embed, reid.stem.weight.dtype, reid.stem.weight.device
     from ..models import quantize as Q
 
     if embed_int8 is True:
         def embed(crops):
-            return Q.reid_apply_int8(reid, crops)
+            with span("ydt.embed"):
+                return Q.reid_apply_int8(reid, crops)
     else:
         def embed(crops):
-            return Q.reid_apply_int8_resident(
-                reid, crops, use_pallas=embed_int8 == "resident_pallas")
+            with span("ydt.embed"):
+                return Q.reid_apply_int8_resident(
+                    reid, crops, use_pallas=embed_int8 == "resident_pallas")
     return embed, Q.package_front_dtype(reid), Q.package_device(reid)
 
 
@@ -377,7 +383,8 @@ def make_scanned_track_stage(
         if tracked is not None:
             m = m & tracked(b7)
         boxes_xyxy, tlwh = _frame_boxes(b7, size, h, w)
-        crops = crops_of(flat, boxes_xyxy)
+        with span("ydt.crops"):
+            crops = crops_of(flat, boxes_xyxy)
         feats = embed(crops.reshape(k * s * cap, *crops.shape[2:]))
         feats = feats.reshape(k, s, cap, -1)
         per_frame = lambda a: a.reshape(k, s, *a.shape[1:])  # noqa: E731
@@ -490,6 +497,10 @@ def make_batched_step(
 
     @torch.no_grad()
     def run(states: TrackerState, frames: torch.Tensor, frame_valid=None):
+        with span("ydt.k1_step"):
+            return body(states, frames, frame_valid)
+
+    def body(states, frames, frame_valid):
         s = frames.shape[0]
         xs = letterbox_batch_fused(frames, size, out_dtype=det_dtype)
         decoded = detector(xs, conv_impl=conv_impl, block_impl=block_impl)
@@ -503,7 +514,8 @@ def make_batched_step(
         if frame_valid is not None:
             mask = mask & frame_valid[:, None]
         boxes_xyxy, tlwh = _frame_boxes(boxes7, size, h, w)
-        crops = crops_of(frames, boxes_xyxy, mask)
+        with span("ydt.crops"):
+            crops = crops_of(frames, boxes_xyxy, mask)
         feats = embed(crops.reshape(s * d, *crops.shape[2:])).reshape(s, d, -1)
         new, outputs, emit = tracker_step_fused_batched(
             cfg_c, states, tlwh, boxes7[..., 5], feats, mask, (h, w))
@@ -736,15 +748,16 @@ class BucketedScannedStep:
         copied into pinned host memory behind the stage, with an event
         after the copy: ``track`` then waits for this chunk's detect stage
         only, not for work enqueued after it (the next chunk's detect)."""
-        boxes7, mask, stats = self._detect(frames)
-        if stats.is_cuda:
-            host = torch.empty(stats.shape, dtype=stats.dtype,
-                               pin_memory=True)
-            host.copy_(stats, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(stats.device))
-        else:
-            host, done = stats, None
+        with span("ydt.chunk.detect"):
+            boxes7, mask, stats = self._detect(frames)
+            if stats.is_cuda:
+                host = torch.empty(stats.shape, dtype=stats.dtype,
+                                   pin_memory=True)
+                host.copy_(stats, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(stats.device))
+            else:
+                host, done = stats, None
         return (frames, boxes7, mask, stats, (host, done))
 
     def track(self, states: TrackerState, handle):
@@ -753,27 +766,29 @@ class BucketedScannedStep:
         stage. A handle of (frames, boxes7, mask, stats) alone reads the
         stats with a plain copy."""
         frames, boxes7, mask, stats = handle[:4]
-        host, done = handle[4] if len(handle) > 4 else (stats.cpu(), None)
-        if done is not None:
-            done.synchronize()
-        self.host_readbacks += 1
-        count, max_h, max_w, drop_topk, drop_dets = (
-            int(v) for v in host.tolist())
-        cap = self._bucket_for(count)
-        win = self._window_for(max_h, max_w)
-        self.last_bucket, self.last_max_count = cap, count
-        self.last_window, self.last_crop_hw = win, (max_h, max_w)
-        self.sat_nms_topk += drop_topk
-        self.sat_nms_dets += drop_dets
-        if count > self._buckets[-1]:
-            self.sat_bucket_chunks += 1
-        fn = self._track.get((cap, win))
-        if fn is None:
-            fn = self._track[(cap, win)] = make_scanned_track_stage(
-                self._reid, self._det_cfg, self._trk_cfg, self._frame_hw,
-                cap, crop_window=win, tracked_class_ids=self._class_ids,
-                embed_int8=self._embed_int8)
-        return fn(states, frames, boxes7, mask)
+        with span("ydt.chunk.stats_wait"):
+            host, done = handle[4] if len(handle) > 4 else (stats.cpu(), None)
+            if done is not None:
+                done.synchronize()
+            self.host_readbacks += 1
+            count, max_h, max_w, drop_topk, drop_dets = (
+                int(v) for v in host.tolist())
+        with span("ydt.chunk.track"):
+            cap = self._bucket_for(count)
+            win = self._window_for(max_h, max_w)
+            self.last_bucket, self.last_max_count = cap, count
+            self.last_window, self.last_crop_hw = win, (max_h, max_w)
+            self.sat_nms_topk += drop_topk
+            self.sat_nms_dets += drop_dets
+            if count > self._buckets[-1]:
+                self.sat_bucket_chunks += 1
+            fn = self._track.get((cap, win))
+            if fn is None:
+                fn = self._track[(cap, win)] = make_scanned_track_stage(
+                    self._reid, self._det_cfg, self._trk_cfg, self._frame_hw,
+                    cap, crop_window=win, tracked_class_ids=self._class_ids,
+                    embed_int8=self._embed_int8)
+            return fn(states, frames, boxes7, mask)
 
     def __call__(self, states: TrackerState, frames: torch.Tensor):
         return self.track(states, self.detect(frames))

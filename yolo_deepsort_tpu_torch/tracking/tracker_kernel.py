@@ -37,6 +37,7 @@ from ..kernels import build
 from ..ops import boxes as B
 from ..ops.assignment import _LEVEL_INACTIVE
 from ..ops.assignment_kernel import stable_rank_order
+from ..utils.profiling import span
 from .tracker import (
     STATE_CONFIRMED,
     STATE_TENTATIVE,
@@ -61,11 +62,12 @@ def tracker_step_fused_batched(cfg: TrackerConfig, state: TrackerState,
                                img_hw: Tuple[int, int]):
     """Batched tracker step: (new_state, outputs (S, T, 5), emit (S, T)).
     Writes ``state.gallery`` in place."""
-    if det_tlwh.device.type == "cpu":
-        return tracker_step(cfg, state, det_tlwh, det_conf, det_feat,
-                            det_mask, img_hw)
-    return tracker_step_cuda(cfg, state, det_tlwh, det_conf, det_feat,
-                             det_mask, img_hw)
+    with span("ydt.tracker"):
+        if det_tlwh.device.type == "cpu":
+            return tracker_step(cfg, state, det_tlwh, det_conf, det_feat,
+                                det_mask, img_hw)
+        return tracker_step_cuda(cfg, state, det_tlwh, det_conf, det_feat,
+                                 det_mask, img_hw)
 
 
 def kernel_prologue(cfg: TrackerConfig, state: TrackerState, det_tlwh,

@@ -9,7 +9,9 @@ yolo_deepsort_tpu/utils/profiling.py).
     active/confirmed tracks, emitted tracks, id high-water mark) read from
     the port's ``TrackerState``, whose fields carry a leading stream axis,
   * ``device_trace``: context manager around ``torch.profiler`` that
-    writes a Chrome trace when a profile dir is given (no-op otherwise).
+    writes a Chrome trace when a profile dir is given (no-op otherwise),
+  * ``span``: the serving steps' stage ranges (``ydt.*``), live only while
+    a torch profiler records (``device_trace``, or any other).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 class StageTimer:
@@ -132,6 +135,20 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    torch profiler records, so the range lies in the same trace, on the
+    same clock, as the card's kernels it launches; otherwise one shared null
+    context (one check, nothing constructed). The serving steps' names
+    start with ``ydt.``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def device_trace(profile_dir: Optional[str]) -> Iterator[None]:
     """``torch.profiler`` around the block (host ops, and the card's kernels
@@ -141,7 +158,6 @@ def device_trace(profile_dir: Optional[str]) -> Iterator[None]:
     if not profile_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
