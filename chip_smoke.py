@@ -117,9 +117,15 @@ which ends the run with a non-zero exit code when it fails:
    the single-frame step ``make_batched_step`` with cap 40 and crop window
    (320, 192), the backbone convs of a FIXED layer set (``CONV_ROUTE``: 9
    layers through the bf16 conv kernel, 10 through the int8 one, package
-   calibrated from two of the frames) routed through kernel 7. Checks per
-   step: K1, the dense crops and K3 launch once, K2 never, K7 19 times, one
-   readback and no other synchronizing call; on F5's margin load (the
+   calibrated from two of the frames) routed through kernel 7. On the card
+   the step's detector is replayed from a CUDA graph from its second call
+   on (``parallel/streams.py`` ``DetectorGraph``): its kernels count at
+   its eager first call and at the capture, a replay counts one
+   ``detector_graph`` and none of them; so the warm-up's counts hold the
+   detector's convs twice, the counted steps none. Checks per counted
+   step: one replay, K1, the dense crops and K3 launch once, K2 never, K7
+   once per ReID conv, one readback and no other synchronizing call; on
+   F5's margin load (the
    threshold in the widest gap of the unrouted objectness, ``margin_load``)
    the route's rows equal its plain twin's (``check_twin_rows``: its int8
    layers move objectness past every margin the load offers, which is
@@ -133,7 +139,8 @@ which ends the run with a non-zero exit code when it fails:
    calibrated on the card) through the chunked step and the K=1 step with
    ``embed_int8="resident_pallas"`` on the main path's model and frames:
    per chunk K8 15 launches, K1 1, K2 1, K3 K; per K=1 step K8 15, K1, the
-   dense crops, K3 1; one readback each and no other synchronizing call;
+   dense crops, K3 1 and one replay of the detector's graph (K7 0); one
+   readback each and no other synchronizing call;
    frames/s and p50/p99 beside the bf16 embed's in alternated blocks; on
    the margin load each step's tracks are the bf16 embed's (churn 0, mean
    IoU >= ROUTE_MIN_IOU, an id remap rate of at most 0.02); and
@@ -142,11 +149,13 @@ which ends the run with a non-zero exit code when it fails:
 4d. fused residual chains (``run_resblock_paths``): the chunked step and
    the K=1 step with ``use_resblock=True`` and ``use_resblock="int8"`` (the
    package of the 40 chain convs calibrated on the card from two frames) on
-   the main path's model and frames: per chunk and per step K9 3 launches
-   (one per routed chain, what ``plan_chain_schedule`` promises) and 40
-   kernels behind them, two per block of the model's chains, as the C entry
-   counts its launches (``device_kernels``), K1, K2 (the K=1 step: the
-   dense crops), K3 as before,
+   the main path's model and frames: per chunk, and per K=1 step at its
+   eager call and its capture (a replay of the detector's graph counts
+   none), K9 3 launches (one per routed chain, what
+   ``plan_chain_schedule`` promises) and 40 kernels behind them, two per
+   block of the model's chains, as the C entry counts its launches
+   (``device_kernels``), K1, K2 (the K=1 step: the dense crops), K3 as
+   before,
    one readback and no other synchronizing call; the routed
    detector's decoded output against the unrouted one; frames/s and p50/p99
    beside the unrouted run's in alternated blocks; on the margin load the
@@ -188,7 +197,9 @@ which ends the run with a non-zero exit code when it fails:
 7b. cross-camera global ids (``run_global_ids``): (a)
    ``MultiStreamTracker(global_ids=True, global_id_every=2)`` with the
    same producers, model, weights and threshold over 8 x 1080p streams of
-   one frame: per step K1 1, the dense crops 1, K7 95, K3 1, one readback,
+   one frame: per step K1 1, the dense crops 1, K3 1, K7 20 and one
+   replay of the detector's graph or one eager forward (K7 75 more at its
+   eager calls and its capture), one readback,
    every emitted id > 0, and after every step the card's gid table equals,
    bit for bit, the one-rank step (``assign_provisional_gids`` between
    rounds) run on the CPU over a CPU copy of the card's states; fewer
@@ -2272,7 +2283,19 @@ def run_k1_path(dev, setup=None):
     states = init_stream_states(trk_cfg, STREAMS)  # the card by default
     if states.mean.device.type != "cuda":
         raise AssertionError("init_stream_states did not take the card")
-    _, _, states = _k1_latency(routed, states, base, 5)  # tracks confirm
+    # tracks confirm; the detector runs eagerly, then is captured
+    (_, _, states), warm = _counted(
+        lambda: _k1_latency(routed, states, base, 5))
+    # K7: the routed layers in their modes, every other conv of the bf16
+    # detector and ReID net in bf16 mode; the detector's at its eager call
+    # and its capture only
+    n_det, per_step = n_convs(parts["detector"]), n_convs(parts["reid"])
+    want = _only(letterbox=5, crops_dense=5, tracker=5, nms=5,
+                 conv=2 * n_det + 5 * per_step, detector_graph=4,
+                 detector_capture=1, detector_eager=1)
+    if warm != want:
+        raise AssertionError(f"K=1 launches over the 5 warm-up steps "
+                             f"{warm}, expected {want}")
 
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2282,11 +2305,10 @@ def run_k1_path(dev, setup=None):
 
     (on_ms, on_rows, states), launches = _counted(
         lambda: _k1_latency(routed, states, base, K1_STEPS))
-    # K7: the routed layers in their modes, every other conv of the bf16
-    # detector and ReID net in bf16 mode
-    per_step = n_convs(parts["detector"]) + n_convs(parts["reid"])
+    # every counted step replays the detector: K7 the ReID net's convs
     want = _only(letterbox=K1_STEPS, crops_dense=K1_STEPS, tracker=K1_STEPS,
-                 conv=per_step * K1_STEPS, nms=K1_STEPS)
+                 conv=per_step * K1_STEPS, nms=K1_STEPS,
+                 detector_graph=K1_STEPS)
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -2330,7 +2352,9 @@ def run_k1_path(dev, setup=None):
           f"window {K1_WINDOW}, fixed conv route ({len(CONV_ROUTE['bf16'])} "
           f"bf16 + {len(CONV_ROUTE['int8'])} int8 layers), {K1_STEPS} steps: "
           f"launches per step K1 1, K2 0, dense crops 1, K3 1, NMS 1, K7 "
-          f"{per_step} ({N_ROUTED} of them the routed layers); 1 readback "
+          f"{per_step} (the ReID net's), 1 replay of the detector's graph "
+          f"(K7 {n_det} at its eager call and its capture, {N_ROUTED} of "
+          f"them the routed layers); 1 readback "
           f"per step and no other sync; p50 {pct(on_ms, 50):.4f} ms, p99 "
           f"{pct(on_ms, 99):.4f} ms per step; conv route off: p50 "
           f"{pct(off_ms, 50):.4f} ms, p99 {pct(off_ms, 99):.4f} ms; threshold "
@@ -2366,6 +2390,7 @@ def run_int8_embed_paths(dev, setup):
         init_stream_states,
         make_batched_step,
     )
+    from yolo_deepsort_tpu_torch.parallel import streams
     from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 
     _, _, frames, parts = setup
@@ -2528,15 +2553,21 @@ def run_int8_embed_paths(dev, setup):
         else:
             _, _, states = _k1_latency(step, states, base, 2)
         reset_counters()
+        replays = streams.detector_graph_launches
         ms, rows, states = _k1_latency(step, states, base, INT8_K1_STEPS)
-        return ms, rows, states, counts()
+        # every counted step replays the detector's graph: its K7 launches
+        # counted at its capture, in the warm-up
+        return ms, rows, states, dict(
+            counts(),
+            detector_graph=streams.detector_graph_launches - replays)
 
     ms8, rows8, st8, k1_counts = k1_run(k1_int8, True)
     want = {"letterbox": INT8_K1_STEPS, "crops": 0,
             "crops_interleaved": 0, "crops_dense": INT8_K1_STEPS,
             "tracker": INT8_K1_STEPS,
             "conv_int8": N_INT8_CONVS * INT8_K1_STEPS,
-            "conv": n_det * INT8_K1_STEPS, "nms": INT8_K1_STEPS}
+            "conv": 0, "nms": INT8_K1_STEPS,
+            "detector_graph": INT8_K1_STEPS}
     if k1_counts != want:
         raise AssertionError(f"int8 embed, K=1: launches over "
                              f"{INT8_K1_STEPS} steps {k1_counts}, expected "
@@ -2566,7 +2597,8 @@ def run_int8_embed_paths(dev, setup):
 
     print(f"int8 embed, K=1 (cap {K1_CAP}, window {K1_WINDOW}, "
           f"{EMBED_CROPS} crops per step, no conv route, {INT8_K1_STEPS} "
-          f"steps): launches per step K8 {N_INT8_CONVS}, K7 {n_det}, K1 1, "
+          f"steps): launches per step K8 {N_INT8_CONVS}, 1 replay of the "
+          f"detector's graph (K7 {n_det} at its capture), K1 1, "
           f"K2 0, dense "
           f"crops 1, K3 1; 1 "
           f"readback per step and no other sync; p50 {pct(ms8, 50):.4f} ms, "
@@ -2746,8 +2778,10 @@ def resblock_kernel_entry(per_class, launches, launches_k1,
     time; ``int8`` the same sums in W8A8 mode, ``at_chunk_batch`` both at
     K_FRAMES * STREAMS (the chunked step's); ``per_class`` every class.
     ``launches`` counts calls of the C entry (one per chain),
-    ``device_kernels_per_forward`` the kernels those calls launched per K=1
-    step of the chain route (one forward), as the C entry counts them
+    ``launches_k1_path`` those of the K=1 steps' warm-ups (the detector's
+    eager call and its capture: a replay of its graph counts none),
+    ``device_kernels_per_forward`` the kernels those calls launched per
+    forward of the chain route, as the C entry counts them
     (``resblock_kernel.device_kernels``); ``launches_per_chain`` and
     ``kernels_per_chain`` per class are counted around the checked call."""
     def totals(mode, n):
@@ -2830,9 +2864,10 @@ def check_small_resblock(dev):
     blocks at 32x32, width 128; f32, 2 streams of 64x128) through the K=1
     step with the chain route on the card against the same step on the CPU,
     where the chain runs its plain version, in both modes (the int8 package
-    calibrated once, on the CPU): per step one K9 launch; emit and track
-    ids equal, boxes within 1 px, over 4 frames. Returns the emitted rows
-    per mode."""
+    calibrated once, on the CPU): one K9 launch at the first step (the
+    detector eager) and at the second (its capture), none at a replay; emit
+    and track ids equal, boxes within 1 px, over 4 frames. Returns the
+    emitted rows per mode."""
     import torch
 
     from specs.weights_np import random_darknet_weights
@@ -2897,9 +2932,9 @@ def check_small_resblock(dev):
             before = resblock_kernel.launches
             st_ref, (out_r, emit_r) = ref(st_ref, frames)
             st_card, (out_c, emit_c) = card(st_card, frames_dev)
-            if resblock_kernel.launches != before + 1:
+            if resblock_kernel.launches != before + (f < 2):
                 raise AssertionError(
-                    f"small residual step ({mode}): "
+                    f"small residual step ({mode}) frame {f}: "
                     f"{resblock_kernel.launches - before} K9 launches")
             out_c, emit_c = out_c.cpu(), emit_c.cpu()
             if not (torch.equal(emit_r, emit_c)
@@ -2985,6 +3020,7 @@ def run_resblock_paths(dev, setup):
     from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
         letterbox_batch_fused,
     )
+    from yolo_deepsort_tpu_torch.parallel import streams
     from yolo_deepsort_tpu_torch.parallel.streams import (
         BucketedScannedStep,
         _make_block_impl,
@@ -3193,31 +3229,46 @@ def run_resblock_paths(dev, setup):
     for name, route in routes.items():
         k1[name] = make_batched_step(*args, **k1_kw, **route)
     ms, rows, k1_counts = {}, {}, {}
+    n_reid = n_convs(parts["reid"])
     for name in ("off", "bf16", "int8"):
+        # the warm-up: the detector runs eagerly, then is captured, so its
+        # kernels count twice; the ReID net's every step
         states = init_stream_states(trk_cfg, STREAMS)
+        reset_counters()
         _, _, states = _k1_latency(k1[name], states, base, 5)
+        k1_counts[name] = counts()
+        routed = name != "off"
+        want_counts = {"letterbox": 5, "crops": 0, "crops_dense": 5,
+                       "tracker": 5, "resblock": 2 * n_chains * routed,
+                       "resblock_kernels": 2 * n_kernels * routed,
+                       "conv": 2 * ((k7_routed if routed else k7_off)
+                                    - n_reid) + 5 * n_reid}
+        if k1_counts[name] != want_counts:
+            raise AssertionError(f"chain route ({name}), K=1: launches over "
+                                 f"the 5 warm-up steps {k1_counts[name]}, "
+                                 f"expected {want_counts}")
         torch.cuda.set_sync_debug_mode("error")
         try:
             _, _, states = _k1_latency(k1[name], states, base, 2)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         reset_counters()
+        replays = streams.detector_graph_launches
         ms[name], rows[name], states = _k1_latency(k1[name], states, base,
                                                    RESBLOCK_K1_STEPS)
-        k1_counts[name] = counts()
+        got = dict(counts(),
+                   detector_graph=streams.detector_graph_launches - replays)
+        # every counted step replays the detector's graph
         want_counts = {"letterbox": RESBLOCK_K1_STEPS, "crops": 0,
                        "crops_dense": RESBLOCK_K1_STEPS,
-                       "tracker": RESBLOCK_K1_STEPS,
-                       "resblock": (0 if name == "off" else
-                                    n_chains * RESBLOCK_K1_STEPS),
-                       "resblock_kernels": (0 if name == "off" else
-                                            n_kernels * RESBLOCK_K1_STEPS),
-                       "conv": (k7_off if name == "off" else k7_routed)
-                       * RESBLOCK_K1_STEPS}
-        if k1_counts[name] != want_counts:
+                       "tracker": RESBLOCK_K1_STEPS, "resblock": 0,
+                       "resblock_kernels": 0,
+                       "conv": n_reid * RESBLOCK_K1_STEPS,
+                       "detector_graph": RESBLOCK_K1_STEPS}
+        if got != want_counts:
             raise AssertionError(f"chain route ({name}), K=1: launches over "
-                                 f"{RESBLOCK_K1_STEPS} steps "
-                                 f"{k1_counts[name]}, expected {want_counts}")
+                                 f"{RESBLOCK_K1_STEPS} steps {got}, "
+                                 f"expected {want_counts}")
         if (int((states.state == 2).sum()) == 0
                 or sum(len(r) for r in rows[name][-1]) == 0
                 or not bool(torch.isfinite(states.mean).all())):
@@ -3238,8 +3289,10 @@ def run_resblock_paths(dev, setup):
 
     print(f"chain route, K=1 (cap {K1_CAP}, window {K1_WINDOW}, {STREAMS} "
           f"frames per forward, {RESBLOCK_K1_STEPS} steps): launches per "
-          f"step K9 {n_chains} ({n_kernels} kernels), K7 {k7_routed} (off: "
-          f"{k7_off}), K1 1, dense crops 1, K3 1; 1 "
+          f"step 1 replay of the detector's graph, K7 {n_reid} (the ReID "
+          f"net's), K1 1, dense crops 1, K3 1; at its eager call and its "
+          f"capture K9 {n_chains} ({n_kernels} kernels) and K7 "
+          f"{k7_routed - n_reid} (off: {k7_off - n_reid}); 1 "
           f"readback per step and "
           f"no other sync; p50 / p99 ms per step: off {pct(ms['off'], 50):.4f}"
           f" / {pct(ms['off'], 99):.4f}, bf16 chains "
@@ -3256,7 +3309,7 @@ def run_resblock_paths(dev, setup):
             "resblock_k1": k1_counts["bf16"]["resblock"]
             + k1_counts["int8"]["resblock"],
             "resblock_kernels_per_step": {
-                name: k1_counts[name]["resblock_kernels"] // RESBLOCK_K1_STEPS
+                name: k1_counts[name]["resblock_kernels"] // 2
                 for name in routes}}
 
 
@@ -3453,10 +3506,11 @@ def gid_full_width(model, frame, thr):
 
     (steps, rows, rounds, states, gids), launched = _counted(drive)
     mst.close()
-    per_step = (n_convs(model.module)
-                + n_convs(reid_from_params(random_reid_params(0))))
-    want = _only(letterbox=steps, crops_dense=steps, conv=per_step * steps,
-                 tracker=steps, nms=steps)
+    counted, graph = _graph_counts(launched, steps)
+    want = _only(letterbox=steps, crops_dense=steps,
+                 conv=n_convs(model.module) * counted + n_convs(
+                     reid_from_params(random_reid_params(0))) * steps,
+                 tracker=steps, nms=steps, **graph)
     if launched != want:
         raise AssertionError(f"global ids: launches {launched}, want {want}")
     live = gids.gid[states.state == STATE_CONFIRMED]
@@ -5243,12 +5297,16 @@ def run_int8_track_gate():
             and twin["remaps"] == 0 and twin["decoded_max_abs"] == 0):
         raise AssertionError(f"int8_track_gate: kernel 7's int8 route "
                              f"differs from the plain twin: {twin}")
-    n, convs = rec["steps"], rec["convs"] + rec["reid_convs"]
-    k7 = {"f32": 0, "bf16": convs, "int8": convs,
-          "int8_plain": convs - rec["int8_layers"]}
-    for path, per_step in k7.items():
+    n, convs, reid = rec["steps"], rec["convs"], rec["reid_convs"]
+    # K7 per forward of the detector, counted at its eager call and its
+    # capture, and of the ReID net, every step
+    k7 = {"f32": (0, 0), "bf16": (convs, reid), "int8": (convs, reid),
+          "int8_plain": (convs - rec["int8_layers"], reid)}
+    for path, (det, per_step) in k7.items():
         got = rec["launches_per_path"][path]
-        want = dict(conv=per_step * n, letterbox=n, nms=n, tracker=n)
+        counted, graph = _graph_counts(got, n)
+        want = dict(conv=det * counted + per_step * n, letterbox=n, nms=n,
+                    tracker=n, **graph)
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"int8_track_gate, {path} path: launches "
                                  f"{got}, expected {want} in {n} steps")
@@ -5262,7 +5320,9 @@ def run_soaks():
     256 x 320, K 4, SOAK_CHUNKS chunks). Every invariant must
     hold; per chunk of the soak K1 1, K2 1 (1080 % 8 == 0 and 1920 % 128 ==
     0: the windowed crops), K3 16, K7 95 and one stats readback; per step
-    of the multichip soak K1 1, dense crops 1, K3 1, K7 33. The counts are
+    of the multichip soak K1 1, dense crops 1, K3 1, K7 20 (the ReID net's)
+    and one replay of the detector's graph (yolov3-tiny's 13 convs count at
+    its capture, in the warm-up). The counts are
     the tools' own (their counters set to 0 just before their timed loops).
     -> {tool: record}."""
     from yolo_deepsort_tpu_torch.tools import soak, soak_multichip
@@ -5286,8 +5346,11 @@ def run_soaks():
     print(f"soak_multichip on one NCCL rank ({time.perf_counter() - t0:.1f}"
           f" s): {json.dumps(rec)}", flush=True)
     steps = 4 * SOAK_CHUNKS
+    # the timed steps replay the detector's graph (yolov3-tiny's 13 convs
+    # counted at its capture, in the warm-up); K7 the ReID net's 20 convs
+    counted, graph = _graph_counts(rec["launches"], steps)
     want = _only(letterbox=steps, crops_dense=steps, tracker=steps,
-                 conv=33 * steps, nms=steps)
+                 conv=13 * counted + 20 * steps, nms=steps, **graph)
     if (not rec["ok"] or rec["backend"] != "nccl"
             or rec["launches"] != want):
         raise AssertionError(f"soak_multichip: failures {rec['failures']}, "
@@ -5698,6 +5761,20 @@ def _only(**launched):
     from yolo_deepsort_tpu_torch.kernels.launches import LAUNCH_COUNTERS
 
     return {**{name: 0 for name in LAUNCH_COUNTERS}, **launched}
+
+
+def _graph_counts(launched, steps):
+    """The K=1 step's detector graph in a counted run of ``steps`` steps on
+    the card (``parallel/streams.py`` ``DetectorGraph``): each step either
+    replays the graph or runs the detector eagerly, and the detector's
+    kernels count at its eager calls and its captures, never at a replay.
+    -> (forwards whose kernels were counted, the three graph counters as
+    ``launched`` must hold them)."""
+    graph = {k: launched[k] for k in ("detector_graph", "detector_capture",
+                                      "detector_eager")}
+    if graph["detector_graph"] + graph["detector_eager"] != steps:
+        raise AssertionError(f"detector graph: {graph} in {steps} steps")
+    return graph["detector_eager"] + graph["detector_capture"], graph
 
 
 def _dense_calls(run):

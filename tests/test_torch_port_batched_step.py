@@ -128,6 +128,110 @@ def test_make_batched_step_matches_jax(setup, variant):
         assert int((st.state > 0).sum()) > int((t_states.state > 0).sum())
 
 
+GRAPH_COUNTERS = {"detector_graph": "detector_graph_launches",
+                  "detector_capture": "detector_capture_launches",
+                  "detector_eager": "detector_eager_launches"}
+
+
+def test_cpu_step_never_captures(setup, monkeypatch):
+    """On the CPU the K=1 step's detector runs as it did before the card's
+    graph: no CUDA graph is built, the graph counters stay 0, and the step
+    still equals the JAX step frame by frame."""
+    from yolo_deepsort_tpu_torch.kernels.launches import (read_launches,
+                                                          zero_launches)
+
+    def no_graph(*args, **kwargs):
+        raise AssertionError("a CUDA graph was built for CPU tensors")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    monkeypatch.setattr(torch.cuda, "graph", no_graph)
+    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
+                             max_dets=8)
+    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
+                                  donate_state=False, cap=6,
+                                  use_fused_tracker=True)
+    t_step = TS.make_batched_step(setup["detector"], setup["reid"], det_cfg,
+                                  trk_cfg, (H, W_), cap=6)
+    j_states = JS.init_stream_states(trk_cfg, S)
+    t_states = TS.init_stream_states(trk_cfg, S, "cpu")
+    frames = setup["frames"]
+    zero_launches()
+    for f in range(FRAMES):
+        j_states, (j_out, j_emit) = j_step(setup["folded"], setup["j_reid"],
+                                           j_states, jnp.asarray(frames))
+        t_states, (t_out, t_emit) = t_step(t_states,
+                                           torch.from_numpy(frames))
+        _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit,
+                       f"frame {f}")
+    got = read_launches()
+    assert {k: got[k] for k in GRAPH_COUNTERS} == dict.fromkeys(
+        GRAPH_COUNTERS, 0)
+    assert got["letterbox"] == got["nms"] == got["tracker"] == 0  # plain
+
+
+def test_detector_graph_on_the_cpu_is_the_forward(setup):
+    """``DetectorGraph`` on CPU tensors returns the detector's own forward
+    bit for bit and keeps no key, graph or static buffer."""
+    frames = torch.from_numpy(setup["frames"])
+    xs = TS.letterbox_batch_fused(frames, 64)
+    graph = TS.DetectorGraph(setup["detector"])
+    with torch.no_grad():
+        want = setup["detector"](xs)
+        for _ in range(3):
+            assert torch.equal(graph(xs), want)
+    assert graph.key is graph.graph is graph.x is graph.out is None
+
+
+def test_detector_graph_key_follows_what_it_can_observe(setup):
+    """The graph's key changes with the input's shape and dtype, with an
+    in-place change of any detector weight (``load_params`` included) and
+    with the float32 math modes, and with nothing else."""
+    import copy
+
+    from yolo_deepsort_tpu_torch.train.trees import full_f32
+
+    detector = copy.deepcopy(setup["detector"])
+    graph = TS.DetectorGraph(detector)
+    xs = TS.letterbox_batch_fused(torch.from_numpy(setup["frames"]), 64)
+    key = graph.key_of(xs)
+    assert graph.key_of(xs.clone()) == key
+    assert graph.key_of(xs[:1]) != key
+    assert graph.key_of(xs.double()) != key
+    with full_f32():
+        assert graph.key_of(xs) != key
+    assert graph.key_of(xs) == key
+    with torch.no_grad():
+        detector.convs["0"].bias.add_(0.0)
+    changed = graph.key_of(xs)
+    assert changed != key
+    params = {int(k): {"w": c.weight.detach().clone(),
+                       "b": c.bias.detach().clone()}
+              for k, c in detector.convs.items()}
+    detector.load_params(params)
+    assert graph.key_of(xs) not in (key, changed)
+
+
+def test_graph_counters_are_launch_counters():
+    """The detector graph's three counters are in the registry of launch
+    counters: ``zero_launches`` sets them to 0, ``read_launches`` reads
+    them."""
+    from yolo_deepsort_tpu_torch.kernels.launches import (LAUNCH_COUNTERS,
+                                                          read_launches,
+                                                          zero_launches)
+
+    for name, attr in GRAPH_COUNTERS.items():
+        assert LAUNCH_COUNTERS[name] == ("parallel.streams", attr)
+    for i, attr in enumerate(GRAPH_COUNTERS.values(), 1):
+        setattr(TS, attr, i)
+    got = read_launches()
+    assert [got[k] for k in GRAPH_COUNTERS] == [1, 2, 3]
+    zero_launches()
+    got = read_launches()
+    assert [got[k] for k in GRAPH_COUNTERS] == [0, 0, 0]
+    assert all(getattr(TS, attr) == 0 for attr in GRAPH_COUNTERS.values())
+
+
 def test_window_guard_takes_the_dense_crops(setup):
     """With a window smaller than the crops the step must give what the
     step without a window gives (the dense crops), bit for bit; with a

@@ -466,8 +466,10 @@ def test_k1_step_launch_counts(cuda_device):
     """A small ``make_batched_step`` on the card (yolov3-tiny at 64, bf16,
     cap and crop window, every eligible conv routed, some through the int8
     package): per step K1 1, K2 0, the dense crops 1, K3 1 and K7 once per
-    conv of the bf16 detector and ReID net (the routed layers in their
-    modes, every other one in bf16 mode: the bf16 forwards' default)."""
+    conv of the ReID net, and once per conv of the bf16 detector (the
+    routed layers in their modes, every other one in bf16 mode: the bf16
+    forwards' default) at the first step, which runs the detector eagerly,
+    and the second, which captures its graph; the third replays it."""
     from specs.weights_np import random_darknet_weights
     from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
     from yolo_deepsort_tpu_torch.config import DetectorConfig
@@ -476,6 +478,7 @@ def test_k1_step_launch_counts(cuda_device):
         quantize_darknet_from_frames,
     )
     from yolo_deepsort_tpu_torch.models.reid import random_reid_params
+    from yolo_deepsort_tpu_torch.parallel import streams
     from yolo_deepsort_tpu_torch.parallel.streams import (
         init_stream_states,
         make_batched_step,
@@ -526,15 +529,19 @@ def test_k1_step_launch_counts(cuda_device):
     assert len(routed) >= 3 and set(pkg) < set(routed)
     counters = ((letterbox_kernel, "launches"), (crops_kernel, "launches"),
                 (crops_kernel, "launches_dense"),
-                (tracker_kernel, "launches"), (conv_kernel, "launches"))
-    for _ in range(3):
+                (tracker_kernel, "launches"), (conv_kernel, "launches"),
+                (streams, "detector_eager_launches"),
+                (streams, "detector_capture_launches"),
+                (streams, "detector_graph_launches"))
+    n_det, n_reid = (sum(isinstance(m, torch.nn.Conv2d)
+                         for m in net.modules()) for net in (detector, reid))
+    # (eager, capture, replay) and whether the detector's convs count
+    for graph, counted in (([1, 0, 0], 1), ([0, 1, 1], 1), ([0, 0, 1], 0)):
         before = [getattr(m, a) for m, a in counters]
         states, (outputs, emit) = step(states, on_card)
         torch.cuda.synchronize()
         got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
-        n_convs = sum(isinstance(m, torch.nn.Conv2d)
-                      for net in (detector, reid) for m in net.modules())
-        assert got == [1, 0, 1, 1, n_convs], got
+        assert got == [1, 0, 1, 1, n_reid + counted * n_det] + graph, got
     assert outputs.shape == (s, 16, 5) and emit.shape == (s, 16)
     assert bool(torch.isfinite(states.mean).all())
 

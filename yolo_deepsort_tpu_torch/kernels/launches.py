@@ -1,9 +1,11 @@
 """Every kernel launch counter of the port, read and reset together.
 
 Each kernel's wrapper module keeps a module-level count that only its
-launch adds to. ``LAUNCH_COUNTERS`` names them all; ``zero_launches`` sets
-every count to 0 and ``read_launches`` reads them, so a caller can show
-which kernels a run went through.
+launch adds to; the K=1 step's detector graph counts its replays, captures
+and eager forwards on the card beside them (``parallel/streams.py``
+``DetectorGraph``). ``LAUNCH_COUNTERS`` names them all; ``zero_launches``
+sets every count to 0 and ``read_launches`` reads them, so a caller can
+show which kernels a run went through.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ LAUNCH_COUNTERS = {
     "matmul_probe": ("tools.int8_probe", "launches"),
     "nms": ("ops.nms_kernel", "launches"),
     "roi_nms": ("ops.nms_kernel", "roi_launches"),
+    # the K=1 step's detector graph: replays, captures, eager card forwards
+    "detector_graph": ("parallel.streams", "detector_graph_launches"),
+    "detector_capture": ("parallel.streams", "detector_capture_launches"),
+    "detector_eager": ("parallel.streams", "detector_eager_launches"),
 }
 
 

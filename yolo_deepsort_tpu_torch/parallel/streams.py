@@ -24,7 +24,8 @@ It and its per-frame body ``fused_frame_step`` share their stateless
 stages (``_make_detect_embed``).
 
 ``make_batched_step`` is the K=1 step: one frame of every stream per call,
-no readback inside the step -- capacity is a static ``cap``; a bf16 embed's
+no readback inside the step -- capacity is a static ``cap``; on the card its
+detector is replayed from a CUDA graph (``DetectorGraph``); a bf16 embed's
 crops are one launch of the dense crop entry, an f32 embed's crop window is
 guarded on the device. Both steps can route whitelisted backbone
 convs through the tensor-core conv kernel (kernel 7, ``_make_conv_impl``),
@@ -440,6 +441,87 @@ def make_k1_crops(frame_hw: Tuple[int, int],
     return guarded
 
 
+# The K=1 step's detector graphs, counted beside the kernels' launches
+# (``kernels/launches.py``); only ``DetectorGraph`` adds to them.
+detector_graph_launches = 0  # detector forwards replayed from a graph
+detector_capture_launches = 0  # detector forwards captured in a graph
+detector_eager_launches = 0  # detector forwards on the card run eagerly
+
+
+class DetectorGraph:
+    """The K=1 step's detector forward: ``graph(xs)`` -> decoded rows,
+    ``detector(xs, conv_impl=conv_impl, block_impl=block_impl)`` bit for
+    bit. On the card it is replayed from a CUDA graph, one launch in place
+    of one a device op; CPU tensors run the forward as it is.
+
+    The graph reads a static input, into which ``xs`` is copied (one device
+    copy), and writes a static output, which the call returns: the caller
+    reads it on the current stream before its next call enqueues the next
+    replay behind that. The graph is keyed on what the code can observe:
+    the device, ``xs``'s shape and dtype, the memory and version counter of
+    every detector parameter (``load_params``, an in-place update and
+    ``.to`` change them) and the float32 math modes of the library convs. A
+    call with a new key drops the graph and runs eagerly, which fills the
+    kernels' packed-weight caches and the conv planner; the next call with
+    that key captures, on a memory pool of the graph's own, and replays. No
+    capture starts while a torch profiler records: that call runs eagerly.
+
+    The kernels' launch counters count at capture, not at replay."""
+
+    def __init__(self, detector: Darknet, conv_impl=None, block_impl=None):
+        self.detector = detector
+        self.conv_impl, self.block_impl = conv_impl, block_impl
+        # the layers that hold parameters, walked once: a walk of the module
+        # tree would cost the step ~0.15 ms, their parameter dicts ~0.05
+        self.layers = [m for m in detector.modules() if m._parameters]
+        self.key = None
+        self.graph = self.x = self.out = None
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        return self.detector(xs, conv_impl=self.conv_impl,
+                             block_impl=self.block_impl)
+
+    def key_of(self, xs: torch.Tensor) -> tuple:
+        return (xs.device, xs.shape, xs.dtype,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic,
+                tuple((p.data_ptr(), p._version) for m in self.layers
+                      for p in m._parameters.values() if p is not None))
+
+    def __call__(self, xs: torch.Tensor) -> torch.Tensor:
+        global detector_graph_launches, detector_eager_launches
+        if xs.device.type != "cuda":
+            return self.forward(xs)
+        key = self.key_of(xs)
+        if key != self.key or (self.graph is None
+                               and torch._C._autograd._profiler_enabled()):
+            if key != self.key:  # the key is warm after this eager call
+                self.key, self.graph, self.x, self.out = key, None, None, None
+            detector_eager_launches += 1
+            return self.forward(xs)
+        if self.graph is None:
+            self.capture(xs)
+        with span("ydt.detector"):
+            self.x.copy_(xs)
+            self.graph.replay()
+        detector_graph_launches += 1
+        return self.out
+
+    def capture(self, xs: torch.Tensor) -> None:
+        global detector_capture_launches
+        self.x = torch.empty_like(xs)
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: other threads (the runtime's frame producers) may
+        # call CUDA while this one captures
+        with torch.cuda.device(xs.device), torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(xs.device),
+                capture_error_mode="thread_local"):
+            self.out = self.forward(self.x)
+        self.graph = graph
+        detector_capture_launches += 1
+
+
 def make_batched_step(
     detector: Darknet,
     reid: ReIDNet,
@@ -479,7 +561,9 @@ def make_batched_step(
     once per routed chain, with a bf16 embed the dense crops, with
     ``embed_int8="resident_pallas"`` the int8 conv kernel (K8) once per
     quantized ReID conv, and the fused tracker step (K3), and reads nothing
-    back."""
+    back. On the card the detector's launches are replayed from a CUDA
+    graph (``DetectorGraph``) from the second call with the same input and
+    weights on; the stages after it run eagerly."""
     h, w = frame_hw
     size = det_cfg.img_size
     cfg_c = trk_cfg
@@ -494,6 +578,7 @@ def make_batched_step(
     embed, reid_dtype, _ = _make_embed(reid, embed_int8)
     tracked = class_filter(tracked_class_ids, param.device)
     crops_of = make_k1_crops(frame_hw, crop_window, reid_dtype)
+    detect = DetectorGraph(detector, conv_impl, block_impl)
 
     @torch.no_grad()
     def run(states: TrackerState, frames: torch.Tensor, frame_valid=None):
@@ -503,7 +588,7 @@ def make_batched_step(
     def body(states, frames, frame_valid):
         s = frames.shape[0]
         xs = letterbox_batch_fused(frames, size, out_dtype=det_dtype)
-        decoded = detector(xs, conv_impl=conv_impl, block_impl=block_impl)
+        decoded = detect(xs)
         # NMS at the ``cap`` capacity directly: its rows are a contiguous
         # score-descending prefix, so the first ``cap`` equal a run at
         # max_dets sliced, in cap-many steps instead of max_dets-many
