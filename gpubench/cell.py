@@ -1,6 +1,8 @@
 """One run of a cell: inputs, program, warm-up, window, optional traced
-slice, then the reference's verdict. ``run.py`` is the command around it;
-the control and the tests call it directly (on the CPU, at tiny sizes)."""
+slice, the program's detector captured layer by layer on the sampled
+frames after the window, then the reference's verdict. ``run.py`` is the
+command around it; the control and the tests call it directly (on the
+CPU, at tiny sizes)."""
 
 from __future__ import annotations
 
@@ -109,9 +111,10 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
     the built step (the tests' broken programs); ``route="int8"`` is the
     program's control. ``controls`` adds, judged on the same samples, the
     numbers with the reference tracker's state rounded to bfloat16 in the
-    program's place ("tracker_bf16") and the detector's ``det_cos`` with
-    the reference computed with W8A8 rounding in its place
-    ("detector_int8")."""
+    program's place ("tracker_bf16") and the detector's ``det_cos`` and
+    ``det_layer_cos`` with the reference computed with W8A8 rounding in
+    its place ("detector_int8": the whole forward, and each conv on the
+    program's own inputs of it)."""
     from yolo_deepsort_tpu_torch.kernels.launches import (read_launches,
                                                           zero_launches)
 
@@ -130,7 +133,7 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
                                 cfg["box_prior"])
     reid_sd = load.reid_state_dict(seed, device)
     thr = _thresholds(defs, raw, frames_v, img, traffic, cfg)
-    make_step, detector, reid = serve.build(
+    make_step, detector, reid, conv_impl = serve.build(
         cfg, traffic, cfg_path, raw, reid_sd, device, route, frames_v[0])
     ids = list(range(v_n)) if k1 else [f % v_n for f in range(k)]
     frames = (frames_v if k1 or ids == list(range(v_n)) else frames_v[ids])
@@ -176,16 +179,24 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
             extra = _stage_timings(detector, reid, frames, img, w, device)
     samples = [_to_numpy(x) for x in start.samples + w.samples]
     saturation = step.saturation() if hasattr(step, "saturation") else None
-    del step, states, detector, reid, start, warm, frames
+    del step, states, reid, start, warm, frames
     w.states = None
     w.samples = []
     if device.type == "cuda":
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
 
     t_judge = time.perf_counter()
+    captures = _captures(detector, conv_impl, frames_v, samples, defs, raw,
+                         img, controls)
+    capture_peak = (torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else 0)
+    del detector, conv_impl
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     judge = compare.Judge(compare.Reference(
         defs, raw, reid_sd, frames_v, img, _nms_caps(cfg, traffic),
-        cfg["tracker"]), hw)
+        cfg["tracker"]), hw, captures)
     per_sample = [judge.judge(x) for x in samples]
     numbers = judge.numbers()
     control_numbers = None
@@ -195,8 +206,12 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
         for x in samples:
             judge.judge(x)
         control_numbers = {"tracker_bf16": judge.numbers(),
-                           "detector_int8": {"det_cos":
-                                             judge.int8_det_cos()}}
+                           "detector_int8": {
+                               "det_cos": judge.int8_det_cos(),
+                               "det_layer_cos": functools.reduce(
+                                   compare.worst,
+                                   (v for c in captures.values()
+                                    for v in c.int8_per_module.values()))}}
     ok, checks = compare.verdict(numbers, limits)
     failed = sum(not compare.verdict(n, limits)[0] for n in per_sample[1:])
     judge_s = time.perf_counter() - t_judge
@@ -249,7 +264,9 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
                         for q in (50, 95, 99)] if w.latency_s else None),
         "route": route}},
         {"samples": per_sample, "error": judge.total.error,
-         "judge_s": judge_s}]
+         "judge_s": judge_s, "capture_peak_bytes": int(capture_peak),
+         "layers": [_layer_detail(defs, key, c)
+                    for key, c in captures.items()]}]
     if traced:
         detail.append({"trace": {key: tr[key] for key in (
             "span_s", "span_count", "busy_s", "window_s", "unattributed_s",
@@ -260,6 +277,58 @@ def run_cell(cfg: Dict, cfg_path: str, traffic: Dict, limits: Dict,
     if controls:
         res["controls"] = control_numbers
     return res
+
+
+def _captures(detector, conv_impl, frames_v, samples, defs, raw, img: int,
+              int8: bool) -> Dict[tuple, compare.Capture]:
+    """Of every distinct sampled unit (its frame ids): the program's eager
+    forward of the unit's frames, the batch its detector ran
+    (``serve.capture``), judged layer by layer on the device as the
+    capture is walked (``compare.judge_layers``, with the reference's W8A8
+    in the program's place if ``int8``) at the unit's sampled frame
+    positions, and its decoded rows there. Only those numbers and rows are
+    kept."""
+    out = {}
+    for key in dict.fromkeys(tuple(x.frame_ids) for x in samples):
+        pos = sorted({f for x in samples if tuple(x.frame_ids) == key
+                      for f in x.decoded})
+        unit = frames_v[list(key)]  # (K, S, H, W, 3)
+        s = unit.shape[1]
+        flat = unit.reshape(-1, *unit.shape[2:])
+        xs, decoded, layers = serve.capture(detector, conv_impl, flat, img)
+        judged = compare.judge_layers(
+            defs, raw, img, flat, xs, layers,
+            [f * s + j for f in pos for j in range(s)], int8)
+        out[key] = compare.Capture(decoded={
+            f: decoded[f * s:(f + 1) * s].float().cpu().numpy()
+            for f in pos}, **judged)
+        del flat, xs, decoded, layers
+    return out
+
+
+def _layer_detail(defs, key: tuple, cap: compare.Capture) -> Dict:
+    """A capture's readings for the detail line: the largest by kind of
+    module (a conv by its activation) and the six largest modules, of the
+    program and of the W8A8 control."""
+    def kind(i):
+        if i < 0:
+            return "letterbox"
+        d = defs[i]
+        return (d.get("activation", "linear")
+                if d["type"] == "convolutional" else d["type"])
+
+    def summary(per):
+        by_kind: Dict[str, float] = {}
+        for i, v in per.items():
+            by_kind[kind(i)] = compare.worst(by_kind.get(kind(i), 0.0), v)
+        top = sorted(per, key=lambda i: -per[i])[:6]
+        return {"by_kind": by_kind,
+                "top": [[i, kind(i), per[i]] for i in top]}
+
+    out = {"frames": list(key), "program": summary(cap.per_module)}
+    if cap.int8_per_module:
+        out["detector_int8"] = summary(cap.int8_per_module)
+    return out
 
 
 def _stage_timings(detector, reid, frames, img, w, device) -> Dict:

@@ -12,7 +12,28 @@ bf16 objectness ranks first) does not pass for an error downstream:
   objectness logit and class logits. ``det_cos``: the largest, over frames
   and over those three groups, of 1 - cosine between the program's values
   and the reference's over all anchors (as ``feat_cos`` for the features:
-  rounding moves it by its square, a wrong value by its whole).
+  rounding moves it by its square, a wrong value by its whole). It judges
+  the whole forward at once, so every layer's rounding is compounded
+  through the net: on a deep random detector bf16 alone moves the heads as
+  far from float32 as W8A8 does (yolov4-608), and no limit can hold such a
+  net to its precision.
+  ``det_layer_cos``: the same judged one module at a time. After the
+  window the program's own detector runs once more, eagerly, on the
+  sampled units' frames (the serving steps' letterbox, the step's conv
+  route), with every module's output captured; each module's output is
+  compared with ``reference.darknet.module`` applied in float32 to the
+  program's own inputs of that module, and the program's letterbox with
+  the reference's of the frames: the largest 1 - cosine over streams and
+  modules (letterbox, conv, shortcut, route, max-pool, upsample; a [yolo]
+  module's decoded rows in the head's terms as ``det_cos``, against the
+  reference's decode of the program's head). Each layer's rounding is
+  judged once, so the sound reading does not grow with depth, and a
+  shifted letterbox, a wrong activation, a lost shortcut, swapped route
+  parts, a head's lost ``scale_x_y`` or a layer at a lower precision each
+  read far above it.
+  ``det_replay``: the share of sampled stream frames whose decoded rows,
+  as the timed step handed them to its NMS, differ bit for bit from the
+  captured forward's: the capture is of what the timed path computed.
   ``frame_copies``: the share of those second frames, of another variant
   than the first, whose decoded rows equal the first frame's bit for bit
   (the frames differ by sensor noise, too little for ``det_cos`` to tell
@@ -37,13 +58,16 @@ bf16 objectness ranks first) does not pass for an error downstream:
   ``kalman_px``: the largest gap of a common track's box (tlwh of its
   Kalman mean) after the sample.
 
-Each number has its limit in ``limits/<cell>.json``."""
+Each number has its limit in ``limits/<cell>.json``; ``det_cos`` alone may
+have none (null) in a cell where no control separates it and
+``det_layer_cos`` does."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import traceback
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -53,9 +77,8 @@ from .reference import nms as ref_nms
 from .reference import reid as ref_reid
 from .reference.tracker import Tracker
 
-NUMBERS = ("det_cos", "frame_copies", "nms_miss", "feat_cos", "track_rows",
-           "state_miss",
-           "kalman_px")
+NUMBERS = ("det_cos", "det_layer_cos", "det_replay", "frame_copies",
+           "nms_miss", "feat_cos", "track_rows", "state_miss", "kalman_px")
 CLIP = 1e-6  # sigmoid outputs within this of 0 or 1 are saturated
 NMS_BOX_PX = 0.05
 NMS_CONF = 1e-6
@@ -96,21 +119,29 @@ class Reference:
     tracker: Dict    # the configuration's tracker section
 
 
-def head_grid(defs, img_size: int) -> np.ndarray:
-    """(B, 7) per anchor of the decoded rows: grid x, grid y, stride,
-    anchor w, anchor h (input pixels), scale_x_y, and its offset."""
+def head_grids(defs, img_size: int) -> Dict[int, np.ndarray]:
+    """[yolo] module -> (A*G*G, 7) per anchor of its decoded rows: grid x,
+    grid y, stride, anchor w, anchor h (input pixels), scale_x_y, and its
+    offset."""
     hout = {c["index"]: c["hout"]
             for c in ref_darknet.conv_shapes(defs, img_size)}
-    rows = []
+    grids = {}
     for idx, anchors, _, sxy in ref_darknet.yolo_heads(defs):
         g = hout[idx - 1]
         gy, gx = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
         cells = np.stack([gx.ravel(), gy.ravel()], 1).astype(float)
+        rows = []
         for aw, ah in anchors:  # anchor-major, then rows, then columns
             rest = [img_size / g, aw, ah, sxy, 0.5 * (sxy - 1.0)]
             rows.append(np.concatenate([cells, np.tile(rest, (g * g, 1))],
                                        1))
-    return np.concatenate(rows)
+        grids[idx] = np.concatenate(rows)
+    return grids
+
+
+def head_grid(defs, img_size: int) -> np.ndarray:
+    """(B, 7): ``head_grids`` of every head, in the decoded rows' order."""
+    return np.concatenate(list(head_grids(defs, img_size).values()))
 
 
 def head_logits(decoded: np.ndarray, grid: np.ndarray) -> np.ndarray:
@@ -134,6 +165,108 @@ def head_logits(decoded: np.ndarray, grid: np.ndarray) -> np.ndarray:
     return out
 
 
+def worst(a: float, b: float) -> float:
+    """The larger of two gaps; a gap that is not a number is infinite (a
+    plain ``max`` would keep the other one)."""
+    return max(float("inf") if v != v else v for v in (a, b))
+
+
+def head_gap(prog: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Head values (N, B, 5 + C) of two sides -> (N,): of each image the
+    largest, over box offsets, objectness and classes, of 1 - cosine
+    between the two over all anchors."""
+    worst = np.zeros(len(prog))
+    for cols in (slice(0, 4), slice(4, 5), slice(5, None)):
+        a = prog[:, :, cols].reshape(len(prog), -1)
+        b = ref[:, :, cols].reshape(len(prog), -1)
+        cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                * np.linalg.norm(b, axis=1))
+        worst = np.maximum(worst, 1.0 - cos)
+    return worst
+
+
+def cos_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, ...) twice -> (N,) float64: 1 - cosine of each image's values,
+    as half the squared distance of the unit vectors (no cancellation near
+    1); 0 where both are zero, 1 where one is."""
+    a = a.reshape(len(a), -1).double()
+    b = b.reshape(len(b), -1).double()
+    na, nb = a.norm(dim=1, keepdim=True), b.norm(dim=1, keepdim=True)
+    gap = 0.5 * ((a / na.clamp_min(1e-300) - b / nb.clamp_min(1e-300)) ** 2
+                 ).sum(1)
+    both = (na[:, 0] == 0) & (nb[:, 0] == 0)
+    return torch.where(both, torch.zeros_like(gap), gap)
+
+
+@dataclasses.dataclass
+class Capture:
+    """The layer-wise judge of one sampled unit: of each module the largest
+    1 - cosine over streams (``judge_layers``; the largest over modules is
+    ``det_layer_cos``), the same for the reference's W8A8 rounding in the
+    program's place (the detector's control; empty unless asked for), and
+    the captured forward's decoded rows (S, B, 5 + C) at the unit's sampled
+    frame positions."""
+
+    per_module: Dict[int, float]
+    int8_per_module: Dict[int, float]
+    decoded: Dict[int, np.ndarray]
+
+    @property
+    def layer_cos(self) -> float:
+        return functools.reduce(worst, self.per_module.values())
+
+
+@torch.no_grad()
+def judge_layers(defs, params: Dict[int, Dict], img_size: int,
+                 frames: torch.Tensor, x: torch.Tensor, layers: List,
+                 rows: Sequence[int], int8: bool = False) -> Dict:
+    """Walk the program's capture of one forward: ``x`` (N, S, S, 3) its
+    letterbox of ``frames`` (N, H, W, 3), ``layers`` every module's output
+    (NHWC maps, a [yolo] module's decoded rows), as
+    ``Darknet.forward(x, capture_all_layers=True)`` returns them. The
+    letterbox (module -1) is judged against the reference's of the frames,
+    each module's output against ``reference.darknet.module`` in float32
+    on the program's own inputs of that module, at the batch rows
+    ``rows``; an output is dropped from ``layers`` once its last reader is
+    judged. -> {"per_module": {module: largest 1 - cosine over the rows},
+    "int8_per_module": the same of the reference's W8A8 rounding in the
+    program's place (``int8``)}."""
+    rows = torch.as_tensor(list(rows), device=x.device)
+    last = {j: i for i in range(len(defs))  # the last reader of each output
+            for j in ref_darknet.sources(defs, i)}
+    grids = head_grids(defs, img_size)
+
+    def nchw(j):
+        t = x if j < 0 else layers[j]
+        return t.index_select(0, rows).permute(0, 3, 1, 2).float()
+
+    per, per8 = {}, {}
+    with ref_darknet.f32_exact():
+        per[-1] = float(cos_gap(nchw(-1), ref_darknet.letterbox(
+            frames.index_select(0, rows), img_size)).max())
+        for i, d in enumerate(defs):
+            srcs = ref_darknet.sources(defs, i)
+            ins = [nchw(j) for j in srcs]
+            want = ref_darknet.module(defs, params, i, ins, img_size)
+            if d["type"] == "yolo":
+                got = layers[i].index_select(0, rows)
+                per[i] = float(head_gap(
+                    head_logits(got.float().cpu().numpy(), grids[i]),
+                    head_logits(want.cpu().numpy(), grids[i])).max())
+            else:
+                got = layers[i].index_select(0, rows).permute(0, 3, 1, 2)
+                per[i] = float(cos_gap(got, want).max())
+                if int8 and d["type"] == "convolutional":
+                    per8[i] = float(cos_gap(ref_darknet.module(
+                        defs, params, i, ins, img_size, int8=True),
+                        want).max())
+            del ins, want, got
+            for j in srcs + [i]:
+                if last.get(j, -2) <= i and j >= 0:
+                    layers[j] = None
+    return {"per_module": per, "int8_per_module": per8}
+
+
 def bf16_round(a: np.ndarray) -> np.ndarray:
     """The tracker's control: float64 values rounded to bfloat16."""
     return torch.from_numpy(a).to(torch.bfloat16).double().numpy()
@@ -147,17 +280,19 @@ class Tally:
     """Counts and largest gaps of the numbers compared."""
 
     def __init__(self):
-        self.n = {k: 0.0 for k in ("copies", "pairs", "nms_bad", "nms_ref",
-                                   "rows_bad",
-                                   "rows_ref", "state_bad", "state_ref")}
-        self.gap = {"det_cos": 0.0, "feat_cos": 0.0, "kalman_px": 0.0}
+        self.n = {k: 0.0 for k in ("copies", "pairs", "replay_bad",
+                                   "replay_frames", "nms_bad", "nms_ref",
+                                   "rows_bad", "rows_ref", "state_bad",
+                                   "state_ref")}
+        self.gap = {"det_cos": 0.0, "det_layer_cos": 0.0, "feat_cos": 0.0,
+                    "kalman_px": 0.0}
         self.error = None
 
     def merge(self, other: "Tally") -> None:
         for k, v in other.n.items():
             self.n[k] += v
         for k, v in other.gap.items():
-            self.gap[k] = max(self.gap[k], v)
+            self.gap[k] = worst(self.gap[k], v)
         self.error = self.error or other.error
 
     def numbers(self) -> Dict[str, float]:
@@ -166,6 +301,8 @@ class Tally:
         n = self.n
         return {
             "det_cos": self.gap["det_cos"],
+            "det_layer_cos": self.gap["det_layer_cos"],
+            "det_replay": n["replay_bad"] / max(n["replay_frames"], 1.0),
             "frame_copies": n["copies"] / max(n["pairs"], 1.0),
             "nms_miss": n["nms_bad"] / max(n["nms_ref"], 1.0),
             "feat_cos": self.gap["feat_cos"],
@@ -177,12 +314,16 @@ class Tally:
 
 class Judge:
     """Runs the reference once per distinct input and accumulates the
-    numbers over every sample. ``tracker_round`` rounds the reference
-    tracker's state (the tracker's control)."""
+    numbers over every sample. ``captures``: the layer-wise judge of the
+    program's capture of each sampled unit, by the unit's frame ids
+    (``judge_layers``). ``tracker_round`` rounds the reference tracker's
+    state (the tracker's control)."""
 
-    def __init__(self, ref: Reference, frame_hw, tracker_round=None):
+    def __init__(self, ref: Reference, frame_hw,
+                 captures: Dict[tuple, Capture], tracker_round=None):
         self.ref = ref
         self.hw = tuple(frame_hw)
+        self.captures = captures
         self.tracker_round = tracker_round
         self.grid = head_grid(ref.defs, ref.img_size)
         self._logits: Dict[int, np.ndarray] = {}
@@ -237,14 +378,21 @@ class Judge:
             self._judge_state(trk, stream_slice(smp.post, s))
 
     def _judge_detector(self, smp: Sample) -> None:
-        g = self.tally.gap
+        g, n = self.tally.gap, self.tally.n
+        cap = self.captures.get(tuple(smp.frame_ids))
+        if cap is None:
+            raise ValueError(f"no capture of the frames {smp.frame_ids}")
+        g["det_layer_cos"] = worst(g["det_layer_cos"], cap.layer_cos)
         for f, decoded in smp.decoded.items():
-            g["det_cos"] = max(g["det_cos"], self.det_cos(
+            g["det_cos"] = worst(g["det_cos"], self.det_cos(
                 decoded, smp.frame_ids[f]))
+            for timed, eager in zip(decoded, cap.decoded[f]):
+                n["replay_frames"] += 1
+                n["replay_bad"] += float(timed.tobytes() != eager.tobytes())
             if f and smp.frame_ids[f] != smp.frame_ids[0]:
-                self.tally.n["pairs"] += 1
-                self.tally.n["copies"] += float(np.array_equal(
-                    decoded, smp.decoded[0]))
+                n["pairs"] += 1
+                n["copies"] += float(np.array_equal(decoded,
+                                                    smp.decoded[0]))
 
     def _forward(self, v: int, int8: bool = False) -> np.ndarray:
         ref = self.ref
@@ -260,15 +408,8 @@ class Judge:
         objectness, classes."""
         if v not in self._logits:
             self._logits[v] = head_logits(self._forward(v), self.grid)
-        prog = head_logits(decoded, self.grid)
-        worst = 0.0
-        for cols in (slice(0, 4), slice(4, 5), slice(5, None)):
-            a = prog[:, :, cols].reshape(len(prog), -1)
-            b = self._logits[v][:, :, cols].reshape(len(prog), -1)
-            cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
-                                    * np.linalg.norm(b, axis=1))
-            worst = max(worst, float((1.0 - cos).max()))
-        return worst
+        return float(head_gap(head_logits(decoded, self.grid),
+                              self._logits[v]).max())
 
     def int8_det_cos(self) -> float:
         """The detector's control: ``det_cos`` of the reference itself
@@ -320,7 +461,7 @@ class Judge:
             cos = (want * feat).sum(1) / (np.linalg.norm(want, axis=1)
                                           * np.linalg.norm(feat, axis=1))
             g = self.tally.gap
-            g["feat_cos"] = max(g["feat_cos"], float((1.0 - cos).max()))
+            g["feat_cos"] = worst(g["feat_cos"], float((1.0 - cos).max()))
 
     def _judge_rows(self, got: Dict, want: Dict) -> None:
         bad = len(set(got) ^ set(want))
@@ -344,8 +485,8 @@ class Judge:
                     != (b.state, b.hits, b.age, b.tsu, gb.shape)
                     or (ga != gb).any()):
                 bad += 1
-            g["kalman_px"] = max(g["kalman_px"], _box_gap(a.tlwh(),
-                                                          b.tlwh()))
+            g["kalman_px"] = worst(g["kalman_px"], _box_gap(a.tlwh(),
+                                                            b.tlwh()))
         self.tally.n["state_bad"] += bad
         self.tally.n["state_ref"] += len(mine)
 
@@ -361,9 +502,12 @@ def _box_gap(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]):
-    """-> (every number within its limit, {name: {"value", "limit"}})."""
+    """-> (every number within its limit, {name: {"value", "limit"}} of
+    the numbers compared). A limit of None leaves its number uncompared in
+    that cell: only ``det_cos``, where no control separates it and
+    ``det_layer_cos`` does (a deep random detector's whole forward)."""
     checks = {k: {"value": numbers[k], "limit": limits[k]}
-              for k in sorted(numbers)}
+              for k in sorted(numbers) if limits[k] is not None}
     ok = all(np.isfinite(c["value"]) and c["value"] <= c["limit"]
              for c in checks.values())
     return ok, checks

@@ -5,9 +5,12 @@ controls on a few (the upper reading is the smallest):
 
 * "int8": the program with its own int8 paths switched on -- W8A8
   backbone convs through kernel 7's int8 mode and the int8-resident ReID
-  embed through kernel 8 -- in place of the bfloat16 configuration;
+  embed through kernel 8 -- in place of the bfloat16 configuration (its
+  ``det_layer_cos`` judged on its own capture);
 * "detector_int8": the reference detector computed with W8A8 rounding on
-  every conv, in the program's place (judged on each sound run's samples);
+  every conv, in the program's place (judged on each sound run's samples):
+  the whole forward for ``det_cos``, and each conv on the program's own
+  inputs of it for ``det_layer_cos``;
 * "tracker_bf16": the reference tracker with its Kalman state rounded to
   bfloat16 after every operation, in the program's place, whose tracker
   keeps float32 (judged on each sound run's samples);
@@ -89,6 +92,9 @@ def main(argv=None) -> int:
                           "metrics": res["line"]["metrics"],
                           "detail": res["detail"][0]["window"],
                           "judge_s": res["detail"][1]["judge_s"],
+                          "capture_peak_bytes":
+                              res["detail"][1]["capture_peak_bytes"],
+                          "layers": res["detail"][1]["layers"],
                           "error": res["detail"][1]["error"]}),
               flush=True)
         del res

@@ -1,4 +1,5 @@
-"""Plain float32 darknet detector: cfg parser, letterbox, forward, YOLO decode.
+"""Plain float32 darknet detector: cfg parser, letterbox, each module on its
+own inputs (``module``) and the forward composed of them, YOLO decode.
 
 Written from the darknet cfg semantics (pjreddie/darknet and
 AlexeyAB/darknet) as eriklindernoren's PyTorch-YOLOv3 reads them, with
@@ -94,18 +95,19 @@ def _ref(layer: int, i: int) -> int:
     return layer if layer >= 0 else i + layer
 
 
+def _head(d: Dict[str, str]):
+    """A [yolo] section -> (its anchors [(w, h)], classes, scale_x_y)."""
+    flat = [float(a) for a in d["anchors"].split(",")]
+    pairs = [(flat[2 * j], flat[2 * j + 1]) for j in range(len(flat) // 2)]
+    mask = [int(m) for m in d["mask"].split(",")]
+    return ([pairs[m] for m in mask], int(d["classes"]),
+            float(d.get("scale_x_y", 1.0)))
+
+
 def yolo_heads(defs: Sequence[Dict[str, str]]):
     """[(module index, anchors [(w, h)], classes, scale_x_y)] per [yolo]."""
-    heads = []
-    for i, d in enumerate(defs):
-        if d["type"] != "yolo":
-            continue
-        flat = [float(a) for a in d["anchors"].split(",")]
-        pairs = [(flat[2 * j], flat[2 * j + 1]) for j in range(len(flat) // 2)]
-        mask = [int(m) for m in d["mask"].split(",")]
-        heads.append((i, [pairs[m] for m in mask], int(d["classes"]),
-                      float(d.get("scale_x_y", 1.0))))
-    return heads
+    return [(i,) + _head(d) for i, d in enumerate(defs)
+            if d["type"] == "yolo"]
 
 
 def letterbox(frames: torch.Tensor, size: int) -> torch.Tensor:
@@ -162,10 +164,76 @@ def fake_int8(t: torch.Tensor, dims) -> torch.Tensor:
     return torch.clamp(torch.round(t / scale), -127, 127) * scale
 
 
+def sources(defs: Sequence[Dict[str, str]], i: int) -> List[int]:
+    """The modules whose outputs module ``i`` reads, in the order it reads
+    them (-1: the net's input): the previous one, a route's layers, or a
+    shortcut's previous one and its ``from``."""
+    d = defs[i]
+    if d["type"] == "route":
+        return [_ref(int(l), i) for l in d["layers"].split(",")]
+    if d["type"] == "shortcut":
+        return [i - 1, _ref(int(d["from"]), i)]
+    return [i - 1]
+
+
+def module(defs: Sequence[Dict[str, str]], params: Dict[int, Dict], i: int,
+           inputs: Sequence[torch.Tensor], img_size: int,
+           capture_bn: bool = False, int8: bool = False) -> torch.Tensor:
+    """Module ``i`` of the net on its ``inputs`` (NCHW, the outputs of
+    ``sources(defs, i)``) -> its output, or for a [yolo] module the decoded
+    rows (N, A*G*G, 5+C) of its input. ``params``, ``capture_bn`` and
+    ``int8`` as ``forward`` takes them."""
+    d = defs[i]
+    t = d["type"]
+    prev = inputs[0]
+    if t == "convolutional":
+        p = params[i]
+        k = int(d["size"])
+        pad = (k - 1) // 2 if int(d.get("pad", 0)) else 0
+        w = p["conv_weight"]
+        if int8:  # per-tensor activations, per-output-channel weights
+            prev, w = fake_int8(prev, None), fake_int8(w, (1, 2, 3))
+        y = F.conv2d(prev, w, None, int(d.get("stride", 1)), pad)
+        if int(d.get("batch_normalize", 0)):
+            if capture_bn:
+                p["bn_mean"] = torch.zeros_like(p["bn_mean"])
+                p["bn_var"] = (y * y).mean((0, 2, 3))
+            scale = p["bn_weight"] / torch.sqrt(p["bn_var"] + BN_EPS)
+            y = ((y - p["bn_mean"][None, :, None, None])
+                 * scale[None, :, None, None]
+                 + p["bn_bias"][None, :, None, None])
+        else:
+            y = y + p["conv_bias"][None, :, None, None]
+        return _act(y, d.get("activation", "linear"))
+    if t == "maxpool":
+        k, s = int(d["size"]), int(d["stride"])
+        if k == 2 and s == 1:
+            return F.max_pool2d(F.pad(prev, (0, 1, 0, 1)), 2, 1)
+        return F.max_pool2d(prev, k, s, (k - 1) // 2)
+    if t == "upsample":
+        return F.interpolate(prev, scale_factor=int(d["stride"]),
+                             mode="nearest")
+    if t == "route":
+        out = torch.cat(list(inputs), 1)
+        groups = int(d.get("groups", 1))
+        if groups > 1:
+            gc = out.shape[1] // groups
+            gid = int(d.get("group_id", 0))
+            out = out[:, gid * gc:(gid + 1) * gc]
+        return out
+    if t == "shortcut":
+        return prev + inputs[1]
+    if t == "yolo":
+        anchors, classes, sxy = _head(d)
+        return decode(prev, anchors, classes, img_size, sxy)
+    raise ValueError(f"unknown module type {t!r}")
+
+
 def forward(defs: Sequence[Dict[str, str]], params: Dict[int, Dict],
             x: torch.Tensor, img_size: int, capture_bn: bool = False,
             int8: bool = False):
-    """Run the net (defs without [net]) on x (N, 3, S, S) float32.
+    """Run the net (defs without [net]) on x (N, 3, S, S) float32, module
+    by module (``module``).
 
     ``params[i]``: "conv_weight" (OIHW) and either the BN tensors
     "bn_weight", "bn_bias", "bn_mean", "bn_var" or "conv_bias". With
@@ -175,62 +243,17 @@ def forward(defs: Sequence[Dict[str, str]], params: Dict[int, Dict],
     the returned weights reproduces this pass. ``int8`` rounds
     every conv's input and weights to int8 codes (the lower-precision
     control of the detector). -> (N, boxes, 5+C) decoded rows."""
-    keep = set()
-    for i, d in enumerate(defs):
-        if d["type"] == "route":
-            keep |= {_ref(int(l), i) for l in d["layers"].split(",")}
-        elif d["type"] == "shortcut":
-            keep.add(_ref(int(d["from"]), i))
+    reads = [sources(defs, i) for i in range(len(defs))]
+    keep = {j for i, r in enumerate(reads) for j in r if j != i - 1}
     outs: List[torch.Tensor] = []  # only the outputs a later module reads
     decoded = []
-    heads = {h[0]: h for h in yolo_heads(defs)}
     prev = x
     for i, d in enumerate(defs):
-        t = d["type"]
-        if t == "convolutional":
-            p = params[i]
-            k = int(d["size"])
-            pad = (k - 1) // 2 if int(d.get("pad", 0)) else 0
-            w = p["conv_weight"]
-            if int8:  # per-tensor activations, per-output-channel weights
-                prev, w = fake_int8(prev, None), fake_int8(w, (1, 2, 3))
-            y = F.conv2d(prev, w, None, int(d.get("stride", 1)), pad)
-            if int(d.get("batch_normalize", 0)):
-                if capture_bn:
-                    p["bn_mean"] = torch.zeros_like(p["bn_mean"])
-                    p["bn_var"] = (y * y).mean((0, 2, 3))
-                scale = p["bn_weight"] / torch.sqrt(p["bn_var"] + BN_EPS)
-                y = ((y - p["bn_mean"][None, :, None, None])
-                     * scale[None, :, None, None]
-                     + p["bn_bias"][None, :, None, None])
-            else:
-                y = y + p["conv_bias"][None, :, None, None]
-            out = _act(y, d.get("activation", "linear"))
-        elif t == "maxpool":
-            k, s = int(d["size"]), int(d["stride"])
-            if k == 2 and s == 1:
-                out = F.max_pool2d(F.pad(prev, (0, 1, 0, 1)), 2, 1)
-            else:
-                out = F.max_pool2d(prev, k, s, (k - 1) // 2)
-        elif t == "upsample":
-            out = F.interpolate(prev, scale_factor=int(d["stride"]),
-                                mode="nearest")
-        elif t == "route":
-            out = torch.cat([outs[_ref(int(l), i)]
-                             for l in d["layers"].split(",")], 1)
-            groups = int(d.get("groups", 1))
-            if groups > 1:
-                gc = out.shape[1] // groups
-                gid = int(d.get("group_id", 0))
-                out = out[:, gid * gc:(gid + 1) * gc]
-        elif t == "shortcut":
-            out = prev + outs[_ref(int(d["from"]), i)]
-        elif t == "yolo":
-            _, anchors, classes, sxy = heads[i]
-            decoded.append(decode(prev, anchors, classes, img_size, sxy))
+        ins = [prev if j == i - 1 else outs[j] for j in reads[i]]
+        out = module(defs, params, i, ins, img_size, capture_bn, int8)
+        if d["type"] == "yolo":  # the head's map passes through
+            decoded.append(out)
             out = prev
-        else:
-            raise ValueError(f"unknown module type {t!r}")
         outs.append(out if i in keep else None)
         prev = out
     return torch.cat(decoded, 1)

@@ -97,19 +97,22 @@ def state_arrays(st) -> Dict[str, np.ndarray]:
 
 def build(cfg: Dict, traffic: Dict, cfg_path: str, raw: Dict, reid_sd: Dict,
           device, route: str = "stated", frames_s=None):
-    """-> make_step(thresholds) -> (step, fresh tracker states), and the
+    """-> make_step(thresholds) -> (step, fresh tracker states), the
     detector and the ReID net, in the configuration's dtype, built through
-    the program's public loaders. ``route="int8"`` switches on the
-    program's own int8 paths (W8A8 backbone convs through kernel 7's int8
-    mode, calibrated on the frames, and the int8-resident ReID embed
-    through kernel 8): the lower-precision control; ``route="stated"``
-    runs the configuration as stated."""
+    the program's public loaders, and the steps' conv route of the
+    detector (``conv_impl``, resolved by the steps' own resolver from the
+    same arguments; None: the model's own convs). ``route="int8"``
+    switches on the program's own int8 paths (W8A8 backbone convs through
+    kernel 7's int8 mode, calibrated on the frames, and the int8-resident
+    ReID embed through kernel 8): the lower-precision control;
+    ``route="stated"`` runs the configuration as stated."""
     from yolo_deepsort_tpu_torch.cfg.parse import parse_model_config
     from yolo_deepsort_tpu_torch.config import DetectorConfig, TrackerConfig
     from yolo_deepsort_tpu_torch.models.darknet import build_network
     from yolo_deepsort_tpu_torch.models.reid import params_from_state_dict
     from yolo_deepsort_tpu_torch.parallel.streams import (
-        BucketedScannedStep, init_stream_states, make_batched_step)
+        BucketedScannedStep, _make_conv_impl, init_stream_states,
+        make_batched_step)
     from yolo_deepsort_tpu_torch.weights import (darknet_from_raw,
                                                  reid_from_params)
 
@@ -167,7 +170,27 @@ def build(cfg: Dict, traffic: Dict, cfg_path: str, raw: Dict, reid_sd: Dict,
             buckets=tuple(cfg["buckets"]), conf_thres_per_stream=thresholds,
             windows=tuple(tuple(w) for w in cfg["windows"]), **kw), states
 
-    return make_step, detector, reid
+    conv_impl = _make_conv_impl(kw.get("use_pallas_conv", False),
+                                kw.get("backbone_int8_pkg"))
+    return make_step, detector, reid, conv_impl
+
+
+@torch.no_grad()
+def capture(detector, conv_impl, frames: torch.Tensor, img_size: int):
+    """The program's detector run once more, eagerly, on frames (N, H, W, 3)
+    uint8 as the serving steps run it -- their letterbox, then the forward
+    with their conv route -- with every module's output captured: -> (the
+    letterboxed input (N, S, S, 3), the decoded rows (N, B, 5 + C), every
+    module's output as ``Darknet.forward(capture_all_layers=True)`` gives
+    them)."""
+    from yolo_deepsort_tpu_torch.ops.letterbox_kernel import (
+        letterbox_batch_fused)
+
+    dtype = next(detector.parameters()).dtype
+    xs = letterbox_batch_fused(frames, img_size, out_dtype=dtype)
+    decoded, layers = detector(xs, capture_all_layers=True,
+                               conv_impl=conv_impl)
+    return xs, decoded, layers
 
 
 class HostRows:

@@ -47,6 +47,8 @@ def test_cell_files_and_metrics(cell):
     assert open(cfg_path).read().startswith("[net]")
     assert traffic["kind"] in ("chunk", "k1")
     assert set(limits) == set(compare.NUMBERS)
+    # only the whole forward's number may go uncompared in a cell
+    assert all(v is not None for k, v in limits.items() if k != "det_cos")
     e2e, layer = run.cell_metrics(bench, cell)
     assert "setup_s" in e2e and len(e2e) >= 2 and layer
     for m in bench["per_layer"]:
@@ -94,6 +96,16 @@ def test_flops_hand_count():
     assert flops.total_ops(v4) / 1e9 == pytest.approx(128.39, abs=0.01)
     assert flops.total_ops(flops.reid_convs()) / 1e9 == pytest.approx(
         2.243, abs=0.001)
+
+
+def test_a_null_limit_leaves_its_number_uncompared():
+    numbers = {k: 0.0 for k in compare.NUMBERS}
+    limits = dict(numbers, det_cos=None)
+    numbers["det_cos"] = 0.5
+    ok, checks = compare.verdict(numbers, limits)
+    assert ok and "det_cos" not in checks
+    numbers["det_layer_cos"] = 1e-3
+    assert not compare.verdict(numbers, limits)[0]
 
 
 def test_reference_imports_nothing_of_the_program():

@@ -45,9 +45,9 @@ METRICS = {
            ["k1_device_ms", "k1_enqueue_ms", "mfu.k1", "idle_share.k1"]),
 }
 # float32 against float32: rounding apart, the two sides agree
-LIMITS = {"det_cos": 1e-6, "frame_copies": 0.0, "nms_miss": 0.0,
-          "feat_cos": 1e-6, "track_rows": 0.0, "state_miss": 0.0,
-          "kalman_px": 1e-3}
+LIMITS = {"det_cos": 1e-6, "det_layer_cos": 1e-6, "det_replay": 0.0,
+          "frame_copies": 0.0, "nms_miss": 0.0, "feat_cos": 1e-6,
+          "track_rows": 0.0, "state_miss": 0.0, "kalman_px": 1e-3}
 
 
 def _run(kind, fault=None, traced=False, seed=2 ** 31 + 5, controls=False,
@@ -112,6 +112,7 @@ def test_result_line_schema(kind):
     assert list(line) == ["correct", "attempted", "failed", "metrics",
                           "device", "checks"]
     assert line["correct"] is True and line["failed"] == 0
+    assert res["numbers"]["det_replay"] == 0.0
     assert set(line["metrics"]) == set(METRICS[kind][0])
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0
@@ -151,8 +152,10 @@ def test_a_chunk_that_reuses_one_frame_is_not_correct():
 
 
 def test_the_int8_controls_fail():
-    """The program's int8 route fails the embed's number; the reference
-    computed with W8A8 rounding in its place fails the detector's."""
+    """The program's int8 route fails the embed's number and, judged
+    layer by layer on its own capture, the detector's; the reference
+    computed with W8A8 rounding in its place fails the detector's, whole
+    and layer by layer."""
     e2e, layer = METRICS["chunk"]
     res = cell.run_cell(TINY, str(run.HERE / "configs" / TINY["cfg"]),
                         TRAFFIC["chunk"], LIMITS, 23, 0.5, False,
@@ -160,10 +163,13 @@ def test_the_int8_controls_fail():
                         route="int8")
     assert res["line"]["correct"] is False
     assert res["numbers"]["feat_cos"] > 10 * LIMITS["feat_cos"]
+    assert res["numbers"]["det_layer_cos"] > 10 * LIMITS["det_layer_cos"]
+    assert res["numbers"]["det_replay"] == 0.0
     res = _run("chunk", seed=23, controls=True)
     assert res["line"]["correct"] is True
-    det = res["controls"]["detector_int8"]["det_cos"]
-    assert det > 10 * LIMITS["det_cos"]
+    det = res["controls"]["detector_int8"]
+    assert det["det_cos"] > 10 * LIMITS["det_cos"]
+    assert det["det_layer_cos"] > 10 * LIMITS["det_layer_cos"]
 
 
 def test_the_bf16_tracker_control_fails():
