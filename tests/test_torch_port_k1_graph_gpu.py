@@ -11,7 +11,8 @@ step's rows, emit mask, tracker-state field and the detector's decoded rows
 are held exactly equal. The graph follows an in-place weight change and a
 second stream count (one eager call, then a new capture), and the launch
 counters count the detector's kernels at the eager call and the capture,
-never at a replay.
+never at a replay. yolov4 at its published 608, 8 streams of 1080p in bf16,
+replays its detector bit for bit as its eager forward computes it.
 
 Every test is marked ``gpu`` and skips without a CUDA device. This file
 imports no jax:
@@ -275,3 +276,37 @@ def test_no_capture_while_the_profiler_records(load, monkeypatch):
     got = read_launches()
     assert {k: got[k] for k in GRAPH} == {
         "detector_graph": 2, "detector_capture": 1, "detector_eager": 2}
+
+
+def test_yolov4_608_replay_equals_eager():
+    """yolov4 at its published 608, 8 streams of 1080p, bf16 (every conv
+    on kernel 7): the replayed detector's decoded rows are its eager
+    forward's bit for bit, on two frame sets in turn, and the eager
+    forward under a profiler (its module spans recorded) gives them too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_deepsort_tpu_torch.tools.honest_load import bn_consistent_raw
+
+    dev = torch.device("cuda", 0)
+    plan = build_network(ARCHITECTURES["yolov4"](img_size=608))
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 8, 1080, 1920, 3),
+                                           dtype=np.uint8)).to(dev)
+    detector = darknet_from_raw(plan, bn_consistent_raw(plan, frames[0])).to(
+        dev, torch.bfloat16, memory_format=torch.channels_last)
+    graph = TS.DetectorGraph(detector)
+    zero_launches()
+    with torch.no_grad():
+        for i in range(5):
+            xs = letterbox_batch_fused(frames[i % 2], 608, torch.bfloat16)
+            got = graph(xs).clone()
+            _assert_equal(got, graph.forward(xs), f"call {i}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            traced = graph.forward(xs)
+        _assert_equal(traced, got, "under the profiler")
+    got = read_launches()
+    assert {k: got[k] for k in GRAPH} == {
+        "detector_graph": 4, "detector_capture": 1, "detector_eager": 1}

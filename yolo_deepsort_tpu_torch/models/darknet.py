@@ -16,6 +16,14 @@ A bf16 model rounds where the reference's bf16 forward rounds: each conv
 sums in f32, adds its f32 bias, activates in f32 and rounds to bf16 once
 (``models/layers.conv_layer_bf16``: kernel 7 on the card, its plain
 version on the CPU). A float32 model runs the library conv.
+
+While a torch profiler records, the forward opens one range per module
+inside ``ydt.detector``, named by its kind (``module_span``): a conv by its
+activation (``ydt.det.conv.mish`` / ``.leaky`` / ``.linear``), the others
+by type (``ydt.det.maxpool``, ``.route``, ``.upsample``, ``.shortcut``,
+``.yolo``); a span of modules that a ``block_impl`` claims is one
+``ydt.det.block`` range, opened by the route that claims it. Whether a
+profiler records is checked once a forward; with none, no range is built.
 """
 
 from __future__ import annotations
@@ -28,8 +36,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode import yolo_decode
-from ..utils.profiling import span
+from ..utils.profiling import recording, span
 from .layers import Conv2d, conv_layer_bf16
+
+
+BLOCK_SPAN = "ydt.det.block"
+
+
+def module_span(mdef: Dict[str, str]) -> str:
+    """The profiler range of a module, by kind: ``ydt.det.conv.<act>`` for a
+    conv (``linear`` when it names none), ``ydt.det.<type>`` otherwise."""
+    if mdef["type"] == "convolutional":
+        return "ydt.det.conv." + (mdef.get("activation") or "linear")
+    return "ydt.det." + mdef["type"]
 
 
 def conv_layer_shapes(module_defs: Sequence[dict], in_channels: int = 3
@@ -157,6 +176,7 @@ class Darknet(nn.Module):
         self.plan = plan
         self._defs = plan.defs()
         self._heads = {h.module_index: h for h in plan.heads}
+        self._spans = [module_span(d) for d in self._defs]
         self.convs = nn.ModuleDict()
         for idx, oc, ic, k, _ in conv_layer_shapes(self._defs,
                                                    plan.in_channels):
@@ -196,7 +216,8 @@ class Darknet(nn.Module):
         claimed module; its factory guarantees that nothing outside the
         span references the outputs in between. ``x`` is the NHWC view of
         the module's input, ``convs`` this module's conv layers. Ignored
-        under ``capture_all_layers`` (every layer's output is wanted)."""
+        under ``capture_all_layers`` (every layer's output is wanted). A
+        route that claims a span opens ``BLOCK_SPAN`` around its work."""
         with span("ydt.detector"):
             return self._forward(x, capture_all_layers, conv_impl,
                                  block_impl)
@@ -209,9 +230,9 @@ class Darknet(nn.Module):
         all_layers = []
         if capture_all_layers:
             block_impl = None
+        traced = recording()  # once a forward, not once a module
         i = 0
         while i < len(self._defs):
-            mdef = self._defs[i]
             if block_impl is not None and prev.dim() == 4:  # a feature map
                 res = block_impl(prev.permute(0, 2, 3, 1), self.convs, i)
                 if res is not None:
@@ -221,58 +242,17 @@ class Darknet(nn.Module):
                     if i - 1 in self.plan.keep:
                         cache[i - 1] = prev
                     continue
-            t = mdef["type"]
-            if t == "convolutional":
-                conv = self.convs[str(i)]
-                act = mdef.get("activation", "linear")
-                out = None
-                if conv_impl is not None:
-                    out = conv_impl(prev.permute(0, 2, 3, 1),
-                                    conv.weight.permute(2, 3, 1, 0),
-                                    conv.bias, conv.stride[0],
-                                    conv.padding[0], act, i)
-                    if out is not None:
-                        out = out.permute(0, 3, 1, 2).to(dtype)
-                if out is None and dtype == torch.bfloat16:
-                    out = conv_layer_bf16(conv, prev.permute(0, 2, 3, 1),
-                                          act).permute(0, 3, 1, 2)
-                elif out is None:
-                    out = _activate(conv(prev), act)
-            elif t == "maxpool":
-                k, stride = int(mdef["size"]), int(mdef["stride"])
-                if k == 2 and stride == 1:
-                    # reference special case: ZeroPad2d((0, 1, 0, 1)), then
-                    # an unpadded pool
-                    out = F.max_pool2d(F.pad(prev, (0, 1, 0, 1)), 2, 1)
-                else:
-                    out = F.max_pool2d(prev, k, stride, (k - 1) // 2)
-            elif t == "upsample":
-                out = F.interpolate(prev, scale_factor=int(mdef["stride"]),
-                                    mode="nearest")
-            elif t == "route":
-                layers = [_resolve(int(l), i)
-                          for l in str(mdef["layers"]).split(",")]
-                parts = [cache[l] for l in layers]
-                out = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
-                groups = int(mdef.get("groups", 1))
-                if groups > 1:
-                    gid = int(mdef.get("group_id", 0))
-                    gc = out.shape[1] // groups
-                    out = out[:, gid * gc:(gid + 1) * gc]
-            elif t == "shortcut":
-                out = cache[i - 1] + cache[_resolve(int(mdef["from"]), i)]
-            elif t == "yolo":
-                spec = self._heads[i]
-                out = yolo_decode(prev.permute(0, 2, 3, 1), spec.anchors,
-                                  spec.num_classes, self.plan.img_size,
-                                  spec.scale_x_y)
-                outputs.append(out)
+            if traced:
+                with torch.profiler.record_function(self._spans[i]):
+                    out = self._module(i, prev, cache, conv_impl, dtype)
             else:
-                raise ValueError(f"unknown module type {t!r}")
+                out = self._module(i, prev, cache, conv_impl, dtype)
+            if self._defs[i]["type"] == "yolo":
+                outputs.append(out)
             if i in self.plan.keep:
                 cache[i] = out
             if capture_all_layers:
-                all_layers.append(out if t == "yolo"
+                all_layers.append(out if self._defs[i]["type"] == "yolo"
                                   else out.permute(0, 2, 3, 1))
             prev = out
             i += 1
@@ -280,3 +260,51 @@ class Darknet(nn.Module):
         if capture_all_layers:
             return detections, all_layers
         return detections
+
+    def _module(self, i, prev, cache, conv_impl, dtype):
+        """Module i's output from its input ``prev`` (NCHW) and the kept
+        outputs ``cache``; a [yolo] module's decoded rows."""
+        mdef = self._defs[i]
+        t = mdef["type"]
+        if t == "convolutional":
+            conv = self.convs[str(i)]
+            act = mdef.get("activation", "linear")
+            if conv_impl is not None:
+                out = conv_impl(prev.permute(0, 2, 3, 1),
+                                conv.weight.permute(2, 3, 1, 0), conv.bias,
+                                conv.stride[0], conv.padding[0], act, i)
+                if out is not None:
+                    return out.permute(0, 3, 1, 2).to(dtype)
+            if dtype == torch.bfloat16:
+                return conv_layer_bf16(conv, prev.permute(0, 2, 3, 1),
+                                       act).permute(0, 3, 1, 2)
+            return _activate(conv(prev), act)
+        if t == "maxpool":
+            k, stride = int(mdef["size"]), int(mdef["stride"])
+            if k == 2 and stride == 1:
+                # reference special case: ZeroPad2d((0, 1, 0, 1)), then an
+                # unpadded pool
+                return F.max_pool2d(F.pad(prev, (0, 1, 0, 1)), 2, 1)
+            return F.max_pool2d(prev, k, stride, (k - 1) // 2)
+        if t == "upsample":
+            return F.interpolate(prev, scale_factor=int(mdef["stride"]),
+                                 mode="nearest")
+        if t == "route":
+            layers = [_resolve(int(l), i)
+                      for l in str(mdef["layers"]).split(",")]
+            parts = [cache[l] for l in layers]
+            out = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            groups = int(mdef.get("groups", 1))
+            if groups > 1:
+                gid = int(mdef.get("group_id", 0))
+                gc = out.shape[1] // groups
+                out = out[:, gid * gc:(gid + 1) * gc]
+            return out
+        if t == "shortcut":
+            return cache[i - 1] + cache[_resolve(int(mdef["from"]), i)]
+        if t == "yolo":
+            spec = self._heads[i]
+            return yolo_decode(prev.permute(0, 2, 3, 1), spec.anchors,
+                               spec.num_classes, self.plan.img_size,
+                               spec.scale_x_y)
+        raise ValueError(f"unknown module type {t!r}")

@@ -55,6 +55,8 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..models.darknet import BLOCK_SPAN
+from ..utils.profiling import span
 from .conv_kernel import (
     _ACT_CODES,
     conv_plain_bf16,
@@ -465,7 +467,8 @@ def make_resblock_impl(plan, *, int8_pkg=None, max_hw: int = 64,
     plain version runs, they stay HWIO) -- with the package's (B, 2)
     ``xinv`` table kept in host memory, and kept: the route serves one
     detector whose inference weights are frozen; load new weights, build a
-    new route."""
+    new route. A claimed chain's work is one ``BLOCK_SPAN`` profiler range
+    (while a profiler records)."""
     chains = {c[0]: c for c in find_residual_spans(plan)}
     if chain_whitelist is not None:
         chains = {s: c for s, c in chains.items() if s in chain_whitelist}
@@ -523,8 +526,9 @@ def make_resblock_impl(plan, *, int8_pkg=None, max_hw: int = 64,
         if i not in packed:
             packed[i] = pack(chain, convs, x.device, use_int8)
         fn = resblock_chain_int8 if use_int8 else resblock_chain_bf16
-        out = fn(x.to(torch.bfloat16), *packed[i],
-                 act=defs[i].get("activation"))
+        with span(BLOCK_SPAN):
+            out = fn(x.to(torch.bfloat16), *packed[i],
+                     act=defs[i].get("activation"))
         return out, chain[-1] + 3 - i
 
     return impl

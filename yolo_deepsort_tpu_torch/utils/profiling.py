@@ -10,8 +10,9 @@ yolo_deepsort_tpu/utils/profiling.py).
     the port's ``TrackerState``, whose fields carry a leading stream axis,
   * ``device_trace``: context manager around ``torch.profiler`` that
     writes a Chrome trace when a profile dir is given (no-op otherwise),
-  * ``span``: the serving steps' stage ranges (``ydt.*``), live only while
-    a torch profiler records (``device_trace``, or any other).
+  * ``span``: the serving steps' stage ranges (``ydt.*``), and the
+    detector's module ranges (``ydt.det.*``), live only while a torch
+    profiler records (``device_trace``, or any other).
 """
 
 from __future__ import annotations
@@ -138,13 +139,18 @@ def _host(x) -> np.ndarray:
 _NO_SPAN = contextlib.nullcontext()
 
 
+def recording() -> bool:
+    """Whether a torch profiler records now: the check ``span`` makes."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def span(name: str):
     """A ``torch.profiler.record_function`` range named ``name`` while a
     torch profiler records, so the range lies in the same trace, on the
     same clock, as the card's kernels it launches; otherwise one shared null
     context (one check, nothing constructed). The serving steps' names
     start with ``ydt.``."""
-    if torch._C._autograd._profiler_enabled():
+    if recording():
         return torch.profiler.record_function(name)
     return _NO_SPAN
 
