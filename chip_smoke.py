@@ -1247,20 +1247,22 @@ def check_conv(rng, dev):
 def bf16_layer_shapes(model, x):
     """Every conv a bf16 model's forward of ``x`` runs through
     ``models/layers.conv_layer_bf16`` (kernel 7 on the card), as {(n, hi,
-    wi, ci, co, k, stride, act, out f32): [layer numbers in call order]}."""
+    wi, ci, co, k, stride, act, out f32, residual dtype name or None):
+    [layer numbers in call order]}."""
     import torch
 
     from yolo_deepsort_tpu_torch.models import darknet, reid
 
     shapes, count = {}, [0]
 
-    def recorded(conv, xin, act, out_dtype=torch.bfloat16):
+    def recorded(conv, xin, act, out_dtype=torch.bfloat16, residual=None):
         n, hi, wi, ci = (int(v) for v in xin.shape)
         key = (n, hi, wi, ci, conv.out_channels, conv.kernel_size[0],
-               conv.stride[0], act, out_dtype == torch.float32)
+               conv.stride[0], act, out_dtype == torch.float32,
+               None if residual is None else str(residual.dtype)[6:])
         shapes.setdefault(key, []).append(count[0])
         count[0] += 1
-        return layer_bf16(conv, xin, act, out_dtype)
+        return layer_bf16(conv, xin, act, out_dtype, residual)
 
     layer_bf16 = darknet.conv_layer_bf16
     darknet.conv_layer_bf16 = reid.conv_layer_bf16 = recorded
@@ -1278,8 +1280,9 @@ def check_bf16_rounding(rng, dev):
     the eligible classes (layer 0 with its 3 input channels zero-padded to
     8, the 416, 208 and 104 maps, Ci 32-128), and every conv of both ReID
     nets at the K=1 step's embed of EMBED_CROPS crops -- the ReLU and ELU
-    codes, and the f32-output form of each block's second conv and
-    projection shortcut. Each against its plain version on the same
+    codes, the residual form of each block's second conv (a shortcut ~ N(0,
+    1) in its dtype) and the f32-output form of each projection shortcut.
+    Each against its plain version on the same
     operands (x ~ N(0, 1), w ~ N(0, 1/K), b ~ N(0, 1)): bf16 outputs within
     TOL_CONV_ULPS, f32 outputs within TOL_CONV_F32; timed on both clocks
     beside the library's bf16 conv + activation on the same tensors (a
@@ -1325,7 +1328,7 @@ def check_bf16_rounding(rng, dev):
     for net_name, shapes in nets.items():
         out[net_name] = {}
         for key, layers in shapes.items():
-            n, hi, wi, ci, co, k, stride, act, f32_out = key
+            n, hi, wi, ci, co, k, stride, act, f32_out, res = key
             x = torch.from_numpy(rng.standard_normal(
                 (n, hi, wi, ci), np.float32)).to(dev, torch.bfloat16)
             w = torch.from_numpy((rng.standard_normal((k, k, ci, co),
@@ -1339,6 +1342,10 @@ def check_bf16_rounding(rng, dev):
             wk = F.pad(w, (0, 0, 0, pad_c)).contiguous() if pad_c else w
             kw = dict(stride=stride, pad=(k - 1) // 2, act=act,
                       out_dtype=torch.float32 if f32_out else torch.bfloat16)
+            if res is not None:
+                kw["residual"] = torch.from_numpy(rng.standard_normal(
+                    (n, hi // stride, wi // stride, co), np.float32)).to(
+                    dev, getattr(torch, res))
             got = CV.conv_bf16(xk, wk, b, **kw)
             want = CV.conv_plain_bf16(x, w, b, **kw)
             torch.cuda.synchronize()
@@ -1364,7 +1371,7 @@ def check_bf16_rounding(rng, dev):
 
             m, depth = int(np.prod(got.shape[:3])), k * k * (ci + pad_c)
             ops = 2.0 * m * k * k * ci * co
-            io = nbytes(x, b, got, w)
+            io = nbytes(x, b, got, w, *([kw["residual"]] if res else []))
             out[net_name][key] = dict(
                 layers=layers, held=held, err=err,
                 device_ms=cuda_graph_ms(lambda: CV.conv_bf16(xk, wk, b, **kw),
@@ -1510,7 +1517,8 @@ def conv_kernel_entry(per_class, rounding, launches):
                        for key, r in recs.items() if pick(key)] or [0.0])
             for form, pick in (
                 ("relu_elu", lambda k: k[7] in ("relu", "elu") and not k[8]),
-                ("f32_out", lambda k: k[8]))}
+                ("f32_out", lambda k: k[8]),
+                ("residual", lambda k: k[9] is not None))}
     return {
         "name": "conv", "route": "cuda",
         "source": "yolo_deepsort_tpu_torch/csrc/conv.cu",
@@ -1520,6 +1528,7 @@ def conv_kernel_entry(per_class, rounding, launches):
         "max_abs_err": max(r["err_bf16"] for r in per_class.values()),
         "max_abs_err_relu_elu": errs["relu_elu"],
         "max_abs_err_f32_out": errs["f32_out"],
+        "max_abs_err_residual": errs["residual"],
         **tot,
         "bound_by": max(by, key=by.get),
         "route_k1": route,
@@ -1931,6 +1940,15 @@ def n_convs(module) -> int:
     return sum(isinstance(m, torch.nn.Conv2d) for m in module.modules())
 
 
+def n_blocks(module) -> int:
+    """The residual blocks of a ReID net: one of its kernel 7 launches per
+    bf16 forward carries the block's tail (``conv_residual``); 0 for a
+    detector."""
+    from yolo_deepsort_tpu_torch.models.reid import BasicBlock
+
+    return sum(isinstance(m, BasicBlock) for m in module.modules())
+
+
 def pipelined(step, states, frames, chunks, event_readback=True):
     """``chunks`` chunks through the step, each chunk's track stage enqueued
     after the NEXT chunk's detect stage. ``event_readback=False`` hands the
@@ -2291,7 +2309,8 @@ def run_k1_path(dev, setup=None):
     # and its capture only
     n_det, per_step = n_convs(parts["detector"]), n_convs(parts["reid"])
     want = _only(letterbox=5, crops_dense=5, tracker=5, nms=5,
-                 conv=2 * n_det + 5 * per_step, detector_graph=4,
+                 conv=2 * n_det + 5 * per_step,
+                 conv_residual=5 * n_blocks(parts["reid"]), detector_graph=4,
                  detector_capture=1, detector_eager=1)
     if warm != want:
         raise AssertionError(f"K=1 launches over the 5 warm-up steps "
@@ -2307,8 +2326,9 @@ def run_k1_path(dev, setup=None):
         lambda: _k1_latency(routed, states, base, K1_STEPS))
     # every counted step replays the detector: K7 the ReID net's convs
     want = _only(letterbox=K1_STEPS, crops_dense=K1_STEPS, tracker=K1_STEPS,
-                 conv=per_step * K1_STEPS, nms=K1_STEPS,
-                 detector_graph=K1_STEPS)
+                 conv=per_step * K1_STEPS,
+                 conv_residual=n_blocks(parts["reid"]) * K1_STEPS,
+                 nms=K1_STEPS, detector_graph=K1_STEPS)
     if launches != want:
         raise AssertionError(f"K=1 launches over {K1_STEPS} steps "
                              f"{launches}, expected {want}")
@@ -3507,9 +3527,10 @@ def gid_full_width(model, frame, thr):
     (steps, rows, rounds, states, gids), launched = _counted(drive)
     mst.close()
     counted, graph = _graph_counts(launched, steps)
+    reid = reid_from_params(random_reid_params(0))
     want = _only(letterbox=steps, crops_dense=steps,
-                 conv=n_convs(model.module) * counted + n_convs(
-                     reid_from_params(random_reid_params(0))) * steps,
+                 conv=n_convs(model.module) * counted + n_convs(reid) * steps,
+                 conv_residual=n_blocks(reid) * steps,
                  tracker=steps, nms=steps, **graph)
     if launched != want:
         raise AssertionError(f"global ids: launches {launched}, want {want}")
@@ -4395,7 +4416,8 @@ def profile_k1(dev, repeats: int = 5):
 
     per_kernel = _device_profile(advance, 4, "K=1 step", step_ms)
     conv = [(c, us) for name, (c, us) in per_kernel.items()
-            if "conv_ring_kernel" in name and "BackboneEpilogue" in name]
+            if "conv_ring_kernel" in name and ("BackboneEpilogue" in name
+                                               or "ShortcutEpilogue" in name)]
     conv_us = sum(us for _, us in conv)
     total_us = sum(us for _, us in per_kernel.values())
     print(f"profile: conv kernel (K7) {conv_us / 4e3:.4f} ms per K=1 step "
@@ -5333,7 +5355,8 @@ def run_soaks():
     print(f"soak ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
           flush=True)
     n, k = SOAK_CHUNKS, 16
-    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n, nms=n)
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n,
+                 conv_residual=8 * n, nms=n)
     if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
         raise AssertionError(f"soak: failures {rec['failures']}, launches "
                              f"{rec['launches']} (want {want}), readbacks "
@@ -5350,7 +5373,8 @@ def run_soaks():
     # counted at its capture, in the warm-up); K7 the ReID net's 20 convs
     counted, graph = _graph_counts(rec["launches"], steps)
     want = _only(letterbox=steps, crops_dense=steps, tracker=steps,
-                 conv=13 * counted + 20 * steps, nms=steps, **graph)
+                 conv=13 * counted + 20 * steps, conv_residual=8 * steps,
+                 nms=steps, **graph)
     if (not rec["ok"] or rec["backend"] != "nccl"
             or rec["launches"] != want):
         raise AssertionError(f"soak_multichip: failures {rec['failures']}, "
@@ -5563,7 +5587,8 @@ def run_ingest_soak(dev, clip_dir):
     print(f"soak --ingest ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(rec)}", flush=True)
     n, k = VIDEO_CHUNKS, VIDEO_K
-    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n, nms=n)
+    want = _only(letterbox=n, crops=n, tracker=k * n, conv=95 * n,
+                 conv_residual=8 * n, nms=n)
     if not rec["ok"] or rec["launches"] != want or rec["stats_readbacks"] != n:
         raise AssertionError(f"soak --ingest: failures {rec['failures']}, "
                              f"launches {rec['launches']} (want {want}), "
@@ -5600,7 +5625,8 @@ def run_bench_video(clip_dir):
     print(f"bench_video ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(rec)}", flush=True)
     c, k = rec["chunks_run"], VIDEO_K
-    want = _only(letterbox=c, crops=c, tracker=k * c, conv=95 * c, nms=c)
+    want = _only(letterbox=c, crops=c, tracker=k * c, conv=95 * c,
+                 conv_residual=8 * c, nms=c)
     if (rec["frames"] != VIDEO_BENCH_FRAMES
             or c != VIDEO_BENCH_FRAMES // k + 1 or rec["launches"] != want):
         raise AssertionError(f"bench_video: {rec['frames']} frames, {c} "
@@ -5814,14 +5840,15 @@ def _check_dense_calls(seen, tag):
                                  "from its plain version")
 
 
-def _scan_launches(k, fused, conv):
+def _scan_launches(k, fused, conv, residual):
     """The launches of one chunk of K frames through make_scanned_step with
     a bf16 ReID net: K1 once, NMS once, the dense crops once, K2 never, K3
     (the fused branch) or K5 (``tracker_step``) once per frame, and K7
     ``conv`` times (one forward of each bf16 net per chunk, a launch per
-    conv)."""
+    conv), ``residual`` of them with a block's tail."""
     return _only(letterbox=1, crops_dense=1, tracker=k if fused else 0,
-                 jv_two_stage=0 if fused else k, conv=conv, nms=1)
+                 jv_two_stage=0 if fused else k, conv=conv,
+                 conv_residual=residual, nms=1)
 
 
 def check_small_scanned(dev):
@@ -5867,7 +5894,8 @@ def check_small_scanned(dev):
             (st_card, (out_c, emit_c)), launched = _counted(
                 lambda: card(st_card, frames_dev))
             tag = f"small scanned step (fused={fused}) chunk {c}"
-            if launched != _scan_launches(k, fused, n_convs(card_reid)):
+            if launched != _scan_launches(k, fused, n_convs(card_reid),
+                                          n_blocks(card_reid)):
                 raise AssertionError(f"{tag}: launches {launched}")
             out_c, emit_c = out_c.cpu(), emit_c.cpu()
             if not (torch.equal(emit_r, emit_c)
@@ -5949,7 +5977,8 @@ def run_scanned_path(dev, setup):
         # the dense entry at the step's shape: all K x S x max_dets rows
         _check_dense_calls(seen, f"scanned step ({name})")
         want = _scan_launches(K_FRAMES, fused,
-                              n_convs(detector) + n_convs(reid))
+                              n_convs(detector) + n_convs(reid),
+                              n_blocks(reid))
         if launched != want:
             raise AssertionError(f"scanned step ({name}): launches per chunk "
                                  f"{launched}, expected "
@@ -6281,11 +6310,14 @@ def main() -> int:
     rounding, small16 = check_bf16_rounding(rng, dev)
     mark("kernel 7 on the default bf16 path")
     for net, recs in rounding.items():
-        for (n, hi, wi, ci, co, k, stride, act, f32_out), r in recs.items():
+        for (n, hi, wi, ci, co, k, stride, act, f32_out, res), r in \
+                recs.items():
             held = (f"{r['held']:.3g} of max(|want|, 1) (f32 out)" if f32_out
                     else f"{r['held']:.3g} bf16 ulps")
+            tail = "" if res is None else f" + {res} shortcut"
             print(f"kernel conv default path {net} {k}x{k} s{stride} "
-                  f"{hi}x{wi} {ci}->{co} {act} N={n} ({len(r['layers'])} "
+                  f"{hi}x{wi} {ci}->{co} {act}{tail} N={n} "
+                  f"({len(r['layers'])} "
                   f"layers): {held}, max |err| {r['err']:.3g}, kernel "
                   f"{r['ms']:.4f} ms called, {r['device_ms']:.4f} ms of "
                   f"device time, plain {r['plain_ms']:.4f} ms, bound "

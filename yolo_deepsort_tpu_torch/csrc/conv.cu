@@ -39,8 +39,16 @@
 // (Co = 255, the yolo heads). Mode 3 is mode 0 with an f32 output: the
 // same epilogue without the rounding, two 16-byte stores (the ReID blocks'
 // second conv and projection shortcut, whose sum with the shortcut rounds
-// once, as the reference's does). Activations: linear, leaky, mish (the
-// detectors), ReLU and ELU (the ReID nets).
+// once, as the reference's does). Modes 4 and 5 are mode 0 with a residual
+// block's whole tail in its epilogue (ShortcutEpilogue): the shortcut's 8
+// columns of a row, fetched ahead of the drain, are added to sum + bias in
+// f32, then the activation, one rounding and one 16-byte bf16 store; mode 4
+// reads a bf16 shortcut (an identity block's input), mode 5 an f32 one (a
+// projection conv's mode-3 output). The sums are those of mode 3 for the
+// same plan, so the block's output is the one the f32 form and a framework
+// tail give, without the f32 map's round trips through memory.
+// Activations: linear, leaky, mish (the detectors), ReLU and ELU (the ReID
+// nets).
 //
 // Built with --fmad=false: the f32 epilogue rounds as the plain PyTorch
 // version does (a multiply, then an add), so the int8 modes, whose int32
@@ -49,7 +57,10 @@
 #include "conv_backbone.cuh"
 
 // mode 0: bf16 x (N, Hi, Wi, Ci), bf16 w; mode 1: int8 w, bf16 x quantized on
-// the way in; mode 2: int8 w, float x; mode 3: mode 0 with f32 out. w (Co,
+// the way in; mode 2: int8 w, float x; mode 3: mode 0 with f32 out; modes 4
+// and 5: mode 0 with the shortcut res (N, Ho, Wo, Co) added before the
+// activation, bf16 in mode 4, f32 in mode 5 (Co a multiple of 8; res is
+// NULL in the other modes). w (Co,
 // ldw) is the weights packed K-major: row co holds its k * k * Ci values
 // tap-major, zero up to the pitch ldw (16 bytes' worth of elements divide
 // it). bias (Co,) f32; scale (Co,) f32 and xinv in the int8 modes; out (N,
@@ -58,13 +69,16 @@
 // stages, split: the tile plan. Ci must be a multiple of 8 (16-byte gathers
 // of activation rows).
 extern "C" int ydt_conv(const void* x, const void* w, const void* bias,
-                        const void* scale, float xinv, void* out, int n,
-                        int hi, int wi, int ci, int ho, int wo, int co, int k,
-                        int stride, int pad, int act, int mode, int ldw,
-                        int bm, int bn, int stages, int split,
-                        void* stream) {
+                        const void* scale, const void* res, float xinv,
+                        void* out, int n, int hi, int wi, int ci, int ho,
+                        int wo, int co, int k, int stride, int pad, int act,
+                        int mode, int ldw, int bm, int bn, int stages,
+                        int split, void* stream) {
     const bool f32_out = mode == 3;
-    if (f32_out) mode = 0;
+    const int res_mode = (mode == 4 || mode == 5) ? mode : 0;
+    if (res_mode && (res == nullptr || (co % 8) != 0))
+        return (int)cudaErrorInvalidValue;
+    if (f32_out || res_mode) mode = 0;
     const int es = mode == 0 ? 2 : 1;
     if (n <= 0 || ci <= 0 || co <= 0 || ho <= 0 || wo <= 0 || (ci % 8) != 0
         || (k != 1 && k != 3) || mode < 0 || mode > 2 || act < 0 || act > 4
@@ -82,7 +96,17 @@ extern "C" int ydt_conv(const void* x, const void* w, const void* bias,
     const BackboneEpilogue<float> ef{b, s, out, co, act, f32_out};
     const BackboneEpilogue<int> ei{b, s, out, co, act, false};
     cudaError_t err;
-    if (mode == 0)
+    if (res_mode == 4) {
+        const ShortcutEpilogue<__nv_bfloat16> er{
+            b, static_cast<const __nv_bfloat16*>(res), out, co, act};
+        err = tall ? launch_res<__nv_bfloat16, 128>(x, w, g, bn, er, st)
+                   : launch_res<__nv_bfloat16, 64>(x, w, g, bn, er, st);
+    } else if (res_mode == 5) {
+        const ShortcutEpilogue<float> er{
+            b, static_cast<const float*>(res), out, co, act};
+        err = tall ? launch_res<float, 128>(x, w, g, bn, er, st)
+                   : launch_res<float, 64>(x, w, g, bn, er, st);
+    } else if (mode == 0)
         err = tall ? launch_bf16<128>(x, w, g, bn, ef, st)
                    : launch_bf16<64>(x, w, g, bn, ef, st);
     else if (mode == 1)

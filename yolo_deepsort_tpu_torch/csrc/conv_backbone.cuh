@@ -1,7 +1,8 @@
-// Kernel 7's epilogue and the launchers of its three modes, shared by conv.cu
-// (the C entry) and conv_mode_*.cu. Each mode instantiates the main loop of
-// conv_mainloop.cuh at four tiles; a translation unit per mode and tile
-// height lets the build compile them side by side.
+// Kernel 7's epilogues and the launchers of its three modes and of the bf16
+// mode's residual form, shared by conv.cu (the C entry) and conv_mode_*.cu.
+// Each mode instantiates the main loop of conv_mainloop.cuh at four tiles; a
+// translation unit per mode (and shortcut type) and tile height lets the
+// build compile them side by side.
 
 #pragma once
 
@@ -107,6 +108,82 @@ struct BackboneEpilogue {  // the name tells kernel 7 in a profile
 };
 
 
+// The bf16 mode with a residual block's tail: bf16(act((sum + bias) +
+// shortcut)), each step in f32 and in that order, rounded once, the sum the
+// f32-output form gives for the same plan. R is the shortcut's type: bf16
+// (an identity shortcut, the block's input) or float (a projection conv's
+// f32 output). The shortcut's 8 columns of a row are fetched ahead of the
+// drain (prefetch). Co must be a multiple of 8 (16- and 32-byte loads and
+// one 16-byte store).
+template <typename R>
+struct ShortcutEpilogue {  // the name tells kernel 7's residual form
+    using Acc = float;
+    static constexpr int NV = 8;
+    static constexpr int WORDS = sizeof(R) / 2;  // 16-byte words of 8 R
+    const float* bias;
+    const R* res;  // (M, Co) NHWC
+    void* out;     // bf16 NHWC
+    int co, act;
+
+    struct Cols {
+        float bias[8];
+    };
+    struct Pre {
+        uint4 u[WORDS];
+    };
+
+    __device__ __forceinline__ Cols load_cols(int col) const {
+        Cols c;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) c.bias[e] = __ldg(bias + col + e);
+        return c;
+    }
+
+    __device__ __forceinline__ Pre prefetch(int m, int col) const {
+        const uint4* src =
+            reinterpret_cast<const uint4*>(res + (long long)m * co + col);
+        Pre p;
+#pragma unroll
+        for (int i = 0; i < WORDS; ++i) p.u[i] = __ldg(src + i);
+        return p;
+    }
+
+    __device__ __forceinline__ void store(int m, int col, const float (&v)[8],
+                                          const Cols& c, const Pre& p) const {
+        float r[8];
+        if constexpr (WORDS == 1) {
+            const unsigned int w[4] = {p.u[0].x, p.u[0].y, p.u[0].z,
+                                       p.u[0].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // element 2 e is the low half
+                r[2 * e] = __uint_as_float(w[e] << 16);
+                r[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                r[4 * i] = __uint_as_float(p.u[i].x);
+                r[4 * i + 1] = __uint_as_float(p.u[i].y);
+                r[4 * i + 2] = __uint_as_float(p.u[i].z);
+                r[4 * i + 3] = __uint_as_float(p.u[i].w);
+            }
+        }
+        unsigned short h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const float y = activate((v[e] + c.bias[e]) + r[e], act);
+            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+        }
+        uint4 u;
+        u.x = h[0] | ((unsigned int)h[1] << 16);
+        u.y = h[2] | ((unsigned int)h[3] << 16);
+        u.z = h[4] | ((unsigned int)h[5] << 16);
+        u.w = h[6] | ((unsigned int)h[7] << 16);
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out)
+                                  + (long long)m * co + col) = u;
+    }
+};
+
 // One per mode and BM (64 or 128 rows a tile), each defined in a translation
 // unit of its own: conv_mode_*.cu, compiled once per CONV_RING_BM.
 template <int BM>
@@ -135,5 +212,22 @@ CONV_BACKBONE_LAUNCH(launch_quant_bf16, int, 128)
 CONV_BACKBONE_LAUNCH(launch_quant_f32, int, 64)
 CONV_BACKBONE_LAUNCH(launch_quant_f32, int, 128)
 #undef CONV_BACKBONE_LAUNCH
+
+// The bf16 mode with the residual tail, one per shortcut type and BM:
+// conv_mode_res_bf16.cu and conv_mode_res_f32.cu.
+template <typename R, int BM>
+cudaError_t launch_res(const void* x, const void* w, const conv_ring::Geom& g,
+                       int bn, const ShortcutEpilogue<R>& epi,
+                       cudaStream_t stream);
+#define CONV_BACKBONE_RES(R, BM)                                            \
+    template <>                                                             \
+    cudaError_t launch_res<R, BM>(const void*, const void*,                 \
+                                  const conv_ring::Geom&, int,              \
+                                  const ShortcutEpilogue<R>&, cudaStream_t);
+CONV_BACKBONE_RES(__nv_bfloat16, 64)
+CONV_BACKBONE_RES(__nv_bfloat16, 128)
+CONV_BACKBONE_RES(float, 64)
+CONV_BACKBONE_RES(float, 128)
+#undef CONV_BACKBONE_RES
 
 }  // namespace conv_backbone

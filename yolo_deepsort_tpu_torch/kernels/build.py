@@ -74,9 +74,9 @@ SIGNATURES = {
     # (host int, out), stream
     "ydt_jv_two_stage": [_P] * 5 + [_I, _F] + [_P] * 3 + [_I, _F]
     + [_P] * 2 + [_I, _I, _I, _P, _P],
-    # x, w, bias, scale, xinv, out, n, hi, wi, ci, ho, wo, co, k, stride,
-    # pad, act, mode, ldw, bm, bn, stages, split, stream
-    "ydt_conv": [_P] * 4 + [_F, _P] + [_I] * 17 + [_P],
+    # x, w, bias, scale, res, xinv, out, n, hi, wi, ci, ho, wo, co, k,
+    # stride, pad, act, mode, ldw, bm, bn, stages, split, stream
+    "ydt_conv": [_P] * 5 + [_F, _P] + [_I] * 17 + [_P],
     # x, w, scale, bias, res, res_scale, oinv, out, n, hi, wi, ci, ho, wo,
     # co, k, stride, pad, relu, out_int8, ldw, bm, bn, stages, split, stream
     "ydt_conv_int8": [_P] * 5 + [_F, _F, _P] + [_I] * 17 + [_P],

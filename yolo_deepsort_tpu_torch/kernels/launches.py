@@ -23,6 +23,8 @@ LAUNCH_COUNTERS = {
     "jv_cascade": ("ops.assignment_kernel", "cascade_launches"),
     "jv_two_stage": ("ops.assignment_kernel", "two_stage_launches"),
     "conv": ("ops.conv_kernel", "launches"),
+    # of the conv launches, those with a residual block's tail (ReID blocks)
+    "conv_residual": ("ops.conv_kernel", "launches_residual"),
     "conv_int8": ("ops.conv_int8_kernel", "launches"),
     "resblock": ("ops.resblock_kernel", "launches"),
     "matmul_probe": ("tools.int8_probe", "launches"),

@@ -18,6 +18,8 @@ reference's dense ReID heads compute in f32 in a bf16 net.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -79,20 +81,24 @@ def kernel_weights(conv: nn.Conv2d) -> PackedWeights:
 
 
 def conv_layer_bf16(conv: nn.Conv2d, x: torch.Tensor, act: str,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conv layer in bf16 as the reference computes it: ``x`` (N, H, W,
     Ci) NHWC -> act(conv(x, w) + b) NHWC, summed, biased and activated in
     f32 and rounded once to bf16 (``out_dtype`` float32: not rounded, for
-    a residual sum that rounds after its add)."""
+    a residual sum that rounds after its add). ``residual`` (the output's
+    shape, bf16 or f32) is that sum: act((conv(x, w) + b) + residual) in
+    f32, rounded once, in the kernel's epilogue on the card."""
     stride, pad = conv.stride[0], conv.padding[0]
     b = conv.bias.detach().float()
     x = x.to(torch.bfloat16)
     if x.device.type == "cpu":
         return conv_bf16(x, conv.weight.detach().permute(2, 3, 1, 0), b,
-                         stride=stride, pad=pad, act=act, out_dtype=out_dtype)
+                         stride=stride, pad=pad, act=act, out_dtype=out_dtype,
+                         residual=residual)
     packed = kernel_weights(conv)
     if packed.ci != x.shape[3]:
         x = F.pad(x, (0, packed.ci - x.shape[3]))
     return conv_bf16_cuda(x.contiguous(), packed, b.contiguous(),
                           stride=stride, pad=pad, act=act,
-                          out_dtype=out_dtype)
+                          out_dtype=out_dtype, residual=residual)

@@ -20,10 +20,11 @@ BN is folded into every conv (weight and bias).
 A bf16 net rounds where the reference's ``reid_apply`` / ``_original_apply``
 round: each conv sums in f32 and adds its f32 bias; the stems and each
 block's first conv activate in f32 and round once (kernel 7's ReLU and ELU
-codes on the card, ``models/layers.conv_layer_bf16``); a block's second
-conv and its projection shortcut stay f32 (kernel 7's f32-output form),
-``act(y + shortcut)`` is taken in f32 (an identity shortcut is the bf16
-input, exact in f32) and rounded once.
+codes on the card, ``models/layers.conv_layer_bf16``); a projection
+shortcut stays f32 (kernel 7's f32-output form), and a block's second conv
+takes ``act((y + b) + shortcut)`` in f32 (an identity shortcut is the bf16
+input, exact in f32) and rounds once, all in its epilogue (kernel 7's
+residual form).
 
 The loaders are numpy copies of the reference package's: the reference's
 ``ckpt.t7`` state-dicts (either layout) and the package's own ``.npz``
@@ -40,7 +41,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv_kernel import apply_act
 from .layers import Conv2d, KeepsF32, Linear, conv_layer_bf16
 
 BN_EPS = 1e-5
@@ -272,12 +272,13 @@ class BasicBlock(nn.Module):
 
     def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, Ci) bf16 NHWC -> (N, Ho, Wo, Co) bf16 NHWC: conv2 and
-        the shortcut summed in f32, activated, rounded once."""
+        the shortcut (the bf16 input, or the projection's f32 output)
+        summed in f32, activated, rounded once, all in conv2's epilogue."""
         y = conv_layer_bf16(self.conv1, x, self.act_name)
-        y = conv_layer_bf16(self.conv2, y, "linear", torch.float32)
-        shortcut = (x.float() if self.down is None else
+        shortcut = (x if self.down is None else
                     conv_layer_bf16(self.down, x, "linear", torch.float32))
-        return apply_act(y + shortcut, self.act_name).to(torch.bfloat16)
+        return conv_layer_bf16(self.conv2, y, self.act_name,
+                               residual=shortcut)
 
 
 def _maxpool_nhwc(x: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,11 @@ rounds, so every conv layer of a bf16 ``Darknet`` and ReID net runs here on
 the card, whatever ``backbone_conv_eligible`` (the route's speed policy)
 says. Activations: linear, leaky, mish, and the ReID nets' ReLU and ELU;
 ``out_dtype=torch.float32`` gives the f32-output form (no rounding, for a
-residual sum that rounds after its add). Bound on the H100 by operations
-(hundreds to thousands per byte moved at the backbone's 3x3 shapes; by bytes
+residual sum that rounds after its add), and ``residual=`` a residual
+block's whole tail in the epilogue: act((sum + bias) + shortcut) in f32,
+rounded once, the shortcut (bf16 or f32, the output's shape) read there
+(modes 4 and 5, counted in ``launches_residual`` as well). Bound on the
+H100 by operations (hundreds to thousands per byte moved at the backbone's 3x3 shapes; by bytes
 at the 1x1 ones). The design is an implicit GEMM -- rows N*Ho*Wo, columns Co,
 depth k*k*Ci flat over taps and channels -- one output tile per block (or per
 cluster of blocks that share its depth), with the padding, the ragged edges
@@ -61,6 +64,7 @@ from .conv_plan import (ConvPlan, as_hwio, kernel_weights,
                         pack_conv_weights, weight_geometry, weight_tensor)
 
 launches = 0  # kernel launches; only the launch below adds to it
+launches_residual = 0  # of them, those with a shortcut in the epilogue
 
 # relu and elu are the ReID nets' (their stems and each block's first conv)
 _ACT_CODES = {"linear": 0, "": 0, "leaky": 1, "mish": 2, "relu": 3, "elu": 4}
@@ -108,22 +112,48 @@ def _conv_nhwc(x, w_hwio, stride, pad):
 
 def conv_plain_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
                     act: str = "leaky",
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the bf16 mode: operands rounded to bf16, products
     and sums in f32, + bias, activation, rounded to bf16 (``out_dtype``
-    float32: not rounded, the f32-output form)."""
-    _geometry(x, w, stride, pad)
-    _check_out_dtype(out_dtype)
+    float32: not rounded, the f32-output form). ``residual``: + the
+    shortcut in f32 after the bias, before the activation."""
+    n, _, _, _, ho, wo, co, _ = _geometry(x, w, stride, pad)
+    _check_out_dtype(out_dtype, residual)
+    _check_residual(residual, (n, ho, wo, co), x.device)
     y = _conv_nhwc(x.to(torch.bfloat16).float(),
                    as_hwio(w).to(torch.bfloat16).float(), stride, pad)
-    y = apply_act(y + b.float(), act)
-    return y.to(out_dtype).contiguous()
+    y = y + b.float()
+    if residual is not None:
+        y = y + residual.float()
+    return apply_act(y, act).to(out_dtype).contiguous()
 
 
-def _check_out_dtype(out_dtype):
+def _check_out_dtype(out_dtype, residual=None):
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"conv (bf16 mode): out_dtype must be bfloat16 or "
                          f"float32, got {out_dtype}")
+    if residual is not None and out_dtype != torch.bfloat16:
+        raise ValueError("conv (bf16 mode): a residual's tail rounds to "
+                         "bfloat16; out_dtype float32 takes none")
+
+
+def _check_residual(residual, shape, device):
+    """A shortcut the epilogue can read: the conv's output shape, bf16 or
+    f32, contiguous NHWC, on the conv's device."""
+    if residual is None:
+        return
+    if tuple(residual.shape) != tuple(shape):
+        raise ValueError(f"conv residual: expected shape {tuple(shape)}, got "
+                         f"{tuple(residual.shape)}")
+    if residual.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv residual: expected bfloat16 or float32, got "
+                         f"{residual.dtype}")
+    if not residual.is_contiguous():
+        raise ValueError("conv residual: must be contiguous NHWC")
+    if residual.device != device:
+        raise ValueError(f"conv residual: on {residual.device}, the conv on "
+                         f"{device}")
 
 
 def quantize_activations(x: torch.Tensor, xinv: float) -> torch.Tensor:
@@ -150,16 +180,22 @@ def conv_plain_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
     return apply_act(y, act).to(torch.bfloat16).contiguous()
 
 
-def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
+def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan,
+            residual=None):
     """``mode``: 0 bf16, 1 int8 with bf16 x, 2 int8 with f32 x, 3 bf16 with
-    an f32 output."""
+    an f32 output, 4 and 5 bf16 with a bf16 or f32 ``residual``."""
     n, hi, wi, ci, ho, wo, co, k = _geometry(x, w, stride, pad)
+    if residual is not None:
+        _check_residual(residual, (n, ho, wo, co), x.device)
+        if co % 8:
+            raise ValueError(f"conv kernel: a residual needs Co a multiple "
+                             f"of 8, got {co}")
     tensors = (x, b) + (() if scale is None else (scale,))
     build.require_cuda("conv", *tensors)
     build.require_cuda("conv", weight_tensor(w),
                        contiguous=False)  # packing takes any layout
     lib = build.load()  # raises before anything asks the card
-    bf16 = mode in (0, 3)
+    bf16 = mode not in (1, 2)
     packed, plan = kernel_weights(
         w, torch.bfloat16 if bf16 else torch.int8, plan, x.device,
         n * ho * wo, quantizing=not bf16)
@@ -177,31 +213,40 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan):
                       dtype=torch.float32 if mode == 3 else torch.bfloat16)
     err = lib.ydt_conv(
         x.data_ptr(), packed.data.data_ptr(), b.data_ptr(),
-        None if scale is None else scale.data_ptr(), float(xinv),
+        None if scale is None else scale.data_ptr(),
+        None if residual is None else residual.data_ptr(), float(xinv),
         out.data_ptr(), n, hi, wi, ci, ho, wo, co, k, stride, pad,
         _ACT_CODES[act], mode, packed.data.shape[1], plan.bm, plan.bn,
         plan.stages, plan.split,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("conv", err)
-    global launches
+    global launches, launches_residual
     launches += 1
+    launches_residual += residual is not None
     return out
 
 
 def conv_bf16_cuda(x, w, b, *, stride=1, pad=1, act="leaky",
                    plan: Optional[ConvPlan] = None,
-                   out_dtype: torch.dtype = torch.bfloat16):
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   residual: Optional[torch.Tensor] = None):
     """Launch the kernel in bf16 mode: contiguous bf16 NHWC ``x`` and bf16
     weights (HWIO or packed) on the card (a ``torch.cat`` result must be
     contiguous in channels_last; anything else raises). ``plan`` forces a
     tile plan in place of the planner's; ``out_dtype`` float32 takes the
-    f32-output form (mode 3)."""
+    f32-output form (mode 3); ``residual`` (bf16 or f32, the output's
+    shape, contiguous, on the card) is added in the epilogue before the
+    activation, from the same sums as mode 3 (the planner's plan does not
+    depend on the mode)."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"conv kernel (bf16): expected bfloat16 x, got "
                          f"{x.dtype}")
-    _check_out_dtype(out_dtype)
-    return _launch(x, w, b, None, 0.0, stride, pad, act,
-                   3 if out_dtype == torch.float32 else 0, plan)
+    _check_out_dtype(out_dtype, residual)
+    mode = 3 if out_dtype == torch.float32 else 0
+    if residual is not None:
+        mode = 4 if residual.dtype == torch.bfloat16 else 5
+    return _launch(x, w, b, None, 0.0, stride, pad, act, mode, plan,
+                   residual)
 
 
 def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky",
@@ -218,15 +263,16 @@ def conv_int8_cuda(x, wq, b, scale, xinv, *, stride=1, pad=1, act="leaky",
 
 def conv_bf16(x, w, b, *, stride: int = 1, pad: int = 1,
               act: str = "leaky",
-              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """bf16 conv + bias + activation, f32 accumulation; bf16 NHWC (or the
-    unrounded f32 with ``out_dtype=torch.float32``). The kernel for CUDA
-    tensors, ``conv_plain_bf16`` for CPU tensors."""
+              out_dtype: torch.dtype = torch.bfloat16,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bf16 conv + bias (+ ``residual``) + activation, f32 accumulation;
+    bf16 NHWC (or the unrounded f32 with ``out_dtype=torch.float32``). The
+    kernel for CUDA tensors, ``conv_plain_bf16`` for CPU tensors."""
     if x.device.type == "cpu":
         return conv_plain_bf16(x, w, b, stride=stride, pad=pad, act=act,
-                               out_dtype=out_dtype)
+                               out_dtype=out_dtype, residual=residual)
     return conv_bf16_cuda(x, w, b, stride=stride, pad=pad, act=act,
-                          out_dtype=out_dtype)
+                          out_dtype=out_dtype, residual=residual)
 
 
 def conv_int8(x, wq, b, scale, xinv, *, stride: int = 1, pad: int = 1,
