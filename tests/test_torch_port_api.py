@@ -35,6 +35,7 @@ from yolo_deepsort_tpu_torch.models import reid as PR
 from yolo_deepsort_tpu_torch.ops.nms import roi_nms_mask
 from yolo_deepsort_tpu_torch.utils import checkpoint as PCK
 from yolo_deepsort_tpu_torch.weights import reid_from_params
+from torch_port_threads import torch_threads  # noqa: F401
 
 H, W = 144, 192
 
@@ -64,11 +65,28 @@ def tracked(models, noise_frames):
 
 
 def _trackers(models, tracked):
-    kw = dict(tracked_classes=tracked, conf_thres=0.3)
-    return (PA.VideoTracker(models[0], tracker_config=TrackerConfig(
-        max_tracks=16, max_dets=16, nn_budget=10), **kw),
-            JA.VideoTracker(models[1], tracker_config=JTrackerConfig(
-                max_tracks=16, max_dets=16, nn_budget=10), **kw))
+    return _port_tracker(models, tracked), _ref_tracker(models, tracked)
+
+
+def _port_tracker(models, tracked):
+    return PA.VideoTracker(models[0], tracker_config=TrackerConfig(
+        max_tracks=16, max_dets=16, nn_budget=10), tracked_classes=tracked,
+        conf_thres=0.3)
+
+
+def _ref_tracker(models, tracked):
+    return JA.VideoTracker(models[1], tracker_config=JTrackerConfig(
+        max_tracks=16, max_dets=16, nn_budget=10), tracked_classes=tracked,
+        conf_thres=0.3)
+
+
+@pytest.fixture(scope="module")
+def port_per_frame(models, noise_frames, tracked):
+    """The port's class-filtered tracker over the noise frames, one
+    ``track_frame`` a frame, run once for the file: (the tracker, its rows
+    per frame)."""
+    port = _port_tracker(models, tracked)
+    return port, [port.track_frame(frame) for frame in noise_frames]
 
 
 def test_image_detector_matches_jax(models, noise_frames):
@@ -81,22 +99,25 @@ def test_image_detector_matches_jax(models, noise_frames):
     np.testing.assert_allclose(got[:, 4:6], want[:, 4:6], atol=1e-4)
 
 
-def test_track_frame_matches_jax(models, noise_frames, tracked):
-    port, ref = _trackers(models, tracked)
+def test_track_frame_matches_jax(models, noise_frames, tracked,
+                                port_per_frame):
+    port, rows = port_per_frame
+    ref = _ref_tracker(models, tracked)
     emitted = 0
-    for t, frame in enumerate(noise_frames):
-        got, want = port.track_frame(frame), ref.track_frame(frame)
+    for t, (frame, got) in enumerate(zip(noise_frames, rows, strict=True)):
+        want = ref.track_frame(frame)
         assert got.dtype == np.int64
         np.testing.assert_array_equal(got, want, err_msg=f"frame {t}")
         emitted += len(got)
     assert emitted > 0
     assert port.host_readbacks == len(noise_frames), "one wait per call"
     # the filter dropped detections of other classes
-    unfiltered, _ = _trackers(models, None)
+    unfiltered = _port_tracker(models, None)
     assert sum(len(unfiltered.track_frame(f)) for f in noise_frames) > emitted
 
 
-def test_track_frames_matches_jax(models, noise_frames, tracked):
+def test_track_frames_matches_jax(models, noise_frames, tracked,
+                                 port_per_frame):
     port, ref = _trackers(models, tracked)
     emitted = 0
     for chunk in (noise_frames[:3], noise_frames[3:6], noise_frames[6:]):
@@ -107,10 +128,8 @@ def test_track_frames_matches_jax(models, noise_frames, tracked):
             emitted += len(g)
     assert emitted > 0
     # the chunked step and the per-frame step agree on the same frames
-    port_frame, _ = _trackers(models, tracked)
-    per_frame = [port_frame.track_frame(f) for f in noise_frames]
-    port_chunk, _ = _trackers(models, tracked)
-    chunked = port_chunk.track_frames(noise_frames)
+    _, per_frame = port_per_frame
+    chunked = _port_tracker(models, tracked).track_frames(noise_frames)
     for a, b in zip(per_frame, chunked):
         np.testing.assert_array_equal(a, b)
 

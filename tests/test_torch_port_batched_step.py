@@ -9,6 +9,9 @@ Kalman means within rtol 2e-4 / atol 2e-3 (the tolerance the fused tracker
 step is held to, tests/test_torch_port_kernels.py); the discrete state
 exactly equal. The JAX side runs its fused tracker kernel (and, in the conv
 variant, its conv kernel) in Pallas interpret mode.
+
+The port's f32 K=1 runs are made once per configuration for the file
+(``port_runs``) and read by every test that compares against them.
 """
 
 import numpy as np
@@ -34,8 +37,9 @@ from yolo_deepsort_tpu_torch.models.reid import random_reid_params
 from yolo_deepsort_tpu_torch.parallel import streams as TS
 from yolo_deepsort_tpu_torch.weights import darknet_from_raw, reid_from_params
 
-from test_torch_port_slice import _plant_small_boxes
+from test_torch_port_slice import _plant_small_boxes, _snapshot
 from test_torch_port_tracking import DISCRETE
+from torch_port_threads import torch_threads  # noqa: F401
 
 H, W_, S, FRAMES = 64, 128, 2, 5
 
@@ -56,10 +60,39 @@ def setup():
         jplan, folded, jax.vmap(lambda f: j_letterbox(f, 64))(frames)))
     obj = np.sort(dec[..., 4].ravel())[::-1]
     thr = float((obj[2 * 6 - 1] + obj[2 * 6]) / 2)
-    return dict(jplan=jplan, folded=folded, frames=frames, thr=thr,
+    return dict(jplan=jplan, folded=folded, frames=frames, thr=thr, dec=dec,
                 detector=darknet_from_raw(tplan, raw),
                 reid=reid_from_params(random_reid_params(0)),
                 j_reid=j_reid_params(0))
+
+
+def _cfgs(setup):
+    return (DetectorConfig(img_size=64, conf_thres=setup["thr"], max_dets=8),
+            TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4))
+
+
+@pytest.fixture(scope="module")
+def port_runs(setup):
+    """run(kw, fresh=False) -> [(states, outputs, emit)] after each of
+    FRAMES frames of the port's f32 K=1 step built with ``kw`` and the
+    setup's configs, each configuration run once for the file; ``fresh``
+    runs it again under the caller's conditions and keeps that run."""
+    det_cfg, trk_cfg = _cfgs(setup)
+    frames = torch.from_numpy(setup["frames"])
+    runs = {}
+
+    def run(kw, fresh=False):
+        key = repr(sorted(kw.items()))
+        if fresh or key not in runs:
+            step = TS.make_batched_step(setup["detector"], setup["reid"],
+                                        det_cfg, trk_cfg, (H, W_), **kw)
+            states, runs[key] = TS.init_stream_states(trk_cfg, S, "cpu"), []
+            for _ in range(FRAMES):
+                states, (out, emit) = step(states, frames)
+                runs[key].append((_snapshot(states), out, emit))
+        return runs[key]
+
+    return run
 
 
 def _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit, tag):
@@ -88,43 +121,30 @@ VARIANTS = {
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_make_batched_step_matches_jax(setup, variant):
+def test_make_batched_step_matches_jax(setup, port_runs, variant):
     kw, j_kw = (dict(d) for d in VARIANTS[variant])
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    det_cfg, trk_cfg = _cfgs(setup)
     if variant == "class_filter":
         # track the classes of about half of the first frame's detections
-        dec = np.asarray(network_apply(
-            setup["jplan"], setup["folded"], jax.vmap(
-                lambda f: j_letterbox(f, 64))(setup["frames"])))
+        dec = setup["dec"]
         keep = dec[..., 4] >= setup["thr"]
         classes = np.unique(dec[keep][:, 5:].argmax(-1))
         kw["tracked_class_ids"] = classes[::2].tolist()
         assert 0 < len(kw["tracked_class_ids"]) < len(classes)
     j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
                                   donate_state=False, **kw, **j_kw)
-    t_step = TS.make_batched_step(setup["detector"], setup["reid"], det_cfg,
-                                  trk_cfg, (H, W_), **kw)
     j_states = JS.init_stream_states(trk_cfg, S)
-    t_states = TS.init_stream_states(trk_cfg, S, "cpu")
     frames = setup["frames"]
     emitted = 0
-    for f in range(FRAMES):
+    for f, (t_states, t_out, t_emit) in enumerate(port_runs(kw)):
         j_states, (j_out, j_emit) = j_step(setup["folded"], setup["j_reid"],
                                            j_states, jnp.asarray(frames))
-        t_states, (t_out, t_emit) = t_step(t_states,
-                                           torch.from_numpy(frames))
         _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit,
                        f"{variant} frame {f}")
         emitted += int(t_emit.sum())
     assert emitted > 0, "tracks confirmed and were emitted"
     if variant == "class_filter":
-        plain = TS.make_batched_step(setup["detector"], setup["reid"],
-                                     det_cfg, trk_cfg, (H, W_))
-        st = TS.init_stream_states(trk_cfg, S, "cpu")
-        for f in range(FRAMES):
-            st, _ = plain(st, torch.from_numpy(frames))
+        st = port_runs({})[-1][0]  # the plain step after FRAMES frames
         assert int((st.state > 0).sum()) > int((t_states.state > 0).sum())
 
 
@@ -133,10 +153,11 @@ GRAPH_COUNTERS = {"detector_graph": "detector_graph_launches",
                   "detector_eager": "detector_eager_launches"}
 
 
-def test_cpu_step_never_captures(setup, monkeypatch):
+def test_cpu_step_never_captures(setup, port_runs, monkeypatch):
     """On the CPU the K=1 step's detector runs as it did before the card's
     graph: no CUDA graph is built, the graph counters stay 0, and the step
-    still equals the JAX step frame by frame."""
+    still equals the JAX step frame by frame. The port's run is made here,
+    under the patch, and kept for the tests after it."""
     from yolo_deepsort_tpu_torch.kernels.launches import (read_launches,
                                                           zero_launches)
 
@@ -145,23 +166,17 @@ def test_cpu_step_never_captures(setup, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
     monkeypatch.setattr(torch.cuda, "graph", no_graph)
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    det_cfg, trk_cfg = _cfgs(setup)
     j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
                                   donate_state=False, cap=6,
                                   use_fused_tracker=True)
-    t_step = TS.make_batched_step(setup["detector"], setup["reid"], det_cfg,
-                                  trk_cfg, (H, W_), cap=6)
     j_states = JS.init_stream_states(trk_cfg, S)
-    t_states = TS.init_stream_states(trk_cfg, S, "cpu")
     frames = setup["frames"]
     zero_launches()
-    for f in range(FRAMES):
+    t_run = port_runs(dict(cap=6), fresh=True)
+    for f, (t_states, t_out, t_emit) in enumerate(t_run):
         j_states, (j_out, j_emit) = j_step(setup["folded"], setup["j_reid"],
                                            j_states, jnp.asarray(frames))
-        t_states, (t_out, t_emit) = t_step(t_states,
-                                           torch.from_numpy(frames))
         _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit,
                        f"frame {f}")
     got = read_launches()
@@ -232,24 +247,14 @@ def test_graph_counters_are_launch_counters():
     assert all(getattr(TS, attr) == 0 for attr in GRAPH_COUNTERS.values())
 
 
-def test_window_guard_takes_the_dense_crops(setup):
+def test_window_guard_takes_the_dense_crops(port_runs):
     """With a window smaller than the crops the step must give what the
     step without a window gives (the dense crops), bit for bit; with a
     window that fits it takes the windowed resampler, which is bit-identical
-    to dense by construction."""
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
-    frames = torch.from_numpy(setup["frames"])
-    results = []
-    for window in (None, (8, 8), (32, 40)):
-        step = TS.make_batched_step(setup["detector"], setup["reid"],
-                                    det_cfg, trk_cfg, (H, W_), cap=6,
-                                    crop_window=window)
-        st = TS.init_stream_states(trk_cfg, S, "cpu")
-        for _ in range(3):
-            st, (out, emit) = step(st, frames)
-        results.append((st, out, emit))
+    to dense by construction. Compared after the third frame of each run."""
+    results = [port_runs(kw)[2] for kw in (
+        dict(cap=6), dict(cap=6, crop_window=(8, 8)),
+        dict(cap=6, crop_window=(32, 40)))]
     for st, out, emit in results[1:]:
         assert torch.equal(out, results[0][1])
         assert torch.equal(emit, results[0][2])
@@ -258,9 +263,7 @@ def test_window_guard_takes_the_dense_crops(setup):
 
 
 def test_with_validity_freezes_an_invalid_stream(setup):
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    det_cfg, trk_cfg = _cfgs(setup)
     j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
                                   donate_state=False, with_validity=True)
     t_step = TS.make_batched_step(setup["detector"], setup["reid"], det_cfg,
@@ -358,9 +361,7 @@ def test_detect_stage_takes_the_conv_route(setup):
     route (its plain version on the CPU) and the plain twin do
     the same arithmetic, so their detect outputs are exactly equal, and
     both differ from the unrouted stage."""
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    det_cfg, trk_cfg = _cfgs(setup)
     frames = torch.from_numpy(setup["frames"][None].copy())
     pkg = TQ.quantize_darknet_from_frames(setup["detector"],
                                           setup["frames"], 64)
@@ -404,7 +405,9 @@ def test_make_batched_step_embed_int8_matches_jax(setup):
     differ by the two frameworks' bf16 roundings of crops and front, which
     on static frames moves no assignment; stored gallery features agree to
     cosine > 0.999). ``"resident_pallas"`` on CPU tensors takes kernel 8's
-    plain version: the same states bit for bit."""
+    plain version, the very function ``"resident"`` runs: on the first
+    frame, whose embeds fill the gallery, the same rows and gallery bit
+    for bit."""
     from yolo_deepsort_tpu.models import quantize as JQR
     from yolo_deepsort_tpu_torch.weights import reid_int8_package_to_torch
 
@@ -412,9 +415,7 @@ def test_make_batched_step_embed_int8_matches_jax(setup):
         np.float32)
     pkg = JQR.quantize_reid_params_resident(setup["j_reid"], calib)
     t_pkg = reid_int8_package_to_torch(pkg, "cpu")
-    det_cfg = DetectorConfig(img_size=64, conf_thres=setup["thr"],
-                             max_dets=8)
-    trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
+    det_cfg, trk_cfg = _cfgs(setup)
     kw = dict(cap=6, crop_window=(32, 40))
     j_step = JS.make_batched_step(setup["jplan"], det_cfg, trk_cfg, (H, W_),
                                   donate_state=False, use_fused_tracker=True,
@@ -425,22 +426,23 @@ def test_make_batched_step_embed_int8_matches_jax(setup):
                                   (H, W_), embed_int8="resident_pallas", **kw)
     j_states = JS.init_stream_states(trk_cfg, S)
     t_states = TS.init_stream_states(trk_cfg, S, "cpu")
-    k_states = TS.init_stream_states(trk_cfg, S, "cpu")
     frames = setup["frames"]
+    k_states, (k_out, k_emit) = k_step(
+        TS.init_stream_states(trk_cfg, S, "cpu"), torch.from_numpy(frames))
     emitted = 0
     for f in range(FRAMES):
         j_states, (j_out, j_emit) = j_step(setup["folded"], pkg, j_states,
                                            jnp.asarray(frames))
         t_states, (t_out, t_emit) = t_step(t_states,
                                            torch.from_numpy(frames))
-        k_states, (k_out, k_emit) = k_step(k_states,
-                                           torch.from_numpy(frames))
         _compare_frame(t_states, j_states, t_out, t_emit, j_out, j_emit,
                        f"embed_int8 frame {f}")
-        assert torch.equal(k_out, t_out) and torch.equal(k_emit, t_emit)
+        if f == 0:
+            assert torch.equal(k_out, t_out) and torch.equal(k_emit, t_emit)
+            assert torch.equal(k_states.gallery, t_states.gallery)
+            assert float(k_states.gallery.abs().max()) > 0
         emitted += int(t_emit.sum())
     assert emitted > 0
-    assert torch.equal(k_states.gallery, t_states.gallery)
     j_gal, t_gal = np.asarray(j_states.gallery), t_states.gallery.numpy()
     filled = np.linalg.norm(j_gal, axis=-1) > 0
     assert filled.any() and (j_gal * t_gal).sum(-1)[filled].min() > 0.999

@@ -25,6 +25,7 @@ import jax  # noqa: E402,F401
 
 from yolo_deepsort_tpu_torch.kernels.launches import LAUNCH_COUNTERS
 from yolo_deepsort_tpu_torch.tools import bench_video as TB
+from torch_port_threads import torch_threads  # noqa: F401
 
 ARGV = ["--model", "yolov3-tiny", "--img-size", "64", "--frame-h", "64",
         "--frame-w", "128", "--target-dets", "8", "--chunk", "2",
@@ -37,14 +38,6 @@ BENCH_KEYS = {"metric", "value", "unit", "steady_fps", "chunk_p50_ms",
 pytestmark = pytest.mark.skipif(
     importlib.util.find_spec("cv2") is None,
     reason="needs cv2 (the clip is encoded and decoded)")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

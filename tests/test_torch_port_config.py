@@ -17,6 +17,7 @@ from yolo_deepsort_tpu_torch import config as TC
 from yolo_deepsort_tpu_torch import weights as TW
 from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES as T_ARCH
 from yolo_deepsort_tpu_torch.models.darknet import conv_layer_shapes
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["TrackerConfig", "DetectorConfig"])

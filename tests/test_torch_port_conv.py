@@ -39,6 +39,7 @@ from yolo_deepsort_tpu_torch.weights import (
     conv_int8_package_to_torch,
     darknet_params_from_folded,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 # the reference's own parametrization (tests/test_pallas_conv.py CASES)
 CASES = [
@@ -219,14 +220,17 @@ def test_quantize_darknet_convs_equals_reference(monkeypatch):
         assert got[idx]["scale"].dtype == np.float32
         assert got[idx]["xinv"].dtype == np.float32
     # the activation scales themselves, absmax and percentile
+    j_acts = {}
     for pct in (100.0, 99.9):
-        j_act = JQ.calibrate_darknet_act_scales(jplan, folded, calib, pct=pct)
+        j_act = j_acts[pct] = JQ.calibrate_darknet_act_scales(
+            jplan, folded, calib, pct=pct)
         t_act = TQ.calibrate_darknet_act_scales(model, calib, pct=pct)
         assert set(t_act) == set(j_act)
         for idx in j_act:
             assert f32_ulps(t_act[idx], j_act[idx]) <= CALIB_ULPS, (pct, idx)
-    # the packaging alone: both sides handed the reference's scales
-    j_act = JQ.calibrate_darknet_act_scales(jplan, folded, calib)
+    # the packaging alone: both sides handed the reference's scales (its
+    # default statistic, the absmax)
+    j_act = j_acts[100.0]
     monkeypatch.setattr(TQ, "calibrate_darknet_act_scales",
                         lambda *a, **k: dict(j_act))
     same = TQ.quantize_darknet_convs(model, calib)

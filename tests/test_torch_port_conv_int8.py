@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from yolo_deepsort_tpu.models.quantize import _xla_conv_int8_resident
 from yolo_deepsort_tpu.ops.pallas_conv_int8 import conv_int8 as j_conv_int8
 from yolo_deepsort_tpu_torch.ops import conv_int8_kernel as CK
+from torch_port_threads import torch_threads  # noqa: F401
 
 CASES = [
     # (n, hi, wi, ci, co, k, stride, pad, relu, out_int8, residual)

@@ -14,6 +14,7 @@ from hypothesis import strategies as st
 from yolo_deepsort_tpu_torch.ops import conv_int8_kernel, conv_kernel
 from yolo_deepsort_tpu_torch.ops import conv_plan as CP
 from yolo_deepsort_tpu_torch.ops.conv_plan_table import TUNED_132_SMS
+from torch_port_threads import torch_threads  # noqa: F401
 
 # the eligible conv shapes of yolov3-416 as the detector presents them to the
 # conv route, (map, Ci, Co, k, stride), and the mish shape held beside them

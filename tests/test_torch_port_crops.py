@@ -30,6 +30,7 @@ from yolo_deepsort_tpu_torch.ops import crops_kernel
 from yolo_deepsort_tpu_torch.parallel import streams as TS
 
 from test_torch_port_batched_step import H, S, W_, setup  # noqa: F401
+from torch_port_threads import torch_threads  # noqa: F401
 
 FRAME_HW, WINDOW = (96, 160), (48, 64)
 

@@ -11,6 +11,7 @@ from yolo_deepsort_tpu.data import datasets as JD
 from yolo_deepsort_tpu.data import letterbox_np as JL
 from yolo_deepsort_tpu_torch.data import datasets as TD
 from yolo_deepsort_tpu_torch.data import letterbox_np as TL
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("hw", [(40, 64), (64, 40), (33, 33)])

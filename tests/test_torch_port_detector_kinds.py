@@ -19,6 +19,7 @@ from gpubench.reference import darknet as ref_darknet
 from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES
 from yolo_deepsort_tpu_torch.models.darknet import build_network
 from yolo_deepsort_tpu_torch.tools import detector_kinds as DK
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 def _x(cat, name, ts, dur, corr=None):

@@ -30,6 +30,7 @@ from conftest import cpu_subprocess_env
 from yolo_deepsort_tpu.ops.letterbox import letterbox as j_letterbox
 from yolo_deepsort_tpu_torch import api as PA
 from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_nearest_batch
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 EXAMPLES = ("detect_image", "detect_folder", "track_video",

@@ -44,6 +44,7 @@ from yolo_deepsort_tpu.cfg.architectures import ARCHITECTURES as J_ARCH
 from yolo_deepsort_tpu.models import weights as JW
 from yolo_deepsort_tpu.models.darknet import build_network as j_build
 from yolo_deepsort_tpu.train import yolo_cli as JYC
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 # the gate's recipe at the size where the port's card run went NaN

@@ -28,6 +28,7 @@ from yolo_deepsort_tpu_torch.tracking.tracker import (
 from yolo_deepsort_tpu_torch.tracking.tracker_kernel import (
     tracker_step_fused_batched,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 IMG_HW = (720, 1280)
 FEAT_DIM = 32

@@ -36,6 +36,7 @@ from yolo_deepsort_tpu_torch.tracking.tracker import (
 )
 
 from test_torch_port_global_ids_gpu import matcher_case, near_duplicate_scene
+from torch_port_threads import torch_threads  # noqa: F401
 
 FIELDS = [f.name for f in dataclasses.fields(TrackerState)]
 TOL_DIST = 1e-5

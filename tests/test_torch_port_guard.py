@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from conftest import cpu_subprocess_env
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -45,6 +45,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from yolo_deepsort_tpu_torch.kernels.launches import LAUNCH_COUNTERS
 from yolo_deepsort_tpu_torch.tools import soak as TS
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 HW, K, S, CLIP_FRAMES, CHUNKS = (64, 128), 2, 2, 5, 6
@@ -73,14 +74,6 @@ def _load(name, path):
 @pytest.fixture(scope="module")
 def ref_soak():
     return _load("reference_tool_soak", REPO / "tools" / "soak.py")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,6 @@ import optax  # noqa: E402
 from test_torch_port_int8_gates import (  # noqa: F401 (fixtures)
     TINY,
     _darknet,
-    _two_threads,
     check_main,
     loads,
     ref,
@@ -43,6 +42,7 @@ from yolo_deepsort_tpu_torch.models.quantize_darknet import quantize_darknet_con
 from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch
 from yolo_deepsort_tpu_torch.tools import int8_detect_gate as TDG
 from yolo_deepsort_tpu_torch.tools import int8_gate_trained as TTG
+from torch_port_threads import torch_threads  # noqa: F401
 
 # the plain int8 twin against the XLA twin on the same folded weights and
 # package: both bf16 forwards round once per conv, so they differ only

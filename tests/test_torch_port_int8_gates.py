@@ -58,6 +58,7 @@ from yolo_deepsort_tpu_torch.weights import (
     darknet_params_from_folded,
     fold_inference_params,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = ("yolov3-tiny", 64, (64, 128))  # model, img size, frame (h, w)
@@ -70,15 +71,6 @@ def _reference_tool(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the suite runs files in parallel processes."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

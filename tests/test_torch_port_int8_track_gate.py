@@ -33,7 +33,6 @@ import jax.numpy as jnp  # noqa: E402
 from test_torch_port_int8_gates import (  # noqa: F401 (fixtures)
     TINY,
     _darknet,
-    _two_threads,
     loads,
     ref,
 )
@@ -52,6 +51,7 @@ from yolo_deepsort_tpu_torch.models.quantize_darknet import (
 )
 from yolo_deepsort_tpu_torch.models.reid import random_reid_params
 from yolo_deepsort_tpu_torch.tools import int8_track_gate as TG
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = REPO / "tools" / "int8_track_gate.py"

@@ -36,6 +36,7 @@ from yolo_deepsort_tpu_torch.config import TrackerConfig
 from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
 from yolo_deepsort_tpu_torch.ops.assignment import solve_two_stage_assignment
 from yolo_deepsort_tpu_torch.tracking import tracker as T
+from torch_port_threads import torch_threads  # noqa: F401
 
 S, R, C = 3, 24, 12
 

@@ -22,6 +22,7 @@ from yolo_deepsort_tpu_torch.tracking import tracker_kernel
 from yolo_deepsort_tpu_torch.tracking.tracker import init_tracker_state
 
 from test_torch_port_tracking import DISCRETE, pack, scene
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 def _frames(seed, b, h, w):

@@ -12,6 +12,7 @@ import re
 from pathlib import Path
 
 from yolo_deepsort_tpu_torch.kernels import launches as KL
+from torch_port_threads import torch_threads  # noqa: F401
 
 PKG = Path(__file__).resolve().parent.parent / "yolo_deepsort_tpu_torch"
 COUNTER = re.compile(r"^([a-z_]*launches[a-z_]*) *= *0\b", re.M)

@@ -22,6 +22,7 @@ from yolo_deepsort_tpu_torch.weights import (
     darknet_params_from_folded,
     reid_from_params,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 LAYER_RTOL = 1e-5  # per-layer max |diff| relative to the layer's max |value|
 

@@ -40,6 +40,7 @@ from yolo_deepsort_tpu_torch.tracking.tracker import (
 from yolo_deepsort_tpu_torch.utils import metrics as TM
 from yolo_deepsort_tpu_torch.utils import mot as TMOT
 from yolo_deepsort_tpu_torch.utils import profiling as TP
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SCENE = dict(seed=3, n_frames=40, n_objects=4, feat_dim=32)

@@ -51,6 +51,7 @@ from test_torch_port_global_ids import CPU_MESH, _torch_gids, _torch_states
 from test_torch_port_global_ids_gpu import matcher_case, near_duplicate_scene
 from test_torch_port_slice import _plant_small_boxes
 from test_torch_port_tracking import DISCRETE
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TIME_LIMIT = 120  # seconds, all of a test's processes together

@@ -22,6 +22,7 @@ from test_torch_port_nms_kernel_gpu import nan_case, nms_cases, roi_cases
 from yolo_deepsort_tpu.ops.nms import batched_nms_with_stats as j_nms
 from yolo_deepsort_tpu.ops.nms import roi_nms_mask as j_roi_nms
 from yolo_deepsort_tpu_torch.ops import nms as N
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 def _both(args):

@@ -21,6 +21,7 @@ from yolo_deepsort_tpu_torch.ops.decode import yolo_decode as t_decode
 from yolo_deepsort_tpu_torch.ops.letterbox import letterbox_batch, rescale_boxes
 from yolo_deepsort_tpu_torch.ops.nms import batched_nms_with_stats as t_nms
 from yolo_deepsort_tpu_torch.tracking import kalman as TK
+from torch_port_threads import torch_threads  # noqa: F401
 
 ATOL = 1e-5  # float32 elementwise math in two frameworks
 

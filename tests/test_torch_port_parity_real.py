@@ -1,9 +1,10 @@
 """The port's real-weights runbook (``yolo_deepsort_tpu_torch/tools/
 parity_real.py``) on the CPU, against the reference's pieces:
 
-* the whole ``--standins`` flow in a subprocess (``--device cpu``): ``ok``
-  with no failures, the STAND-IN marker, an OK per-layer row and a MOTA
-  row, as ``tests/test_parity_runbook.py`` checks the reference's;
+* the whole ``--standins`` flow of the tool's ``main`` (``--device cpu``),
+  called in the test's process: ``ok`` with no failures, the STAND-IN
+  marker, an OK per-layer row and a MOTA row, as
+  ``tests/test_parity_runbook.py`` checks the reference's;
 * step 4's MOTA / ID switches / IDF1 on the stand-in sequence equal to
   ``benchmarks/mot_eval.py`` ``sequence_eval`` run in-process on the same
   directory with the same stand-in ``ckpt.t7``;
@@ -16,34 +17,28 @@ parity_real.py``) on the CPU, against the reference's pieces:
 
 import json
 import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import cpu_subprocess_env
 from test_mot_eval_seq import _make_mot16_dir
 from test_reid import TorchNet
 from yolo_deepsort_tpu.models import reid as JR
 from yolo_deepsort_tpu_torch.data.datasets import load_rgb
 from yolo_deepsort_tpu_torch.models import reid as PR
 from yolo_deepsort_tpu_torch.tools import parity_real as PRL
+from torch_port_threads import torch_threads  # noqa: F401
 
-REPO = Path(__file__).resolve().parent.parent
 
-
-def test_standins_flow_in_a_subprocess(tmp_path):
+def test_standins_flow_in_a_subprocess(tmp_path, capsys):
+    """The flow's one JSON line and its report, from ``main`` called in
+    this process: nothing here needs a fresh one."""
     out = tmp_path / "PARITY_STANDIN_torch.md"
-    r = subprocess.run(
-        [sys.executable, "-m", "yolo_deepsort_tpu_torch.tools.parity_real",
-         "--standins", "--device", "cpu", "--out", str(out)],
-        capture_output=True, text=True, cwd=REPO, timeout=600,
-        env=cpu_subprocess_env(OMP_NUM_THREADS="2"))
-    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    rc = PRL.main(["--standins", "--device", "cpu", "--out", str(out)])
+    stdout = capsys.readouterr().out
+    assert rc == 0, stdout[-2000:]
+    rec = json.loads(stdout.strip().splitlines()[-1])
     assert rec == {"ok": True, "failures": [], "out": str(out)}
     text = out.read_text()
     assert "STAND-IN" in text  # honesty marker

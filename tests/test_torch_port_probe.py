@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp  # noqa: E402
 
 from yolo_deepsort_tpu_torch.tools import int8_probe as P
+from torch_port_threads import torch_threads  # noqa: F401
 
 M, K, N = 512, 256, 256
 

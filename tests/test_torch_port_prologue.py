@@ -27,6 +27,7 @@ from yolo_deepsort_tpu_torch.ops import assignment_kernel as AK
 from yolo_deepsort_tpu_torch.ops import boxes as B
 from yolo_deepsort_tpu_torch.tracking import tracker as T
 from yolo_deepsort_tpu_torch.tracking import tracker_kernel as TK
+from torch_port_threads import torch_threads  # noqa: F401
 
 S, R, C = 3, 24, 12
 

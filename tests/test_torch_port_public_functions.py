@@ -24,6 +24,7 @@ from yolo_deepsort_tpu_torch import weights as TW
 from yolo_deepsort_tpu_torch.cfg.architectures import ARCHITECTURES as T_ARCH
 from yolo_deepsort_tpu_torch.ops import boxes as TB
 from yolo_deepsort_tpu_torch.tracking import kalman as TK
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name,kw,in_channels", [

@@ -41,6 +41,7 @@ from yolo_deepsort_tpu_torch.weights import (
     reid_from_params,
     reid_int8_package_to_torch,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 CALIB_ULPS = 32
 CONVS = ("conv1", "conv2", "down")

@@ -17,6 +17,7 @@ from yolo_deepsort_tpu_torch.models import reid as R
 from yolo_deepsort_tpu_torch.models.layers import conv_layer_bf16
 from yolo_deepsort_tpu_torch.ops import conv_kernel as CK
 from yolo_deepsort_tpu_torch.weights import reid_from_params
+from torch_port_threads import torch_threads  # noqa: F401
 
 F32 = torch.float32
 

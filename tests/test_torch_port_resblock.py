@@ -66,6 +66,7 @@ from test_pallas_resblock import (
 )
 from test_torch_port_slice import _plant_small_boxes
 from test_torch_port_tracking import DISCRETE
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 def _t(a, dtype=None):
@@ -489,17 +490,26 @@ def small():
                 j_reid=j_reid_params(0))
 
 
-def _gap_threshold(small, mode):
-    """A threshold in the widest gap of the routed forward's objectness
-    (ranks 5-25), so that a bf16 ulp flips no candidate."""
-    impl = JR.make_resblock_impl(
-        small["jplan"], interpret=True,
-        int8_pkg=small["pkg"] if mode == "int8" else None)
-    dec = np.asarray(network_apply(small["jplan"], small["folded"],
-                                   small["xs"], block_impl=impl))
-    obj = np.sort(dec[..., 4].ravel())[::-1][4:26]
-    gap = int(np.argmax(obj[:-1] - obj[1:]))
-    return float((obj[gap] + obj[gap + 1]) / 2)
+@pytest.fixture(scope="module")
+def gap_threshold(small):
+    """get(mode) -> a threshold in the widest gap of the routed forward's
+    objectness (ranks 5-25), so that a bf16 ulp flips no candidate; the
+    reference's routed forward runs once per mode for the file."""
+    thresholds = {}
+
+    def get(mode):
+        if mode not in thresholds:
+            impl = JR.make_resblock_impl(
+                small["jplan"], interpret=True,
+                int8_pkg=small["pkg"] if mode == "int8" else None)
+            dec = np.asarray(network_apply(small["jplan"], small["folded"],
+                                           small["xs"], block_impl=impl))
+            obj = np.sort(dec[..., 4].ravel())[::-1][4:26]
+            gap = int(np.argmax(obj[:-1] - obj[1:]))
+            thresholds[mode] = float((obj[gap] + obj[gap + 1]) / 2)
+        return thresholds[mode]
+
+    return get
 
 
 def _routes(mode):
@@ -510,11 +520,12 @@ def _routes(mode):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
-def test_bucketed_step_and_detect_stage_with_chains_match_jax(small, mode):
+def test_bucketed_step_and_detect_stage_with_chains_match_jax(
+        small, gap_threshold, mode):
     t_route, j_route = _routes(mode)
     pkg = small["pkg"] if mode == "int8" else None
     det_cfg = DetectorConfig(img_size=64, max_dets=8,
-                             conf_thres=_gap_threshold(small, mode))
+                             conf_thres=gap_threshold(mode))
     trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
     kw = dict(buckets=(4, 8), windows=((16, 16), (32, 40), (48, 64)))
     frames = np.broadcast_to(small["frames"][None], (K, S, H, W_, 3)).copy()
@@ -559,11 +570,12 @@ def test_bucketed_step_and_detect_stage_with_chains_match_jax(small, mode):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
-def test_make_batched_step_with_chains_matches_jax(small, mode):
+def test_make_batched_step_with_chains_matches_jax(small, gap_threshold,
+                                                   mode):
     t_route, j_route = _routes(mode)
     pkg = small["pkg"] if mode == "int8" else None
     det_cfg = DetectorConfig(img_size=64, max_dets=8,
-                             conf_thres=_gap_threshold(small, mode))
+                             conf_thres=gap_threshold(mode))
     trk_cfg = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)
     j_step = JS.make_batched_step(small["jplan"], det_cfg, trk_cfg, (H, W_),
                                   donate_state=False, use_resblock=j_route,

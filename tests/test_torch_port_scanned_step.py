@@ -44,7 +44,9 @@ from yolo_deepsort_tpu_torch.ops.letterbox_kernel import letterbox_batch_fused
 from yolo_deepsort_tpu_torch.parallel import streams as TS
 
 from test_torch_port_batched_step import H, S, W_, setup  # noqa: F401
+from test_torch_port_slice import _snapshot
 from test_torch_port_tracking import DISCRETE
+from torch_port_threads import torch_threads  # noqa: F401
 
 K, CHUNKS = 3, 2
 TRK = dict(max_tracks=16, max_dets=8, nn_budget=4)
@@ -57,7 +59,7 @@ def scan_setup(setup):  # noqa: F811
     step) and classes to filter on (every other class among the first
     frame's detections)."""
     xs = jax.vmap(lambda f: j_letterbox(f, 64))(setup["frames"])
-    j32 = np.asarray(network_apply(setup["jplan"], setup["folded"], xs))
+    j32 = setup["dec"]
     j16 = np.asarray(jax.jit(lambda x: network_apply(
         setup["jplan"], setup["folded"], x, compute_dtype=jnp.bfloat16))(xs))
     keep = j32[..., 4] >= setup["thr"]
@@ -146,30 +148,64 @@ def _port_models(setup, dtype):  # noqa: F811
     return setup["detector"], setup["reid"]
 
 
+@pytest.fixture(scope="module")
+def port_scanned(scan_setup):
+    """get(dtype, filtered) -> [(states, outputs, emit)] after each of
+    CHUNKS chunks of the port's make_scanned_step on its default tracker
+    branch (kernel 3), run once per dtype and filter for the file; the
+    states are copies (the step writes the gallery in place)."""
+    su, runs = scan_setup, {}
+    det_cfg, trk_cfg, _, _ = _cfgs(su["thr"])
+
+    def get(dtype, filtered):
+        if (dtype, filtered) not in runs:
+            detector, reid = _port_models(su, dtype)
+            runs[dtype, filtered] = _port_chunks(TS.make_scanned_step(
+                detector, reid, det_cfg, trk_cfg, (H, W_), K,
+                tracked_class_ids=su["classes"] if filtered else None),
+                torch.from_numpy(_chunk(su)))
+        return runs[dtype, filtered]
+
+    return get
+
+
+def _port_chunks(step, chunk):
+    """[(states, outputs, emit)] after each of CHUNKS chunks of the port's
+    ``step`` from fresh states; the states are copies (the step writes the
+    gallery in place)."""
+    st, run = TS.init_stream_states(TrackerConfig(**TRK), S, "cpu"), []
+    for _ in range(CHUNKS):
+        st, (out, emit) = step(st, chunk)
+        run.append((_snapshot(st), out, emit))
+    return run
+
+
 @pytest.mark.parametrize("filtered", [False, True],
                          ids=["all-classes", "class-filter"])
 @pytest.mark.parametrize("fused", [True, False],
                          ids=["fused-tracker", "tracker-step"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_scanned_step_matches_jax(scan_setup, jax_scanned, dtype, fused,
-                                  filtered):
+def test_scanned_step_matches_jax(scan_setup, jax_scanned, port_scanned,
+                                  dtype, fused, filtered):
     """Two chunks of K=3 through both make_scanned_steps: per frame, ids
     and emit exactly equal, boxes within 1 px; after each chunk the
     discrete state exactly equal and the means within 2e-3 px. Both of
     the port's tracker branches are held to the reference's
-    ``tracker_step`` branch (``jax_scanned``)."""
+    ``tracker_step`` branch (``jax_scanned``); the fused branch is the
+    default one, whose runs ``port_scanned`` keeps."""
     su = scan_setup
     det_cfg, trk_cfg, _, _ = _cfgs(su["thr"])
-    detector, reid = _port_models(su, dtype)
-    step = TS.make_scanned_step(
-        detector, reid, det_cfg, trk_cfg, (H, W_), K,
-        tracked_class_ids=su["classes"] if filtered else None,
-        use_fused_tracker=fused)
-    st = TS.init_stream_states(trk_cfg, S, "cpu")
+    if fused:
+        port = port_scanned(dtype, filtered)
+    else:
+        detector, reid = _port_models(su, dtype)
+        port = _port_chunks(TS.make_scanned_step(
+            detector, reid, det_cfg, trk_cfg, (H, W_), K,
+            tracked_class_ids=su["classes"] if filtered else None,
+            use_fused_tracker=False), torch.from_numpy(_chunk(su)))
     emitted = 0
-    for c, (j_st, j_out, j_emit) in enumerate(
-            jax_scanned(dtype)[filtered]):
-        st, (out, emit) = step(st, torch.from_numpy(_chunk(su)))
+    for c, ((j_st, j_out, j_emit), (st, out, emit)) in enumerate(
+            zip(jax_scanned(dtype)[filtered], port, strict=True)):
         assert out.shape == (K, S, trk_cfg.max_tracks, 5)
         tag = f"{dtype} fused={fused} filtered={filtered} chunk {c}"
         _assert_rows(out, emit, j_out, j_emit, tag)
@@ -179,7 +215,8 @@ def test_scanned_step_matches_jax(scan_setup, jax_scanned, dtype, fused,
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_scanned_step_equals_repeated_batched_step(scan_setup, dtype):
+def test_scanned_step_equals_repeated_batched_step(scan_setup, port_scanned,
+                                                   dtype):
     """A chunk of K frames through the scanned step equals K calls of the
     port's make_batched_step (the JAX suite's
     ``test_scanned_step_equals_repeated_batched``), here bit for bit: the
@@ -187,14 +224,10 @@ def test_scanned_step_equals_repeated_batched_step(scan_setup, dtype):
     su = scan_setup
     det_cfg, trk_cfg, _, _ = _cfgs(su["thr"])
     detector, reid = _port_models(su, dtype)
-    scanned = TS.make_scanned_step(detector, reid, det_cfg, trk_cfg, (H, W_),
-                                   K)
     batched = TS.make_batched_step(detector, reid, det_cfg, trk_cfg, (H, W_))
-    st_a = TS.init_stream_states(trk_cfg, S, "cpu")
     st_b = TS.init_stream_states(trk_cfg, S, "cpu")
     chunk = torch.from_numpy(_chunk(su))
-    for _ in range(CHUNKS):
-        st_a, (out_a, emit_a) = scanned(st_a, chunk)
+    for st_a, out_a, emit_a in port_scanned(dtype, False):
         outs, emits = [], []
         for t in range(K):
             st_b, (o, e) = batched(st_b, chunk[t])
@@ -209,7 +242,7 @@ def test_scanned_step_equals_repeated_batched_step(scan_setup, dtype):
 
 @pytest.mark.parametrize("case", ["full-capacity", "class-filter",
                                   "bf16-refused-frame"])
-def test_bucketed_step_equals_scanned_step(scan_setup, case):
+def test_bucketed_step_equals_scanned_step(scan_setup, port_scanned, case):
     """The bucketed step reproduces the monolithic step (the JAX suite's
     ``test_bucketed_scanned_step_equals_full_capacity`` and
     ``test_bucketed_step_class_filter_parity``): buckets (2, 4), a window
@@ -229,16 +262,16 @@ def test_bucketed_step_equals_scanned_step(scan_setup, case):
         w = 120
         detector, reid = su["det16"], su["reid16"]
         chunk = chunk[:, :, :, :w].contiguous()
-    full = TS.make_scanned_step(detector, reid, det_cfg, trk_cfg, (H, w), K,
-                                tracked_class_ids=classes)
+        runs = _port_chunks(TS.make_scanned_step(
+            detector, reid, det_cfg, trk_cfg, (H, w), K), chunk)
+    else:  # the f32 scanned step on the setup's frames
+        runs = port_scanned("f32", classes is not None)
     bucketed = TS.make_scanned_step_bucketed(
         detector, reid, det_cfg, trk_cfg, (H, w), buckets=(2, 4),
         tracked_class_ids=classes, windows=((16, 16), (32, 40), (48, 64)))
-    st_a = TS.init_stream_states(trk_cfg, S, "cpu")
     st_b = TS.init_stream_states(trk_cfg, S, "cpu")
     emitted = 0
-    for _ in range(CHUNKS):
-        st_a, (out_a, emit_a) = full(st_a, chunk)
+    for st_a, out_a, emit_a in runs:
         st_b, (out_b, emit_b) = bucketed(st_b, chunk)
         assert bucketed.last_max_count <= bucketed.last_bucket
         _assert_rows(out_b, emit_b, out_a, emit_a, case)

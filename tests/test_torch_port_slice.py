@@ -19,6 +19,8 @@ per-layer route (f32 crops on both sides), > 0.999 for the resident route
 (measured 0.9998: the crop and front roundings above).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,7 @@ from yolo_deepsort_tpu_torch.weights import (
     reid_from_params,
     reid_int8_package_to_torch,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 H, W_, K, S, CHUNKS = 64, 128, 2, 2, 3
 WINDOWS = ((16, 16), (32, 40), (48, 64))
@@ -64,7 +67,11 @@ def _plant_small_boxes(raw, plan, height=12.0, aspect=0.5):
     return raw
 
 
-def _setup():
+@pytest.fixture(scope="module")
+def su():
+    """The setup every test of the file reads, made once: both packages'
+    forms of the detector, the chunk's frames, the per-stream thresholds
+    from the JAX forward and the configs."""
     defs = ARCHITECTURES["yolov3-tiny"](img_size=64)
     jplan, tplan = j_build(defs), build_network(defs)
     blob = random_darknet_weights(jplan.defs(), seed=0, well_conditioned=True)
@@ -89,9 +96,16 @@ def _setup():
                 detector=darknet_from_raw(tplan, raw))
 
 
+def _snapshot(states):
+    """A copy of ``states`` that later steps leave alone (the serving steps
+    write the gallery in place)."""
+    return type(states)(**{f.name: getattr(states, f.name).clone()
+                           for f in dataclasses.fields(states)})
+
+
 def _run_both(su, j_reid, t_reid, embed_int8=False, min_cos=0.9999):
     """CHUNKS chunks through both BucketedScannedSteps; returns the port's
-    step and its outputs per chunk."""
+    (states, outputs, emit) after each chunk."""
     det_cfg, trk_cfg, kw = su["det_cfg"], su["trk_cfg"], su["kw"]
     frames, folded = su["frames"], su["folded"]
     j_step = JS.BucketedScannedStep(su["jplan"], det_cfg, trk_cfg, (H, W_),
@@ -121,7 +135,7 @@ def _run_both(su, j_reid, t_reid, embed_int8=False, min_cos=0.9999):
         assert t_step.last_bucket == j_step.last_bucket
         assert t_step.last_window == j_step.last_window
         emitted += int(t_emit.sum())
-        outs.append((t_out, t_emit))
+        outs.append((_snapshot(t_states), t_out, t_emit))
     assert t_step.last_window != (H, W_), "the windowed crop path ran"
     assert emitted > 0, "tracks confirmed and were emitted"
     assert t_step.saturation() == j_step.saturation()
@@ -132,12 +146,11 @@ def _run_both(su, j_reid, t_reid, embed_int8=False, min_cos=0.9999):
     assert filled.any()
     cos = (j_gal * t_gal).sum(-1)[filled]
     assert cos.min() > min_cos, cos.min()
-    return t_step, t_states, outs
+    return outs
 
 
-def test_bucketed_scanned_step_matches_jax():
-    _run_both(_setup(), j_reid_params(0),
-              reid_from_params(random_reid_params(0)))
+def test_bucketed_scanned_step_matches_jax(su):
+    _run_both(su, j_reid_params(0), reid_from_params(random_reid_params(0)))
 
 
 @pytest.fixture(scope="module")
@@ -146,38 +159,45 @@ def calib():
         np.float32)
 
 
-def test_bucketed_scanned_step_embed_int8_resident_matches_jax(calib):
+@pytest.fixture(scope="module")
+def resident_pkg(calib):
+    """The JAX package's resident int8 ReID package, calibrated once."""
+    return JQ.quantize_reid_params_resident(j_reid_params(0), calib)
+
+
+def test_bucketed_scanned_step_embed_int8_resident_matches_jax(
+        su, resident_pkg):
     """``embed_int8="resident"`` on both sides, one package; and the port's
-    ``"resident_pallas"`` on CPU tensors takes kernel 8's plain version, so
-    it gives exactly what ``"resident"`` gives, features included."""
-    su = _setup()
-    pkg = JQ.quantize_reid_params_resident(j_reid_params(0), calib)
+    ``"resident_pallas"`` on CPU tensors takes kernel 8's plain version, the
+    very function ``"resident"`` runs, so on the first chunk, whose embeds
+    fill the gallery, it gives exactly what ``"resident"`` gives, features
+    included."""
+    pkg = resident_pkg
     t_pkg = reid_int8_package_to_torch(pkg, "cpu")
-    _, st_a, outs_a = _run_both(su, pkg, t_pkg, embed_int8="resident",
-                                min_cos=0.999)
+    outs_a = _run_both(su, pkg, t_pkg, embed_int8="resident", min_cos=0.999)
     step = TS.BucketedScannedStep(
         su["detector"], t_pkg, su["det_cfg"], su["trk_cfg"], (H, W_),
         embed_int8="resident_pallas", **su["kw"])
-    st_b = TS.init_stream_states(su["trk_cfg"], S, "cpu")
-    for out_a, emit_a in outs_a:
-        st_b, (out_b, emit_b) = step(st_b, torch.from_numpy(su["frames"]))
-        assert torch.equal(out_a, out_b) and torch.equal(emit_a, emit_b)
+    st_a, out_a, emit_a = outs_a[0]
+    st_b, (out_b, emit_b) = step(TS.init_stream_states(su["trk_cfg"], S,
+                                                       "cpu"),
+                                 torch.from_numpy(su["frames"]))
+    assert torch.equal(out_a, out_b) and torch.equal(emit_a, emit_b)
     assert torch.equal(st_a.gallery, st_b.gallery)
     assert float(st_b.gallery.abs().max()) > 0
 
 
-def test_bucketed_scanned_step_embed_int8_per_layer_matches_jax(calib):
+def test_bucketed_scanned_step_embed_int8_per_layer_matches_jax(su, calib):
     """``embed_int8=True``: the per-layer W8A8 route (no kernel), f32
     crops on both sides."""
     pkg = JQ.quantize_reid_params(j_reid_params(0), calib)
-    _run_both(_setup(), pkg, reid_int8_package_to_torch(pkg, "cpu"),
+    _run_both(su, pkg, reid_int8_package_to_torch(pkg, "cpu"),
               embed_int8=True)
 
 
-def test_embed_route_and_package_must_agree(calib):
-    su = _setup()
+def test_embed_route_and_package_must_agree(su, resident_pkg):
     args = (su["det_cfg"], su["trk_cfg"], (H, W_), 4)
-    pkg = JQ.quantize_reid_params_resident(j_reid_params(0), calib)
+    pkg = resident_pkg
     with pytest.raises(ValueError, match="quantize_reid_params_resident"):
         TS.make_scanned_track_stage(reid_from_params(random_reid_params(0)),
                                     *args, embed_int8="resident")
@@ -190,7 +210,7 @@ def test_embed_route_and_package_must_agree(calib):
         TS.make_scanned_track_stage(pkg, *args, embed_int8="resident_xla")
 
 
-def test_bucketed_step_hands_the_conv_route_to_its_detect_stage():
+def test_bucketed_step_hands_the_conv_route_to_its_detect_stage(su):
     """``use_pallas_conv`` / ``backbone_int8_pkg`` on the bucketed step (and
     its constructor function) reach the detect stage: its detect outputs
     equal those of a detect stage built directly with the route, and differ
@@ -199,7 +219,6 @@ def test_bucketed_step_hands_the_conv_route_to_its_detect_stage():
         quantize_darknet_from_frames,
     )
 
-    su = _setup()
     det_cfg, trk_cfg, kw = su["det_cfg"], su["trk_cfg"], su["kw"]
     frames = torch.from_numpy(su["frames"])
     pkg = quantize_darknet_from_frames(su["detector"], su["frames"][0], 64)

@@ -45,6 +45,7 @@ from yolo_deepsort_tpu_torch.parallel.streams import (
 )
 from yolo_deepsort_tpu_torch.tools import soak as TS
 from yolo_deepsort_tpu_torch.tools import soak_multichip as TM
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TIME_LIMIT = 120  # seconds, both ranks together
@@ -114,14 +115,6 @@ def ranks():
         yield r
     finally:
         r.kill()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

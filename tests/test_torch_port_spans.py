@@ -48,6 +48,7 @@ from yolo_deepsort_tpu_torch.tools.honest_load import (
 )
 from yolo_deepsort_tpu_torch.utils import profiling as P
 from yolo_deepsort_tpu_torch.weights import darknet_from_raw, reid_from_params
+from torch_port_threads import torch_threads  # noqa: F401
 
 K, S, HW, IMG = 2, 2, (64, 128), 64
 TRK = TrackerConfig(max_tracks=16, max_dets=8, nn_budget=4)

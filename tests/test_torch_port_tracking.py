@@ -29,6 +29,7 @@ from yolo_deepsort_tpu_torch.tracking.tracker import (
     init_tracker_state,
     tracker_step,
 )
+from torch_port_threads import torch_threads  # noqa: F401
 
 DISCRETE = ("state", "hits", "age", "time_since_update", "track_id",
             "gallery_head", "gallery_count", "next_id")

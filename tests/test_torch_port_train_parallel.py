@@ -76,6 +76,7 @@ from yolo_deepsort_tpu_torch.train.trees import (
 )
 from yolo_deepsort_tpu_torch.train.yolo_loss import yolo_loss
 from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TIME_LIMIT = 120  # seconds, every process of this file together
@@ -153,16 +154,6 @@ try:
 finally:
     dist.destroy_process_group()
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this file's own steps (the suite runs files
-    in parallel processes)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
 
 
 # ---------------------------------------------------------------- the cases

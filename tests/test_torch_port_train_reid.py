@@ -31,17 +31,7 @@ from yolo_deepsort_tpu_torch.train import reid_train as TT
 from yolo_deepsort_tpu_torch.train.trees import to_numpy, to_torch
 from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
 from yolo_deepsort_tpu_torch.weights import reid_from_params
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this file's tests: the suite runs files in
-    parallel processes, and torch's default (one thread a core in every
-    process) oversubscribes the CPU many times over in the backward
-    passes."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 N_CLASSES, BATCH = 5, 4

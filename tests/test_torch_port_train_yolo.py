@@ -40,17 +40,7 @@ from yolo_deepsort_tpu_torch.train import yolo_cli as TC
 from yolo_deepsort_tpu_torch.train.trees import to_numpy, to_torch
 from yolo_deepsort_tpu_torch.train.yolo_loss import yolo_head_loss
 from yolo_deepsort_tpu_torch.utils.checkpoint import tree_leaves
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this file's tests: the suite runs files in
-    parallel processes, and torch's default (one thread a core in every
-    process) oversubscribes the CPU many times over in the backward
-    passes."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(was)
+from torch_port_threads import torch_threads  # noqa: F401
 
 
 ANCHORS = ((16.0, 32.0), (32.0, 16.0), (48.0, 48.0))

@@ -30,6 +30,7 @@ from yolo_deepsort_tpu_torch import weights as W
 from yolo_deepsort_tpu_torch.cfg import parse_model_config
 from yolo_deepsort_tpu_torch.models.darknet import build_network
 from yolo_deepsort_tpu_torch.tools import verify_weights as VW
+from torch_port_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = str(REPO / "config" / "yolov3-tiny.cfg")

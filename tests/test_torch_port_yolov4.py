@@ -34,6 +34,7 @@ from yolo_deepsort_tpu_torch.models.darknet import build_network
 from yolo_deepsort_tpu_torch.models.reid import random_reid_params
 from yolo_deepsort_tpu_torch.parallel import streams as TS
 from yolo_deepsort_tpu_torch.weights import darknet_from_raw, reid_from_params
+from torch_port_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = ROOT / "gpubench" / "configs" / "yolov4.cfg"
