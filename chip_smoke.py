@@ -455,8 +455,8 @@ TOL_SMALL_BOXES = 1e-3
 # rounding: 2 bf16 ulps of max(|want|, 2^-6), compared in f32 (inputs
 # ~N(0, 1); below 2^-6 the sums' own rounding outweighs the value's ulp).
 # int8 mode: int32 sums are exact, the f32 epilogue is the plain version's op
-# for op (--fmad=false): exactly equal. mish goes through two math
-# libraries: int8 mode within 1 bf16 ulp there.
+# for op (--fmad=false): exactly equal. The kernel's mish is another form
+# than the plain version's: int8 mode within 1 bf16 ulp there.
 TOL_CONV_ULPS = 2.0
 CONV_ULP_FLOOR = 2.0 ** -6
 # kernel 7's f32-output form: the same products summed in another order

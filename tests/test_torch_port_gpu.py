@@ -27,6 +27,8 @@ from yolo_deepsort_tpu_torch.tracking.tracker import (
     tracker_step,
 )
 
+import test_torch_port_mish_form as MF
+
 pytestmark = pytest.mark.gpu
 
 DISCRETE = ("state", "hits", "age", "time_since_update", "track_id",
@@ -349,8 +351,8 @@ def bf16_ulps(got, want, floor=2.0 ** -6):
 def test_conv_kernel_vs_plain(cuda_device, shape, mode):
     """Kernel 7 against its plain versions: bf16 mode within 2 bf16 ulps
     (same exact products, another order of f32 sums); int8 mode exactly
-    equal (exact int32 sums, same f32 epilogue; mish goes through two math
-    libraries and is held to 1 bf16 ulp)."""
+    equal (exact int32 sums, same f32 epilogue; the kernel's mish is
+    another form than the plain version's and is held to 1 bf16 ulp)."""
     n, hi, ci, co, k, stride, act = shape
     rng = np.random.default_rng(hi + ci + co)
     x = torch.from_numpy(rng.standard_normal((n, hi, hi, ci), np.float32))
@@ -423,6 +425,95 @@ def test_conv_kernel_default_path_forms_vs_plain(cuda_device, shape):
                      ) <= 2.0 ** -13
     else:
         assert bf16_ulps(got.float(), want.float()) <= 2
+
+
+def _check_mish_bf16(got, y):
+    """The bf16 mish of the sums ``y``: float64 mish rounded to bf16 (ties
+    to even) wherever it lies more than ``MAX_ULPS`` float32 ulps from a
+    bf16 rounding midpoint, within one bf16 ulp of it elsewhere; below y =
+    -80, within ``TINY_ABS`` and one bf16 ulp (the bounds of
+    ``tests/test_torch_port_mish_form.py``). -> the count near a
+    midpoint."""
+    want = MF.mish64(y)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    got, want, y = got[keep], want[keep], y[keep]
+    bits = want.astype(np.float32).view(np.uint32)
+    rne = (((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16).view(
+        np.float32)
+    mid = ((bits & 0xFFFF0000) | 0x8000).view(np.float32)
+    bf16_ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want),
+                                                   2.0 ** -126))) - 7)
+    with np.errstate(invalid="ignore"):  # inf - inf at y = inf
+        err = np.abs(got.astype(np.float64) - want)
+        far = ~(np.abs(want - mid) <= MF.MAX_ULPS * MF.f32_ulp(want))
+    low = y < -80
+    assert (err[low] <= MF.TINY_ABS + bf16_ulp[low]).all()
+    far &= ~low
+    assert np.array_equal(got[far], rne[far])
+    near = ~low & ~far
+    assert (err[near] <= bf16_ulp[near]).all()
+    return int(near.sum())
+
+
+@pytest.mark.parametrize("case", ["bf16", "bf16_biased", "int8"])
+def test_conv_kernel_mish_against_float64(cuda_device, case):
+    """Kernel 7's mish epilogue (one exponential and one division) as an
+    identity 1x1 conv, Ci = Co = 8, each row one input in all 8 channels:
+    ``bf16`` every bf16 value, bias 0; ``bf16_biased`` the same inputs
+    under 8 launches of seeded per-column f32 biases (2^22 f32 sums);
+    ``int8`` the int8 mode through its scale, the codes -127..127 (xinv 1)
+    under 32 launches of seeded per-column scales and biases. The sums the
+    epilogue activates are the linear f32-output form's (bf16) or the f32
+    steps the epilogue takes (int8). The bf16 output follows float64 mish
+    by the midpoint rule (``_check_mish_bf16``); the f32 output form is
+    held to the CPU mirror's bounds (``check_against_float64``)."""
+    dev = cuda_device
+    rng = np.random.default_rng(28)
+    eye = torch.eye(8).reshape(1, 1, 8, 8)
+    got_b, got_f, sums = [], [], []
+    before = (conv_kernel.launches, conv_kernel.launches_mish)
+    if case == "int8":
+        codes = np.arange(-127, 128, dtype=np.float32)
+        x = torch.from_numpy(np.repeat(codes[:, None], 8, 1)).reshape(
+            1, 1, 255, 8).to(dev, torch.bfloat16)
+        wq = eye.to(dev, torch.int8)
+        for _ in range(32):
+            scale = rng.uniform(0.05, 0.9, 8).astype(np.float32)
+            b = rng.uniform(-40, 25, 8).astype(np.float32)
+            out = conv_kernel.conv_int8(
+                x, wq, torch.from_numpy(b).to(dev),
+                torch.from_numpy(scale).to(dev), 1.0, pad=0, act="mish")
+            got_b.append(out.float().cpu().numpy().reshape(-1))
+            sums.append((codes[:, None] * scale + b).reshape(-1))
+        launched = mish = 32
+    else:
+        v = (np.arange(2 ** 16, dtype=np.uint32) << 16).view(np.float32)
+        x = torch.from_numpy(np.repeat(v[:, None], 8, 1)).reshape(
+            1, 256, 256, 8).to(dev, torch.bfloat16)
+        w = eye.to(dev, torch.bfloat16)
+        biases = ([np.zeros(8, np.float32)] if case == "bf16" else
+                  [rng.uniform(-4, 4, 8).astype(np.float32)
+                   for _ in range(8)])
+        for b in biases:
+            bd = torch.from_numpy(b).to(dev)
+            kw = dict(pad=0, out_dtype=torch.float32)
+            sums.append(conv_kernel.conv_bf16(
+                x, w, bd, act="linear", **kw).cpu().numpy().reshape(-1))
+            got_f.append(conv_kernel.conv_bf16(
+                x, w, bd, act="mish", **kw).cpu().numpy().reshape(-1))
+            got_b.append(conv_kernel.conv_bf16(
+                x, w, bd, pad=0, act="mish").float().cpu().numpy().reshape(
+                    -1))
+        launched, mish = 3 * len(biases), 2 * len(biases)
+    assert (conv_kernel.launches - before[0],
+            conv_kernel.launches_mish - before[1]) == (launched, mish)
+    y = np.concatenate(sums)
+    near = _check_mish_bf16(np.concatenate(got_b), y)
+    worst = (MF.check_against_float64(np.concatenate(got_f), y) if got_f
+             else None)
+    print(f"mish {case}: {y.size} sums, {near} near a bf16 midpoint, "
+          f"worst f32 ulps {worst}")
 
 
 def test_bf16_layer_route_pads_and_counts(cuda_device):
@@ -958,8 +1049,9 @@ def test_resblock_chain_kernel_vs_plain(cuda_device, shape, mode):
     ``mid`` quantized from the same bf16 values). bf16 mode: f32 sums in
     another order move bf16 roundings and a chain compounds them: every
     element inside the reference's elementwise bound rtol = atol = 3e-2
-    (``CHAIN_TOL``; the operands keep the chain state of order 1). mish goes
-    through two math libraries: held to the bf16 bound in both modes."""
+    (``CHAIN_TOL``; the operands keep the chain state of order 1). The
+    kernel's mish is another form than the plain version's: held to the
+    bf16 bound in both modes."""
     n, h, ci, cm, nblk, act = shape
     bf16, int8 = _chain_case(h + ci + nblk, n, h, ci, cm, nblk, cuda_device,
                              act)

@@ -282,7 +282,8 @@ def test_yolov4_608_replay_equals_eager():
     """yolov4 at its published 608, 8 streams of 1080p, bf16 (every conv
     on kernel 7): the replayed detector's decoded rows are its eager
     forward's bit for bit, on two frame sets in turn, and the eager
-    forward under a profiler (its module spans recorded) gives them too."""
+    forward under a profiler (its module spans recorded) gives them too.
+    Every call counts the forward's 72 mish convs in ``conv_mish``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from torch.profiler import ProfilerActivity, profile
@@ -301,7 +302,10 @@ def test_yolov4_608_replay_equals_eager():
     with torch.no_grad():
         for i in range(5):
             xs = letterbox_batch_fused(frames[i % 2], 608, torch.bfloat16)
+            mish = read_launches()["conv_mish"]
             got = graph(xs).clone()
+            # 72 mish convs a forward: eager, captured and replayed alike
+            assert read_launches()["conv_mish"] - mish == 72, f"call {i}"
             _assert_equal(got, graph.forward(xs), f"call {i}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):

@@ -21,8 +21,24 @@ enum Act { ACT_LINEAR = 0, ACT_LEAKY = 1, ACT_MISH = 2, ACT_RELU = 3,
 __device__ __forceinline__ float activate(float y, int act) {
     if (act == ACT_LEAKY) return y > 0.0f ? y : 0.1f * y;
     if (act == ACT_MISH) {
-        float sp = fmaxf(y, 0.0f) + log1pf(expf(-fabsf(y)));  // softplus
-        return y * tanhf(sp);
+        // y tanh(log(1 + e^y)) = y n / (n + 2), n = e^y (e^y + 2): one
+        // exponential and one division, each step rounded as written (the
+        // unit builds with --fmad=false; the fmas of the division are
+        // explicit). The division is the approximate reciprocal and one
+        // Newton step on the quotient, within a fraction of an ulp of
+        // __fdiv_rn, whose slow path would be a call in every
+        // instantiation. No branch: above 20 tanh(softplus(y)) rounds to 1
+        // in f32, and past ~44.3 n overflows (the quotient is NaN there),
+        // so y itself is selected. Within 8 f32 ulps of float64 mish for
+        // y >= -80 (tests/test_torch_port_mish_form.py).
+        const float e = expf(y);
+        const float n = __fmul_rn(e, __fadd_rn(e, 2.0f));
+        const float d = __fadd_rn(n, 2.0f), yn = __fmul_rn(y, n);
+        float r;
+        asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+        const float q = __fmul_rn(yn, r);
+        const float m = __fmaf_rn(__fmaf_rn(-d, q, yn), r, q);
+        return y > 20.0f ? y : m;
     }
     if (act == ACT_RELU) return y > 0.0f ? y : 0.0f;
     if (act == ACT_ELU) return y > 0.0f ? y : expm1f(y);

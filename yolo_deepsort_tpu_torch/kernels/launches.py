@@ -25,6 +25,9 @@ LAUNCH_COUNTERS = {
     "conv": ("ops.conv_kernel", "launches"),
     # of the conv launches, those with a residual block's tail (ReID blocks)
     "conv_residual": ("ops.conv_kernel", "launches_residual"),
+    # of the conv launches, those whose epilogue runs mish (yolov4's convs);
+    # the detector graph adds its capture's count at every replay
+    "conv_mish": ("ops.conv_kernel", "launches_mish"),
     "conv_int8": ("ops.conv_int8_kernel", "launches"),
     "resblock": ("ops.resblock_kernel", "launches"),
     "matmul_probe": ("tools.int8_probe", "launches"),

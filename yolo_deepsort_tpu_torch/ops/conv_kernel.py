@@ -9,7 +9,9 @@ net of the port (``models/layers.conv_layer_bf16``): its f32 sums, f32 bias
 and activation and one rounding are where the reference's bf16 forward
 rounds, so every conv layer of a bf16 ``Darknet`` and ReID net runs here on
 the card, whatever ``backbone_conv_eligible`` (the route's speed policy)
-says. Activations: linear, leaky, mish, and the ReID nets' ReLU and ELU;
+says. Activations: linear, leaky, mish (as y n / (n + 2), n = e^y (e^y +
+2): one exponential and one division, within 8 f32 ulps of float64 mish),
+and the ReID nets' ReLU and ELU;
 ``out_dtype=torch.float32`` gives the f32-output form (no rounding, for a
 residual sum that rounds after its add), and ``residual=`` a residual
 block's whole tail in the epilogue: act((sum + bias) + shortcut) in f32,
@@ -65,6 +67,7 @@ from .conv_plan import (ConvPlan, as_hwio, kernel_weights,
 
 launches = 0  # kernel launches; only the launch below adds to it
 launches_residual = 0  # of them, those with a shortcut in the epilogue
+launches_mish = 0  # of them, those whose epilogue runs mish (any mode)
 
 # relu and elu are the ReID nets' (their stems and each block's first conv)
 _ACT_CODES = {"linear": 0, "": 0, "leaky": 1, "mish": 2, "relu": 3, "elu": 4}
@@ -220,9 +223,10 @@ def _launch(x, w, b, scale, xinv, stride, pad, act, mode, plan,
         plan.stages, plan.split,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("conv", err)
-    global launches, launches_residual
+    global launches, launches_residual, launches_mish
     launches += 1
     launches_residual += residual is not None
+    launches_mish += act == "mish"
     return out
 
 

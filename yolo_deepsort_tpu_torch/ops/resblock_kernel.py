@@ -89,8 +89,8 @@ _MAX_ELEMS = 2 ** 31  # the main loop's gather offsets are 32-bit
 # of ITS magnitude, and |y| <= |x| + |out|, so the block's output is held to
 # CHAIN_BLOCK_ULPS bf16 ulps of max(|x|, |out|, CHAIN_ULP_FLOOR) (where the
 # shortcut add cancels, the ulp of |out| itself says nothing). int8 mode with
-# a leaky activation is held exactly equal; mish goes through two math
-# libraries and is held to the bf16 bounds in both modes.
+# a leaky activation is held exactly equal; the kernel's mish is another
+# form than the plain version's and is held to the bf16 bounds in both modes.
 CHAIN_TOL = 3e-2
 CHAIN_BLOCK_ULPS = 4.0
 CHAIN_ULP_FLOOR = 2.0 ** -3

@@ -61,6 +61,7 @@ from ..config import DetectorConfig, TrackerConfig
 from ..device import resolve_device
 from ..models.darknet import Darknet
 from ..models.reid import ReIDNet
+from ..ops import conv_kernel
 from ..ops.crops import (
     crop_and_normalize,
     crop_and_normalize_batch,
@@ -466,7 +467,10 @@ class DetectorGraph:
     that key captures, on a memory pool of the graph's own, and replays. No
     capture starts while a torch profiler records: that call runs eagerly.
 
-    The kernels' launch counters count at capture, not at replay."""
+    The kernels' launch counters count at capture, not at replay; but
+    ``conv_mish``, the conv kernel's launches that run mish, counts the
+    forwards that run: the capture's count is kept and taken back, and
+    every replay (the capturing call's own included) adds it."""
 
     def __init__(self, detector: Darknet, conv_impl=None, block_impl=None):
         self.detector = detector
@@ -476,6 +480,7 @@ class DetectorGraph:
         self.layers = [m for m in detector.modules() if m._parameters]
         self.key = None
         self.graph = self.x = self.out = None
+        self.mish = 0  # mish conv launches the graph holds
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         return self.detector(xs, conv_impl=self.conv_impl,
@@ -506,12 +511,14 @@ class DetectorGraph:
             self.x.copy_(xs)
             self.graph.replay()
         detector_graph_launches += 1
+        conv_kernel.launches_mish += self.mish
         return self.out
 
     def capture(self, xs: torch.Tensor) -> None:
         global detector_capture_launches
         self.x = torch.empty_like(xs)
         graph = torch.cuda.CUDAGraph()
+        mish = conv_kernel.launches_mish
         # thread-local: other threads (the runtime's frame producers) may
         # call CUDA while this one captures
         with torch.cuda.device(xs.device), torch.cuda.graph(
@@ -519,6 +526,8 @@ class DetectorGraph:
                 capture_error_mode="thread_local"):
             self.out = self.forward(self.x)
         self.graph = graph
+        self.mish = conv_kernel.launches_mish - mish
+        conv_kernel.launches_mish = mish  # the replay after it counts them
         detector_capture_launches += 1
 
 

@@ -6,6 +6,7 @@ kernels, on two clocks, in this checkout or in another one.
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k9 k10
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k3 k4 k5
     python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels k1 k2 k6 k1crops
+    python3 yolo_deepsort_tpu_torch/tools/conv_clocks.py --kernels mish
 
 Kernel 7 at the 15 eligible conv shapes of yolov3-416 at batch 8 plus the mish
 shape (bf16 mode, and int8 mode with bf16 activations), kernel 8 at the nine
@@ -32,9 +33,14 @@ kernels 2 and 6 on ``chip_smoke.py``'s ``crops_case`` (8 x 40 boxes, window
 boxes as the checkout makes them (``k1_crops_fn``); ``strips`` times the
 three crop entries at every height of a block's strip of output rows
 (``STRIP_SWEEP``; a build of ``csrc/crops.cu`` per height,
-``CROPS_STRIP_*``), and the dense entry on boxes as wide as the frame. Two
-clocks, both CUDA events around 50 calls (10 for kernel 9 and
-``k1crops``):
+``CROPS_STRIP_*``), and the dense entry on boxes as wide as the frame;
+``mish`` times kernel 7's bf16 mode at yolov4-608's mish conv shapes at
+batch 8 (``MISH_CLASSES``), each with ``mish``, ``linear`` and ``leaky`` on
+the one plan the planner gives it, summed over the 72 layers of one
+forward: mish over linear and over leaky price the mish epilogue (linear
+is no floor where the codes after leaky in ``activate`` pay for mish's
+code). Two clocks, both
+CUDA events around 50 calls (10 for kernel 9 and ``k1crops``):
 
 * ``called_ms``: the calls made from Python back to back. Where a kernel is
   shorter than its wrapper's time on the host, this is the host's time.
@@ -93,6 +99,38 @@ K7_CLASSES = (
     ((52, 384, 128, 1, 1, "leaky"), 1, 0),
     ((52, 256, 255, 1, 1, "linear"), 0, 0),
     ((26, 256, 512, 3, 1, "mish"), 0, 0),
+)
+# (map, Ci, Co, k, stride) of yolov4-608's mish convs (the cfg's
+# gpubench/configs/yolov4.cfg), each with its count of layers: 26 shapes, 72
+# convs, 758.6 M outputs at batch 8. The stem's Ci 3 is padded to 8, as the
+# bf16 forward pads it.
+MISH_CLASSES = (
+    ((608, 3, 32, 3, 1), 1),
+    ((608, 32, 64, 3, 2), 1),
+    ((304, 32, 64, 3, 1), 1),
+    ((304, 64, 32, 1, 1), 1),
+    ((304, 64, 64, 1, 1), 3),
+    ((304, 64, 128, 3, 2), 1),
+    ((304, 128, 64, 1, 1), 1),
+    ((152, 64, 64, 1, 1), 3),
+    ((152, 64, 64, 3, 1), 2),
+    ((152, 128, 64, 1, 1), 2),
+    ((152, 128, 128, 1, 1), 1),
+    ((152, 128, 256, 3, 2), 1),
+    ((76, 128, 128, 1, 1), 9),
+    ((76, 128, 128, 3, 1), 8),
+    ((76, 256, 128, 1, 1), 2),
+    ((76, 256, 256, 1, 1), 1),
+    ((76, 256, 512, 3, 2), 1),
+    ((38, 256, 256, 1, 1), 9),
+    ((38, 256, 256, 3, 1), 8),
+    ((38, 512, 256, 1, 1), 2),
+    ((38, 512, 512, 1, 1), 1),
+    ((38, 512, 1024, 3, 2), 1),
+    ((19, 512, 512, 1, 1), 5),
+    ((19, 512, 512, 3, 1), 4),
+    ((19, 1024, 512, 1, 1), 2),
+    ((19, 1024, 1024, 1, 1), 1),
 )
 # (k, stride, h, w, Ci, Co) and the class's layers as (relu, int8 out,
 # residual) -> how many layers of one embed
@@ -177,6 +215,55 @@ def time_k9(torch, dev, rng):
               f"{tot['called_ms']:.6f} ms, device {tot['device_ms']:.6f} ms",
               flush=True)
     return {"per_class": classes, "forward_3_chains": forward}
+
+
+def time_mish(torch, dev):
+    """Kernel 7's bf16 mode per mish shape class, with ``mish``, ``linear``
+    and ``leaky`` on the same plan (the planner's for this card), and the
+    forward's 72 layers summed: ``epilogue_ms`` is mish minus linear."""
+    from yolo_deepsort_tpu_torch.ops import conv_kernel, conv_plan
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    classes = []
+    acts = ("mish", "linear", "leaky")
+    forward = {act: {"called_ms": 0.0, "device_ms": 0.0} for act in acts}
+    for (hi, ci, co, k, stride), layers in MISH_CLASSES:
+        cp, pad = -(-ci // 8) * 8, (k - 1) // 2
+        ho = (hi + 2 * pad - k) // stride + 1
+        x = torch.zeros((BATCH, hi, hi, cp), device=dev, dtype=torch.bfloat16)
+        x[..., :ci] = torch.randn((BATCH, hi, hi, ci), generator=gen,
+                                  device=dev)
+        w = torch.zeros((k, k, cp, co), device=dev)
+        w[:, :, :ci] = torch.randn((k, k, ci, co), generator=gen,
+                                   device=dev) / (k * k * ci) ** 0.5
+        wp = conv_plan.pack_conv_weights(w.to(torch.bfloat16))
+        b = torch.randn((co,), generator=gen, device=dev)
+        plan = conv_plan.plan_for(dev, BATCH * ho * ho, co, k * k * cp, 2)
+        row = {"shape": [hi, ci, co, k, stride], "layers": layers,
+               "plan": list(plan)}
+        for act in acts:
+            called, device = both_clocks(
+                torch, lambda: conv_kernel.conv_bf16_cuda(
+                    x, wp, b, stride=stride, pad=pad, act=act, plan=plan))
+            row[act] = {"called_ms": called, "device_ms": device}
+            forward[act]["called_ms"] += layers * called
+            forward[act]["device_ms"] += layers * device
+        row["epilogue_ms"] = (row["mish"]["device_ms"]
+                              - row["linear"]["device_ms"])
+        classes.append(row)
+        print(f"mish class {k}x{k} s{stride} {hi} {ci}->{co} x{layers} plan "
+              f"{tuple(plan)}: device mish {row['mish']['device_ms']:.6f} "
+              f"ms, linear {row['linear']['device_ms']:.6f} ms, leaky "
+              f"{row['leaky']['device_ms']:.6f} ms", flush=True)
+        del x, w, wp
+    epilogue = forward["mish"]["device_ms"] - forward["linear"]["device_ms"]
+    print(f"mish convs, one forward's 72 layers: device mish "
+          f"{forward['mish']['device_ms']:.6f} ms, linear "
+          f"{forward['linear']['device_ms']:.6f} ms, leaky "
+          f"{forward['leaky']['device_ms']:.6f} ms, epilogue "
+          f"{epilogue:.6f} ms", flush=True)
+    return {"per_class": classes, "forward_72_layers": forward,
+            "epilogue_ms": epilogue}
 
 
 def time_k10(torch, dev):
@@ -336,7 +423,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", nargs="*", default=["k7", "k8", "k9", "k10"],
                     help="which kernels to time (k1 k2 k6 k1crops k3 k4 "
                          "k5 k7 k8 k9 k10; strips: the crop entries at "
-                         "every strip height, this checkout only)")
+                         "every strip height, this checkout only; mish: "
+                         "kernel 7 at yolov4-608's mish conv shapes, mish "
+                         "against linear and leaky)")
     ap.add_argument("--out", default=None, help="write the JSON record here")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve() if args.root else \
@@ -427,6 +516,8 @@ def main(argv=None) -> int:
         out["k9"] = time_k9(torch, dev, rng)
     if "k10" in args.kernels:
         out["k10"] = time_k10(torch, dev)
+    if "mish" in args.kernels:
+        out["mish"] = time_mish(torch, dev)
     if {"k3", "k4", "k5"} & set(args.kernels):
         out["tracker_jv"] = time_tracker_jv(torch, dev, args.kernels)
     if {"k1", "k2", "k6", "k1crops", "strips"} & set(args.kernels):
